@@ -1,0 +1,424 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one GPU and check it.
+
+    python3 chip_smoke.py
+
+Phases, one JSON line each (with its seconds):
+
+1. device   — the card's name and power limit (``nvidia-smi``).
+2. build    — compile the hand-written CUDA kernels from ``kernels/csrc``,
+   then hold each against its plain PyTorch version (``torch.equal``)
+   on small random inputs at ragged shapes.
+3. main path, one real build per stage-2 route, with the launch counters
+   set to 0 before the first and read after the last:
+   - ``ell_loop``: ``ISLabelIndex.build`` on ``er:1000000:2.2@1``
+     (``l_cap=64``, ``label_chunk=8192``), then ``query`` on 1024 seeded
+     random pairs; the first 16 sources are checked bitwise against
+     Dijkstra;
+   - ``fused``: the same on ``er:10000:2.2@1``;
+   - ``dense``: the same on ``rmat:12:24@1`` (a small dense core).
+   Builds and queries run under ``torch.cuda.set_sync_debug_mode
+   ("error")``: any device sync outside ``host_read`` raises.
+4. kernels  — each kernel on the card against its plain PyTorch version
+   (``torch.equal``) on the inputs the main path gave it, with
+   CUDA-event times and the bound of the same work.
+
+Then the ``kernels`` line, the ``nvidia-smi`` line, and last
+``{"ok": true, "device": {...}}``. Any failed check raises: the script
+exits nonzero and prints no result. It needs one CUDA card and the
+repository's ``src/`` beside it.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+# published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
+# fp32 operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+MAIN_QUERIES = 1024
+KERNELS = {
+    "label_intersect_kernel": (
+        "src/repro_torch/kernels/csrc/label_intersect.cu",
+        "src/repro/kernels/label_intersect/kernel.py:59"),
+    "spmv_relax_kernel": (
+        "src/repro_torch/kernels/csrc/spmv_relax.cu",
+        "src/repro/kernels/spmv_relax/kernel.py:55"),
+    "fused_relax_kernel": (
+        "src/repro_torch/kernels/csrc/spmv_relax.cu",
+        "src/repro/kernels/spmv_relax/kernel.py:107"),
+    "minplus_matmul_kernel": (
+        "src/repro_torch/kernels/csrc/minplus_matmul.cu",
+        "src/repro/kernels/minplus_matmul/kernel.py:38"),
+}
+ROUTES = [  # (route, graph spec, generator call, IndexConfig overrides)
+    ("ell_loop", "er:1000000:2.2@1", ("er_graph", (1_000_000, 2.2), 1),
+     dict(l_cap=64, label_chunk=8192)),
+    ("fused", "er:10000:2.2@1", ("er_graph", (10_000, 2.2), 1),
+     dict(l_cap=64, label_chunk=4096)),
+    ("dense", "rmat:12:24@1", ("rmat_graph", (12, 24.0), 1),
+     dict(l_cap=512, label_chunk=1024)),
+]
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: {msg}")
+
+
+def cuda_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn`` over ``iters`` launches (CUDA events,
+    after one warm-up call)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def max_abs_err(a, b) -> float:
+    import torch
+    a, b = a.float(), b.float()
+    diff = torch.where(a == b, torch.zeros_like(a), (a - b).abs())
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_device() -> dict:
+    import torch
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    lines = [ln.strip() for ln in smi.stdout.splitlines() if ln.strip()]
+    if smi.returncode or not lines:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return {"name": torch.cuda.get_device_name(0), "smi": lines,
+            "count": torch.cuda.device_count(),
+            "torch": torch.__version__, "cuda": torch.version.cuda}
+
+
+def phase_build() -> dict:
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    lib = _build.build()
+    _build.load()
+    log = (lib.parent / "ptxas.log").read_text().splitlines()
+    usage = [ln.split("ptxas info    :")[-1].strip() for ln in log
+             if "registers" in ln or "spill" in ln]
+    return {"seconds": time.perf_counter() - t0, "library": str(lib),
+            "ptxas": usage}
+
+
+def drive_route(route, spec, gen_call, overrides, device):
+    """Build and query one graph on the card; returns (record, index,
+    s, t) and checks answers against Dijkstra."""
+    import numpy as np
+    import torch
+    from repro_torch.core import ISLabelIndex, IndexConfig, ref, sync
+    from repro_torch.graphs import generators as gen
+
+    t0 = time.perf_counter()
+    fn, args, seed = gen_call
+    n, src, dst, w = getattr(gen, fn)(*args, seed=seed)
+    gen_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        idx = ISLabelIndex.build(n, src, dst, w, IndexConfig(**overrides),
+                                 device=device)
+        mode = idx.engine.relaxer.mode if idx.engine.relaxer else "none"
+        rng = np.random.default_rng(0)
+        s = rng.integers(0, n, MAIN_QUERIES).astype(np.int32)
+        t = rng.integers(0, n, MAIN_QUERIES).astype(np.int32)
+        times, syncs = [], []
+        for _ in range(2):       # first call builds the core layouts
+            with sync.sync_span() as span:
+                t1 = time.perf_counter()
+                ans = idx.query(s, t)   # ends on a blocking read of rounds
+                times.append((time.perf_counter() - t1) * 1e3)
+            syncs.append(span.count)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if mode != route:
+        fail(f"{spec}: expected route {route}, took {mode}")
+    got = ans.cpu().numpy()
+    n_check = min(MAIN_QUERIES, 16 if n > 100_000 else 128)
+    oracle = ref.dijkstra_oracle(n, src, dst, w, s[:n_check])
+    want = oracle[np.arange(n_check), t[:n_check]].astype(np.float32)
+    if got.shape != (MAIN_QUERIES,) or not np.array_equal(got[:n_check], want):
+        fail(f"{spec}: answers differ from Dijkstra on the first {n_check} "
+             f"sources")
+    if np.isnan(got).any():
+        fail(f"{spec}: NaN answers")
+    st = idx.stats
+    rec = {"route": mode, "graph": spec, "n": n, "m": len(src) // 2,
+           "k": st.k, "n_core": st.n_core, "m_core": st.m_core // 2,
+           "gen_s": gen_s, "build_s": st.build_seconds,
+           "peel_s": st.peel_seconds, "label_s": st.label_seconds,
+           "mis_rounds": st.mis_rounds, "peel_iters": st.peel_iters,
+           "peel_loop_syncs": st.peel_loop_syncs,
+           "syncs_per_level": st.peel_loop_syncs / max(1, st.peel_iters),
+           "build_syncs": st.host_syncs,
+           "rounds": idx.engine._last_rounds,
+           "query_ms_first": times[0], "query_ms": times[1],
+           "query_syncs": syncs[1], "queries": MAIN_QUERIES,
+           "dijkstra_checked": n_check,
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "label_entries": st.label_entries}
+    return rec, idx, s, t
+
+
+def frontier(idx, s, t, vp: int):
+    """The stacked, padded [2Q, Vp] stage-2 seeds of one query batch."""
+    import torch
+    from repro_torch.core.dispatch import stack_frontiers
+    eng = idx.engine
+    sd = torch.as_tensor(s, device=idx.device)
+    td = torch.as_tensor(t, device=idx.device)
+    rs, rt = eng._rows(sd), eng._rows(td)
+    return (stack_frontiers(eng._seed(rs.ids, rs.d), eng._seed(rt.ids, rt.d),
+                            vp, 8), rs, rt)
+
+
+def _fns():
+    """name -> (CUDA kernel binding, plain PyTorch version)."""
+    from repro_torch.kernels.label_intersect.kernel import \
+        label_intersect_kernel
+    from repro_torch.kernels.label_intersect.ref import label_intersect_ref
+    from repro_torch.kernels.minplus_matmul.kernel import \
+        minplus_matmul_kernel
+    from repro_torch.kernels.minplus_matmul.ref import minplus_matmul_ref
+    from repro_torch.kernels.spmv_relax.kernel import (fused_relax_kernel,
+                                                       spmv_relax_kernel)
+    from repro_torch.kernels.spmv_relax.ref import (fused_relax_ref,
+                                                    spmv_relax_ref)
+    return {
+        "label_intersect_kernel": (label_intersect_kernel,
+                                   label_intersect_ref),
+        "spmv_relax_kernel": (spmv_relax_kernel, spmv_relax_ref),
+        "fused_relax_kernel": (
+            lambda d, i, w, r: fused_relax_kernel(d, i, w, max_rounds=r),
+            fused_relax_ref),
+        "minplus_matmul_kernel": (minplus_matmul_kernel, minplus_matmul_ref),
+    }
+
+
+def _as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def compare(name, args) -> float:
+    """Run kernel and plain version on ``args``; fail unless every output
+    is ``torch.equal``. Returns the max abs error (0.0)."""
+    import torch
+    kernel, plain = _fns()[name]
+    outs = _as_tuple(kernel(*args))
+    refs = _as_tuple(plain(*args))
+    torch.cuda.synchronize()
+    for a, b in zip(outs, refs):
+        if not torch.equal(a, b):
+            shapes = [tuple(x.shape) for x in args if hasattr(x, "shape")]
+            fail(f"{name}: kernel differs from its plain version at "
+                 f"{shapes} (max abs err {max_abs_err(a, b)})")
+    return max(max_abs_err(a, b) for a, b in zip(outs, refs))
+
+
+def phase_ragged(dev="cuda") -> dict:
+    """Each kernel against its plain version on small random inputs off
+    every block multiple — before the main path leans on them."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(0)
+    inf = float("inf")
+
+    def rows(q, l, n_sent):
+        ids = torch.randint(0, n_sent + 1, (q, l), generator=g, device=dev,
+                            dtype=torch.int64).sort(1).values.to(torch.int32)
+        dup = torch.zeros_like(ids, dtype=torch.bool)
+        dup[:, 1:] = ids[:, 1:] == ids[:, :-1]
+        ids = torch.where(dup, n_sent, ids).sort(1).values
+        d = torch.randint(0, 9, (q, l), generator=g, device=dev).float()
+        return ids, torch.where(ids < n_sent, d, inf)
+
+    def ell(q, v, deg):
+        ids = torch.randint(0, v, (v, deg), generator=g, device=dev,
+                            dtype=torch.int32)
+        w = torch.randint(1, 5, (v, deg), generator=g, device=dev).float()
+        w[v // 2:, deg // 2:] = inf                     # padding slots
+        dist = torch.full((q, v), inf, device=dev)
+        dist[torch.arange(q, device=dev),
+             torch.randint(0, v, (q,), generator=g, device=dev)] = 0.0
+        return dist, ids, w
+
+    def mat(m, k, p_inf):
+        x = torch.randint(0, 20, (m, k), generator=g, device=dev).float()
+        return torch.where(torch.rand((m, k), generator=g, device=dev)
+                           < p_inf, inf, x)
+
+    cases = {
+        "label_intersect_kernel": [
+            (*rows(13, 100, 1000), *rows(13, 100, 1000), 1000),
+            (*rows(1, 1, 5), *rows(1, 1, 5), 5),
+            (*rows(40, 257, 300), *rows(40, 257, 300), 300)],
+        "spmv_relax_kernel": [ell(13, 1000, 16), ell(3, 130, 48),
+                              ell(20, 5000, 32)],
+        "fused_relax_kernel": [(*ell(24, 1000, 16), 10000),
+                               (*ell(8, 77, 32), 3), (*ell(16, 300, 16), 0)],
+        "minplus_matmul_kernel": [
+            (mat(37, 100, 0.3), mat(100, 70, 0.3)),
+            (torch.full((65, 3), inf, device=dev),
+             torch.ones((3, 129), device=dev)),
+            (mat(130, 260, 0.5), mat(260, 5, 0.0))],
+    }
+    for name, args_list in cases.items():
+        for args in args_list:
+            compare(name, args)
+    return {name: len(v) for name, v in cases.items()}
+
+
+def time_kernel(name, args, n_bytes, n_ops, iters) -> dict:
+    """Check the kernel on the main path's inputs, then time it and its
+    plain version there; the bound is of the same work."""
+    kernel, plain = _fns()[name]
+    err = compare(name, args)
+    ms = cuda_ms(lambda: kernel(*args), iters)
+    plain_ms = cuda_ms(lambda: plain(*args), max(1, iters // 10))
+    b_ms, b_by = bound(n_bytes, n_ops)
+    src, replaces = KERNELS[name]
+    return {"name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": None, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None,
+            "shape": [list(x.shape) for x in args if hasattr(x, "shape")]}
+
+
+def phase_kernels(indexes) -> list:
+    """Each kernel on the inputs its route gave it in the main path."""
+    from repro_torch.kernels.spmv_relax.ref import fused_relax_ref
+    inf = float("inf")
+    out = []
+    # stage 1 and one ell_loop round: the 10^6 graph's 1024-pair query
+    idx, s, t = indexes["ell_loop"]
+    nbr_ids, nbr_w = idx.engine.relaxer.ell()
+    d0, rs, rt = frontier(idx, s, t, nbr_ids.shape[0])
+    q, l = rs.ids.shape
+    out.append(time_kernel(
+        "label_intersect_kernel", (rs.ids, rs.d, rt.ids, rt.d, idx.n),
+        n_bytes=4 * q * l * 4 + q * 4, n_ops=2 * q * l, iters=200))
+    rows, v = d0.shape
+    nnz = int((nbr_w != inf).sum())
+    out.append(time_kernel(
+        "spmv_relax_kernel", (d0, nbr_ids, nbr_w),
+        n_bytes=2 * rows * v * 4 + nbr_ids.numel() * 8,
+        n_ops=rows * (2 * nnz + v), iters=10))
+    out[-1]["ell_width"] = nbr_ids.shape[1]
+    del d0, rs, rt
+
+    # all rounds of the fused route's query
+    idx, s, t = indexes["fused"]
+    nbr_ids, nbr_w = idx.engine.relaxer.ell()
+    d0, _, _ = frontier(idx, s, t, nbr_ids.shape[0])
+    mr = idx.engine.max_rounds
+    _, blk = fused_relax_ref(d0, nbr_ids, nbr_w, mr)
+    rows, v = d0.shape
+    nnz = int((nbr_w != inf).sum())
+    out.append(time_kernel(
+        "fused_relax_kernel", (d0, nbr_ids, nbr_w, mr),
+        n_bytes=2 * rows * v * 4 + nbr_ids.numel() * 8,
+        n_ops=int(blk.sum()) * 8 * (2 * nnz + v), iters=20))
+    out[-1]["block_rounds_max"] = int(blk.max())
+    out[-1]["ell_width"] = nbr_ids.shape[1]
+
+    # one round of the dense route's query
+    idx, s, t = indexes["dense"]
+    adj = idx.engine.relaxer.dense_adj()
+    d0, _, _ = frontier(idx, s, t, adj.shape[0])
+    m, k = d0.shape
+    out.append(time_kernel(
+        "minplus_matmul_kernel", (d0, adj),
+        n_bytes=(2 * m * k + k * k) * 4, n_ops=2 * m * k * k, iters=50))
+    return out
+
+
+def main() -> int:
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: src/repro_torch not found beside chip_smoke.py",
+              file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.label_intersect import ops as li_ops
+    from repro_torch.kernels.minplus_matmul import ops as mp_ops
+    from repro_torch.kernels.spmv_relax import ops as sp_ops
+    t_all = time.perf_counter()
+
+    t0 = time.perf_counter()
+    dev = phase_device()
+    emit({"phase": "device", "seconds": time.perf_counter() - t0, **dev})
+    emit({"phase": "build", **phase_build()})
+    t0 = time.perf_counter()
+    emit({"phase": "ragged_checks", "cases": phase_ragged(),
+          "seconds": time.perf_counter() - t0})
+
+    tables = (li_ops.LAUNCHES, sp_ops.LAUNCHES, mp_ops.LAUNCHES)
+
+    def counts():
+        return {k: v for tab in tables for k, v in tab.items()}
+
+    for tab in tables:            # the main path starts from zero
+        for key in tab:
+            tab[key] = 0
+    indexes = {}
+    for route, spec, gen_call, overrides in ROUTES:
+        before = counts()
+        t0 = time.perf_counter()
+        rec, idx, s, t = drive_route(route, spec, gen_call, overrides, "cuda")
+        after = counts()
+        rec["launches"] = {k: after[k] - before[k] for k in after}
+        emit({"phase": f"route_{route}", "seconds": time.perf_counter() - t0,
+              **rec})
+        indexes[route] = (idx, s, t)
+    counters = counts()
+    missing = [k for k, v in counters.items() if v == 0]
+    if missing:
+        fail(f"kernels not launched on the main path: {missing}")
+
+    t0 = time.perf_counter()
+    kernels = phase_kernels(indexes)
+    for rec in kernels:
+        rec["launches"] = counters[rec["name"]]
+    emit({"phase": "kernels", "seconds": time.perf_counter() - t0,
+          "power_limit": dev["smi"]})
+    emit({"kernels": kernels})
+    emit({"phase": "total", "seconds": time.perf_counter() - t_all})
+    for line in dev["smi"]:
+        print(line, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
+                                 "count": dev["count"]}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,213 @@
+"""Vertex-hierarchy construction (paper §4.1, §5.1; Algorithms 2+3), the
+counterpart of ``repro.core.hierarchy.build_hierarchy_device``.
+
+Each level: pick an independent set L_i of G_i (mis.py), record the
+adjacency of L_i at removal time (the *up-edges* used for labeling and
+path reconstruction), then rebuild the edge list: surviving edges +
+augmenting edges (u,w) for every 2-path u-v-w through a removed v,
+deduped keeping min weight.
+
+Every buffer stays on the device across levels. The one blocking read
+of a level is an int32[5] stat vector (IS size, deduped edge count,
+augmentation fill, MIS rounds, "pool not yet empty"), from which the
+host applies the stop rule and the overflow checks. JAX ran the MIS
+rounds in a device ``while_loop``; here the level runs a guessed number
+of rounds (16 at the first level, then twice the previous level's
+count, at least 8), then the rest
+of the level, then reads the stats. Rounds past the MIS fixed point are
+exact no-ops, so the guess changes nothing but time; when it falls short
+the stats say so, the MIS continues and the rest of the level runs
+again from the unchanged pre-level state (one more read).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core import sync as hsync
+from repro_torch.core.config import IndexConfig
+from repro_torch.core.mis import MISState, torch_permutations
+from repro_torch.graphs import csr as gcsr
+
+INF = float("inf")
+
+
+@dataclasses.dataclass
+class Hierarchy:
+    """Host-side result of the peeling loop."""
+    n: int
+    k: int                      # level of the core (vertices in G_k)
+    level: np.ndarray           # int32[n], 1..k
+    # up-edges: for every non-core v, its adjacency in G_{level(v)}
+    up_ids: np.ndarray          # int32[n+1, d_cap], sentinel n
+    up_w: np.ndarray            # float32[n+1, d_cap], inf pad
+    up_via: np.ndarray          # int32[n+1, d_cap], -1 = original edge
+    # core graph (G_k) in *global* vertex ids
+    core_src: np.ndarray
+    core_dst: np.ndarray
+    core_w: np.ndarray
+    core_via: np.ndarray
+    level_sizes: list
+    graph_sizes: list
+    mis_rounds: list
+    host_syncs: int = 0         # blocking device→host reads in the level loop
+    peel_iters: int = 0         # level-loop iterations
+
+
+def peel_level(src, dst, w, via, in_is, n: int, d_cap: int, aug_cap: int):
+    """One hierarchy level after its independent set ``in_is`` is known.
+
+    Returns ``(o_src, o_dst, o_w, o_via, nbr_ids, nbr_w, nbr_via,
+    n_unique, n_is, n_is_edges)``; reads its inputs and writes none of
+    them. e_cap is implied by src.shape.
+    """
+    e_cap = src.shape[0]
+    valid = src < n
+    nbr_ids, nbr_w, nbr_via, _ = gcsr.neighbor_matrix(
+        gcsr.EdgeList(src, dst, w, via, n_nodes=n), d_cap)
+
+    # --- compact IS-incident edges into the augmentation buffer -----------
+    src_c = torch.where(valid, src, 0).long()
+    dst_c = torch.where(valid, dst, 0).long()
+    is_src = in_is[src_c] & valid                 # edge (v,u), v in L_i
+    a_v, a_u, a_w = gcsr.compact(is_src, aug_cap, (src, n), (dst, n),
+                                 (w, INF))
+    n_is_edges = is_src.sum(dtype=torch.int32)
+
+    # --- augmenting pairs: (u, partner) for each partner slot of v --------
+    av = a_v.long()
+    p_ids = nbr_ids[av]                           # [aug_cap, d_cap]
+    p_w = nbr_w[av]
+    au = a_u[:, None]
+    pair_ok = (p_ids < n) & (p_ids != au) & (au < n)
+    pair_src = torch.where(pair_ok, au.expand_as(p_ids), n)
+    pair_dst = torch.where(pair_ok, p_ids, n)
+    pair_w = torch.where(pair_ok, a_w[:, None] + p_w, INF)
+    pair_via = torch.where(pair_ok, a_v[:, None].expand_as(p_ids), -1)
+
+    # --- surviving edges ---------------------------------------------------
+    keep = valid & ~(in_is[src_c] | in_is[dst_c])
+    all_src = torch.cat([torch.where(keep, src, n), pair_src.reshape(-1)])
+    all_dst = torch.cat([torch.where(keep, dst, n), pair_dst.reshape(-1)])
+    all_w = torch.cat([torch.where(keep, w, INF), pair_w.reshape(-1)])
+    all_via = torch.cat([torch.where(keep, via, -1), pair_via.reshape(-1)])
+
+    o_src, o_dst, o_w, o_via, n_unique = gcsr.dedup_min_edges(
+        all_src, all_dst, all_w, all_via, n, e_cap)
+    n_is = in_is.sum(dtype=torch.int32)
+    return (o_src, o_dst, o_w, o_via, nbr_ids, nbr_w, nbr_via,
+            n_unique, n_is, n_is_edges)
+
+
+def build_hierarchy_device(n: int, src, dst, w, cfg: IndexConfig,
+                           device="cpu", perms=None) -> Hierarchy:
+    """Device-resident level loop: one blocking host read per level
+    (two or more only when the MIS outlasts its guessed round count).
+
+    ``perms`` is the permutation source: an iterator yielding one
+    permutation of [0, n) per level (numpy or tensor); the default draws
+    ``torch.randperm`` seeded with ``cfg.seed``.
+    """
+    if perms is None:
+        perms = torch_permutations(cfg.seed, n)
+    m0 = len(src)
+    e_cap = cfg.e_cap(m0)
+    aug_cap = cfg.aug_cap(m0)
+    g = gcsr.from_host_edges(src, dst, w, n, e_cap, device=device)
+    cur = (g.src, g.dst, g.weight, g.via)
+    active = torch.ones(n, dtype=torch.bool, device=device)
+    level_dev = torch.zeros(n, dtype=torch.int32, device=device)
+    up_ids = torch.full((n + 1, cfg.d_cap), n, dtype=torch.int32,
+                        device=device)
+    up_w = torch.full((n + 1, cfg.d_cap), INF, dtype=torch.float32,
+                      device=device)
+    up_via = torch.full((n + 1, cfg.d_cap), -1, dtype=torch.int32,
+                        device=device)
+    no_row = torch.zeros(1, dtype=torch.bool, device=device)
+
+    n_verts = n
+    graph_sizes = [n + m0 // 2]
+    level_sizes, mis_rounds = [], []
+    k = 1
+    peel_iters = 0
+    guess = 16
+    with hsync.sync_span() as span:
+        for i in range(1, cfg.k_max + 1):
+            peel_iters = i
+            perm = hsync.upload(next(perms), device, torch.int32)
+            mis = MISState.start(cur[0], cur[1], cur[0] < n, active, perm,
+                                 n, cfg.d_cap)
+            budget = guess
+            while True:
+                mis.advance(budget)
+                out = peel_level(*cur, mis.in_is, n, cfg.d_cap, aug_cap)
+                stats = torch.stack([out[8], out[7], out[9], mis.rounds,
+                                     mis.pool_left().to(torch.int32)])
+                # the level's blocking read: stop-rule scalars, overflow
+                # flags and the MIS fixed-point flag in one int32[5]
+                n_is, n_unique, n_is_edges, rounds, left = (
+                    int(x) for x in hsync.host_read(stats))
+                if not left:
+                    break
+                budget = 8
+            guess = max(8, 2 * rounds)
+            if n_unique > e_cap:
+                raise RuntimeError(
+                    f"edge capacity overflow at level {i}: {n_unique} > "
+                    f"{e_cap}; raise IndexConfig.e_cap_factor")
+            if n_is_edges > aug_cap:
+                raise RuntimeError(
+                    f"augmentation buffer overflow at level {i}; raise "
+                    f"aug_cap_factor")
+            if n_is == 0:
+                k = i
+                break
+            # record level + up-edges under the IS mask (row n of up_* is
+            # the sentinel row — never in the set); level and active are
+            # updated in place, where JAX donated their buffers
+            in_is = mis.in_is
+            rec = torch.cat([in_is, no_row])[:, None]
+            level_dev.masked_fill_(in_is, i)
+            up_ids = torch.where(rec, out[4], up_ids)
+            up_w = torch.where(rec, out[5], up_w)
+            up_via = torch.where(rec, out[6], up_via)
+            active &= ~in_is
+            cur = out[:4]
+            n_verts -= n_is
+            new_size = n_verts + n_unique // 2
+            level_sizes.append(n_is)
+            mis_rounds.append(rounds)
+            k = i + 1
+            graph_sizes.append(new_size)
+            if cfg.k_force:
+                if k >= cfg.k_force:
+                    break
+            elif new_size > cfg.sigma * graph_sizes[-2]:
+                break
+    loop_syncs = span.count
+
+    # one final pull of the whole hierarchy state
+    level, up_ids_h, up_w_h, up_via_h, c_src, c_dst, c_w, c_via = (
+        hsync.host_read((level_dev, up_ids, up_w, up_via, *cur)))
+    level[level == 0] = k
+    mask = c_src < n
+    return Hierarchy(n=n, k=k, level=level, up_ids=up_ids_h, up_w=up_w_h,
+                     up_via=up_via_h, core_src=c_src[mask],
+                     core_dst=c_dst[mask], core_w=c_w[mask],
+                     core_via=c_via[mask], level_sizes=level_sizes,
+                     graph_sizes=graph_sizes, mis_rounds=mis_rounds,
+                     host_syncs=loop_syncs, peel_iters=peel_iters)
+
+
+def build_hierarchy(n: int, src, dst, w, cfg: IndexConfig, device="cpu",
+                    perms=None) -> Hierarchy:
+    """Peel levels until the size-reduction stop rule (§5.1)."""
+    if cfg.builder == "host":
+        raise NotImplementedError(
+            "IndexConfig(builder='host') is not ported yet (ROADMAP.md "
+            "queue 1); use builder='device'")
+    if cfg.builder != "device":
+        raise ValueError(f"unknown IndexConfig.builder: {cfg.builder!r}")
+    return build_hierarchy_device(n, src, dst, w, cfg, device, perms)

@@ -1,0 +1,109 @@
+"""Isolation and no-fallback rules of the PyTorch port.
+
+``repro_torch`` never imports jax nor ``repro`` (not even its numpy-only
+modules); its entry points run on the card unless the caller names the
+CPU, and a kernel binding given a CPU tensor raises instead of running
+something else.
+"""
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.core import ISLabelIndex, IndexConfig
+from repro_torch.graphs import generators as gen
+from repro_torch.kernels.backend import resolve_backend
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, "repro_torch."))
+
+
+def test_import_pulls_in_neither_jax_nor_repro():
+    mods = _modules()
+    assert "repro_torch.kernels.spmv_relax.ops" in mods
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = sorted(k for k in sys.modules if k == 'jax' or "
+            "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = {"PYTHONPATH": str(ROOT / "src"), "JAX_PLATFORMS": "cpu",
+           "PATH": "/usr/bin:/bin"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py"))
+                         + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_imports_in_source(path):
+    text = path.read_text()
+    assert not re.search(r"^\s*(import jax|from jax)", text, re.M)
+    assert not re.search(r"^\s*(from repro[\s.]|import repro[\s.]|"
+                         r"import repro$)", text, re.M)
+
+
+def test_build_without_device_raises_off_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without CUDA")
+    n, src, dst, w = gen.er_graph(64, 2.0, seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ISLabelIndex.build(n, src, dst, w, IndexConfig())
+    idx = ISLabelIndex.build(n, src, dst, w, IndexConfig(l_cap=64),
+                             device="cpu")
+    assert idx.device.type == "cpu"
+
+
+def test_backend_resolution():
+    assert resolve_backend(None, "cpu") == "reference"
+    assert resolve_backend("auto", torch.device("cuda")) == "cuda"
+    assert resolve_backend("cuda", "cpu") == "cuda"
+    with pytest.raises(ValueError):
+        resolve_backend("pallas", "cpu")
+
+
+def test_backend_env_override(monkeypatch):
+    monkeypatch.setenv("ISLABEL_BACKEND", "cuda")
+    assert resolve_backend(None, "cpu") == "cuda"
+    assert resolve_backend("reference", "cpu") == "reference"
+
+
+def test_kernel_bindings_refuse_cpu_tensors():
+    """A binding never falls back: a CPU operand raises before any
+    build or launch."""
+    from repro_torch.kernels.label_intersect.kernel import \
+        label_intersect_kernel
+    from repro_torch.kernels.minplus_matmul.kernel import \
+        minplus_matmul_kernel
+    from repro_torch.kernels.spmv_relax.kernel import (fused_relax_kernel,
+                                                       spmv_relax_kernel)
+    ids = torch.zeros((8, 4), dtype=torch.int32)
+    d = torch.zeros((8, 4))
+    ell_ids = torch.zeros((4, 16), dtype=torch.int32)
+    ell_w = torch.zeros((4, 16))
+    calls = [lambda: label_intersect_kernel(ids, d, ids, d, 5),
+             lambda: spmv_relax_kernel(d, ell_ids, ell_w),
+             lambda: fused_relax_kernel(d, ell_ids, ell_w, max_rounds=3),
+             lambda: minplus_matmul_kernel(d, d.T.contiguous())]
+    for call in calls:
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            call()
+
+
+def test_compressed_labels_not_ported_yet():
+    n, src, dst, w = gen.er_graph(64, 2.0, seed=0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ISLabelIndex.build(n, src, dst, w,
+                           IndexConfig(l_cap=64, label_dtype="compressed"),
+                           device="cpu")
