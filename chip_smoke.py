@@ -9,17 +9,24 @@ Phases, one JSON line each (with its seconds):
 2. build    — compile the hand-written CUDA kernels from ``kernels/csrc``,
    then hold each against its plain PyTorch version (``torch.equal``)
    on small random inputs at ragged shapes.
-3. main path, one real build per stage-2 route, with the launch counters
-   set to 0 before the first and read after the last:
+3. main path, one real build per path, with the launch counters set to
+   0 before each path and read after it; each path must launch exactly
+   its own kernels:
    - ``ell_loop``: ``ISLabelIndex.build`` on ``er:1000000:2.2@1``
      (``l_cap=64``, ``label_chunk=8192``), then ``query`` on 1024 seeded
      random pairs; the first 16 sources are checked bitwise against
      Dijkstra;
    - ``fused``: the same on ``er:10000:2.2@1``;
-   - ``dense``: the same on ``rmat:12:24@1`` (a small dense core).
+   - ``dense``: the same on ``rmat:12:24@1`` (a small dense core);
+   - ``compressed``: the same on ``rmat:15:8@1`` with
+     ``label_dtype="compressed"`` (delta16 ids, int32 distances), whose
+     stage 1 runs the packed kernel and stage 2 the ``ell_loop`` route.
    Builds and queries run under ``torch.cuda.set_sync_debug_mode
    ("error")``: any device sync outside ``host_read`` raises.
-4. kernels  — each kernel on the card against its plain PyTorch version
+4. builders — ``er:10000:2.2@1`` built with ``builder="host"`` and
+   ``builder="device"`` from one seed must give the same hierarchy and
+   labels, bitwise; then whether the 10^6 graph's labels fit delta16.
+5. kernels  — each kernel on the card against its plain PyTorch version
    (``torch.equal``) on the inputs the main path gave it, with
    CUDA-event times and the bound of the same work.
 
@@ -55,15 +62,30 @@ KERNELS = {
     "minplus_matmul_kernel": (
         "src/repro_torch/kernels/csrc/minplus_matmul.cu",
         "src/repro/kernels/minplus_matmul/kernel.py:38"),
+    "label_intersect_packed_kernel": (
+        "src/repro_torch/kernels/csrc/label_intersect_packed.cu",
+        "src/repro/kernels/label_intersect/kernel.py:95"),
 }
-ROUTES = [  # (route, graph spec, generator call, IndexConfig overrides)
-    ("ell_loop", "er:1000000:2.2@1", ("er_graph", (1_000_000, 2.2), 1),
-     dict(l_cap=64, label_chunk=8192)),
-    ("fused", "er:10000:2.2@1", ("er_graph", (10_000, 2.2), 1),
-     dict(l_cap=64, label_chunk=4096)),
-    ("dense", "rmat:12:24@1", ("rmat_graph", (12, 24.0), 1),
-     dict(l_cap=512, label_chunk=1024)),
+# (path, stage-2 route, graph spec, generator call, IndexConfig overrides,
+#  the kernels the path launches)
+PATHS = [
+    ("ell_loop", "ell_loop", "er:1000000:2.2@1",
+     ("er_graph", (1_000_000, 2.2), 1), dict(l_cap=64, label_chunk=8192),
+     {"label_intersect_kernel", "spmv_relax_kernel"}),
+    ("fused", "fused", "er:10000:2.2@1", ("er_graph", (10_000, 2.2), 1),
+     dict(l_cap=64, label_chunk=4096),
+     {"label_intersect_kernel", "fused_relax_kernel"}),
+    ("dense", "dense", "rmat:12:24@1", ("rmat_graph", (12, 24.0), 1),
+     dict(l_cap=512, label_chunk=1024),
+     {"label_intersect_kernel", "minplus_matmul_kernel"}),
+    # the query preset of benchmarks/bench_query.py (_compressed_row);
+    # n <= 32768, so no id gap can overflow int16
+    ("compressed", "ell_loop", "rmat:15:8@1", ("rmat_graph", (15, 8.0), 1),
+     dict(l_cap=1024, label_chunk=2048, label_dtype="compressed"),
+     {"label_intersect_packed_kernel", "spmv_relax_kernel"}),
 ]
+BUILDER_GRAPH = ("er:10000:2.2@1", ("er_graph", (10_000, 2.2), 1),
+                 dict(l_cap=64, label_chunk=4096))
 
 
 def emit(obj) -> None:
@@ -74,12 +96,23 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: {msg}")
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches (CUDA events,
-    after one warm-up call)."""
+def cuda_ms(fn, iters: int) -> tuple[float, float]:
+    """(device ms, wall ms) of one call of ``fn``, means over ``iters``
+    calls after one warm-up call.
+
+    Device ms: the calls are queued behind a device-side sleep long
+    enough to cover their host-side launch cost, and CUDA events around
+    them time the device alone. Wall ms: the same calls back to back on
+    the host clock, ending in a synchronize, launch cost included."""
     import torch
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()                       # the queue is empty: this times the enqueue
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    # at most 2e9 SM cycles a second on an H100; twice the enqueue time
+    torch.cuda._sleep(int(min(2 * enqueue_s * iters, 2.0) * 2e9))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -87,7 +120,12 @@ def cuda_ms(fn, iters: int) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / iters
+    return start.elapsed_time(end) / iters, wall
 
 
 def max_abs_err(a, b) -> float:
@@ -131,7 +169,8 @@ def phase_build() -> dict:
 
 def drive_route(route, spec, gen_call, overrides, device):
     """Build and query one graph on the card; returns (record, index,
-    s, t) and checks answers against Dijkstra."""
+    s, t) and checks answers against Dijkstra (and, for a compressed
+    index, that the codec is delta16 with an int32 distance plane)."""
     import numpy as np
     import torch
     from repro_torch.core import ISLabelIndex, IndexConfig, ref, sync
@@ -161,6 +200,11 @@ def drive_route(route, spec, gen_call, overrides, device):
         torch.cuda.set_sync_debug_mode(0)
     if mode != route:
         fail(f"{spec}: expected route {route}, took {mode}")
+    eng = idx.engine
+    if overrides.get("label_dtype", "fp32") != "fp32" and (
+            eng.codec != "delta16" or eng.enc_d.dtype != torch.int32):
+        fail(f"{spec}: codec {eng.codec} with a {eng.enc_d.dtype} distance "
+             f"plane, expected delta16 with int32")
     got = ans.cpu().numpy()
     n_check = min(MAIN_QUERIES, 16 if n > 100_000 else 128)
     oracle = ref.dijkstra_oracle(n, src, dst, w, s[:n_check])
@@ -184,27 +228,86 @@ def drive_route(route, spec, gen_call, overrides, device):
            "query_syncs": syncs[1], "queries": MAIN_QUERIES,
            "dijkstra_checked": n_check,
            "peak_device_bytes": torch.cuda.max_memory_allocated(),
-           "label_entries": st.label_entries}
+           "label_entries": st.label_entries, "codec": eng.codec}
+    if eng.codec == "delta16":
+        from repro_torch.core.labels import encoded_nbytes
+        rec["label_plane_bytes_fp32"] = (eng.lbl_ids.numel() * 4
+                                         + eng.lbl_d.numel() * 4)
+        rec["label_plane_bytes_encoded"] = encoded_nbytes(
+            eng.enc_ids, eng.enc_base, eng.enc_d)
+        rec["enc_d_dtype"] = str(eng.enc_d.dtype)
     return rec, idx, s, t
+
+
+def phase_builders(fp32_1e6) -> dict:
+    """Host and device builders on one graph and seed: the same
+    hierarchy and labels, bitwise; then whether the labels of the 10^6
+    graph (``fp32_1e6``, an fp32 index) would fit the delta16 codec."""
+    import numpy as np
+    import torch
+    from repro_torch.core import ISLabelIndex, IndexConfig, sync
+    from repro_torch.core.labels import LabelCompressionError, encode_labels
+    from repro_torch.graphs import generators as gen
+
+    spec, (fn, args, seed), overrides = BUILDER_GRAPH
+    n, src, dst, w = getattr(gen, fn)(*args, seed=seed)
+    built, rec = {}, {"graph": spec, "n": n}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for builder in ("host", "device"):
+            idx = ISLabelIndex.build(
+                n, src, dst, w, IndexConfig(builder=builder, **overrides),
+                device="cuda")
+            st = idx.stats
+            rec[builder] = {"build_s": st.build_seconds,
+                            "peel_s": st.peel_seconds, "k": st.k,
+                            "peel_iters": st.peel_iters,
+                            "peel_loop_syncs": st.peel_loop_syncs,
+                            "syncs_per_level":
+                                st.peel_loop_syncs / max(1, st.peel_iters)}
+            labels = sync.host_read((idx.lbl_ids, idx.lbl_d, idx.lbl_pred))
+            built[builder] = (idx.level, idx.up_ids, idx.up_w, idx.up_via,
+                              idx.core_src, idx.core_dst, idx.core_w,
+                              idx.core_via, *labels)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    fields = ("level", "up_ids", "up_w", "up_via", "core_src", "core_dst",
+              "core_w", "core_via", "lbl_ids", "lbl_d", "lbl_pred")
+    differ = [f for f, a, b in zip(fields, built["host"], built["device"])
+              if a.dtype != b.dtype or not np.array_equal(a, b)]
+    if differ:
+        fail(f"{spec}: host and device builders differ in {differ}")
+    rec["bitwise_equal"] = list(fields)
+
+    # outside any timed region: one host copy of the 10^6 labels
+    ids, d = sync.host_read((fp32_1e6.lbl_ids, fp32_1e6.lbl_d))
+    try:
+        encode_labels(ids, d, fp32_1e6.n)
+        rec["delta16_fits_1e6"] = {"fits": True}
+    except LabelCompressionError as err:
+        rec["delta16_fits_1e6"] = {"fits": False, "reason": str(err)}
+    return rec
 
 
 def frontier(idx, s, t, vp: int):
     """The stacked, padded [2Q, Vp] stage-2 seeds of one query batch."""
     import torch
     from repro_torch.core.dispatch import stack_frontiers
+    from repro_torch.core.labels import decode_rows
     eng = idx.engine
     sd = torch.as_tensor(s, device=idx.device)
     td = torch.as_tensor(t, device=idx.device)
     rs, rt = eng._rows(sd), eng._rows(td)
-    return (stack_frontiers(eng._seed(rs.ids, rs.d), eng._seed(rt.ids, rt.d),
-                            vp, 8), rs, rt)
+    seeds = [eng._seed(*decode_rows(r, idx.n, eng.codec)) for r in (rs, rt)]
+    return stack_frontiers(*seeds, vp, 8), rs, rt
 
 
 def _fns():
     """name -> (CUDA kernel binding, plain PyTorch version)."""
-    from repro_torch.kernels.label_intersect.kernel import \
-        label_intersect_kernel
-    from repro_torch.kernels.label_intersect.ref import label_intersect_ref
+    from repro_torch.kernels.label_intersect.kernel import (
+        label_intersect_kernel, label_intersect_packed_kernel)
+    from repro_torch.kernels.label_intersect.ref import (
+        label_intersect_packed_ref, label_intersect_ref)
     from repro_torch.kernels.minplus_matmul.kernel import \
         minplus_matmul_kernel
     from repro_torch.kernels.minplus_matmul.ref import minplus_matmul_ref
@@ -220,6 +323,8 @@ def _fns():
             lambda d, i, w, r: fused_relax_kernel(d, i, w, max_rounds=r),
             fused_relax_ref),
         "minplus_matmul_kernel": (minplus_matmul_kernel, minplus_matmul_ref),
+        "label_intersect_packed_kernel": (label_intersect_packed_kernel,
+                                          label_intersect_packed_ref),
     }
 
 
@@ -246,9 +351,42 @@ def compare(name, args) -> float:
 def phase_ragged(dev="cuda") -> dict:
     """Each kernel against its plain version on small random inputs off
     every block multiple — before the main path leans on them."""
+    import numpy as np
     import torch
+    from repro_torch.core.labels import encode_labels
     g = torch.Generator(device=dev).manual_seed(0)
+    r = np.random.default_rng(0)
     inf = float("inf")
+
+    def packed_rows(q, l, n_sent, d_dtype):
+        """Encoded s and t rows: t shares about half of each s row's ids;
+        rows of every fill, a fully padded row, a row whose slot 0 is a
+        pad with stray deltas after it, and a gap of exactly 32767. The
+        ids of a row lie in one window of 2**15, so every gap fits."""
+        ids = np.full((2, q, l), n_sent, np.int64)
+        span = min(n_sent, 2 ** 15)
+        for i in range(q):
+            lo = 7 if i == 2 else int(r.integers(0, n_sent - span + 1))
+            row = np.unique(r.integers(lo, lo + span,
+                                       int(r.integers(0, l + 1))))
+            if i == 2:
+                row = np.array([lo, lo + span - 1])
+            shared = row[r.random(len(row)) < 0.5]
+            other = np.unique(r.integers(lo, lo + span, l - len(shared)))
+            t_row = np.union1d(shared, other)[:l]
+            ids[0, i, :len(row)] = row
+            ids[1, i, :len(t_row)] = t_row
+        d = np.where(ids < n_sent, r.integers(0, 90, ids.shape), inf)
+        out = []
+        for side in range(2):
+            delta, base, d_enc = encode_labels(ids[side], d[side], n_sent,
+                                               d_dtype)
+            if q > 1:
+                delta[0] = -1                               # all pad
+                delta[1] = r.integers(0, 50, l)             # slot 0 pad,
+                delta[1, 0] = -1                            # stray after it
+            out += [torch.from_numpy(x).to(dev) for x in (delta, base, d_enc)]
+        return (*out, n_sent)
 
     def rows(q, l, n_sent):
         ids = torch.randint(0, n_sent + 1, (q, l), generator=g, device=dev,
@@ -275,6 +413,11 @@ def phase_ragged(dev="cuda") -> dict:
                            < p_inf, inf, x)
 
     cases = {
+        "label_intersect_packed_kernel": [
+            packed_rows(q, l, n_sent, d_dtype)
+            for d_dtype in ("int32", "float32")
+            for q, l, n_sent in ((13, 100, 100_000), (1, 1, 5),
+                                 (40, 257, 300_000), (37, 33, 70_000))],
         "label_intersect_kernel": [
             (*rows(13, 100, 1000), *rows(13, 100, 1000), 1000),
             (*rows(1, 1, 5), *rows(1, 1, 5), 5),
@@ -300,15 +443,44 @@ def time_kernel(name, args, n_bytes, n_ops, iters) -> dict:
     plain version there; the bound is of the same work."""
     kernel, plain = _fns()[name]
     err = compare(name, args)
-    ms = cuda_ms(lambda: kernel(*args), iters)
-    plain_ms = cuda_ms(lambda: plain(*args), max(1, iters // 10))
+    ms, wall_ms = cuda_ms(lambda: kernel(*args), iters)
+    plain_ms, _ = cuda_ms(lambda: plain(*args), max(1, iters // 10))
     b_ms, b_by = bound(n_bytes, n_ops)
     src, replaces = KERNELS[name]
     return {"name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": None, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None,
+            "bound_by": b_by, "library_ms": None, "wall_ms": wall_ms,
             "shape": [list(x.shape) for x in args if hasattr(x, "shape")]}
+
+
+def packed_case(idx, s, t):
+    """The compressed path's gathered rows as packed-kernel arguments,
+    with the int32 distance plane and with the same rows encoded with a
+    float32 one (4 bytes a distance either way); the number of real
+    entries, and the bytes a kernel must move: those of the real entries
+    plus each row's first pad marker and base, or of the full planes."""
+    import torch
+    from repro_torch.core.labels import decode_ids, encode_labels
+    from repro_torch.core.sync import host_read, upload
+    eng = idx.engine
+    rows = [eng._rows(torch.as_tensor(x, device=idx.device)) for x in (s, t)]
+    args_int = (*rows[0], *rows[1], idx.n)
+    args_f32 = []
+    for x in (s, t):
+        sel = torch.as_tensor(x, device=idx.device).long()
+        enc = encode_labels(*host_read((eng.lbl_ids[sel], eng.lbl_d[sel])),
+                            idx.n, d_dtype="float32")
+        args_f32 += [upload(a, idx.device) for a in enc]
+    args_f32 = (*args_f32, idx.n)
+    q, l = rows[0].ids.shape
+    real = sum(int(host_read((decode_ids(r.ids, r.base, idx.n) < idx.n)
+                             .sum(dtype=torch.int64))) for r in rows)
+    marks = sum(int(host_read((r.ids[:, -1] >= 0).logical_not()
+                              .sum(dtype=torch.int64))) for r in rows)
+    bytes_real = real * (2 + 4) + marks * 2 + 2 * q * 4 + q * 4
+    bytes_full = 2 * q * l * (2 + 4) + 2 * q * 4 + q * 4
+    return args_int, args_f32, real, bytes_real, bytes_full
 
 
 def phase_kernels(indexes) -> list:
@@ -316,6 +488,21 @@ def phase_kernels(indexes) -> list:
     from repro_torch.kernels.spmv_relax.ref import fused_relax_ref
     inf = float("inf")
     out = []
+    # stage 1 of the compressed path: its 1024-pair query's rows
+    idx, s, t = indexes["compressed"]
+    args_int, args_f32, real, bytes_real, bytes_full = packed_case(idx, s, t)
+    out.append(time_kernel("label_intersect_packed_kernel", args_int,
+                           n_bytes=bytes_real, n_ops=2 * real,
+                           iters=200))
+    full_ms, _ = bound(bytes_full, 0)
+    f32 = time_kernel("label_intersect_packed_kernel", args_f32,
+                      n_bytes=bytes_real, n_ops=2 * real,
+                      iters=200)
+    out[-1].update(
+        real_entries=real, bound_ms_full_planes=full_ms,
+        float32_plane={k: f32[k] for k in ("ms", "wall_ms", "plain_ms",
+                                           "bound_ms", "max_abs_err")})
+
     # stage 1 and one ell_loop round: the 10^6 graph's 1024-pair query
     idx, s, t = indexes["ell_loop"]
     nbr_ids, nbr_w = idx.engine.relaxer.ell()
@@ -332,6 +519,21 @@ def phase_kernels(indexes) -> list:
         n_ops=rows * (2 * nnz + v), iters=10))
     out[-1]["ell_width"] = nbr_ids.shape[1]
     del d0, rs, rt
+    # one ell_loop round of the compressed path (R-MAT hub width)
+    idx, s, t = indexes["compressed"]
+    nbr_ids, nbr_w = idx.engine.relaxer.ell()
+    d0, _, _ = frontier(idx, s, t, nbr_ids.shape[0])
+    rows, v = d0.shape
+    nnz = int((nbr_w != inf).sum())
+    comp = time_kernel(
+        "spmv_relax_kernel", (d0, nbr_ids, nbr_w),
+        n_bytes=2 * rows * v * 4 + nbr_ids.numel() * 8,
+        n_ops=rows * (2 * nnz + v), iters=10)
+    out[-1]["compressed_path"] = {
+        k: comp[k] for k in ("ms", "wall_ms", "plain_ms", "bound_ms",
+                             "bound_by", "max_abs_err", "shape")}
+    out[-1]["compressed_path"]["ell_width"] = nbr_ids.shape[1]
+    del d0
 
     # all rounds of the fused route's query
     idx, s, t = indexes["fused"]
@@ -383,27 +585,29 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
 
     tables = (li_ops.LAUNCHES, sp_ops.LAUNCHES, mp_ops.LAUNCHES)
-
-    def counts():
-        return {k: v for tab in tables for k, v in tab.items()}
-
-    for tab in tables:            # the main path starts from zero
-        for key in tab:
-            tab[key] = 0
+    counters = {k: 0 for tab in tables for k in tab}
     indexes = {}
-    for route, spec, gen_call, overrides in ROUTES:
-        before = counts()
+    for path, route, spec, gen_call, overrides, kernels in PATHS:
+        for tab in tables:        # each path starts from zero
+            for key in tab:
+                tab[key] = 0
         t0 = time.perf_counter()
         rec, idx, s, t = drive_route(route, spec, gen_call, overrides, "cuda")
-        after = counts()
-        rec["launches"] = {k: after[k] - before[k] for k in after}
-        emit({"phase": f"route_{route}", "seconds": time.perf_counter() - t0,
+        launches = {k: v for tab in tables for k, v in tab.items()}
+        rec["launches"] = launches
+        emit({"phase": f"route_{path}", "seconds": time.perf_counter() - t0,
               **rec})
-        indexes[route] = (idx, s, t)
-    counters = counts()
-    missing = [k for k, v in counters.items() if v == 0]
-    if missing:
-        fail(f"kernels not launched on the main path: {missing}")
+        launched = {k for k, v in launches.items() if v}
+        if launched != kernels:
+            fail(f"path {path} launched {sorted(launched)}, expected "
+                 f"{sorted(kernels)}")
+        for k, v in launches.items():
+            counters[k] += v
+        indexes[path] = (idx, s, t)
+
+    t0 = time.perf_counter()
+    emit({"phase": "builders", **phase_builders(indexes["ell_loop"][0]),
+          "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
     kernels = phase_kernels(indexes)

@@ -22,7 +22,8 @@ class IndexConfig:
     e_cap_factor: float = 2.0  # edge capacity = factor * initial |E|
     aug_cap_factor: float = 1.0  # IS-incident edge buffer = factor * |E|
     builder: str = "device"    # level loop: device (one stat read per
-                               # level); "host" is not ported yet
+                               # level) | host (the reference loop the
+                               # device builder is gated against)
     # -- labeling ----------------------------------------------------------
     l_cap: int = 256           # max label entries per vertex
     label_chunk: int = 4096    # vertices labeled per chunk step
@@ -34,8 +35,9 @@ class IndexConfig:
                                  # reference (kernels/backend.py)
     query_chunk: int = 0       # >0: tile query batches so the stage-2
                                # frontier is [chunk, n_core+1], not [Q, ...]
-    label_dtype: str = "fp32"  # label storage codec: only fp32 is
-                               # ported (compressed | auto raise)
+    label_dtype: str = "fp32"  # label storage codec: fp32 | compressed
+                               # (delta16, raises if it does not fit) |
+                               # auto (delta16 when it fits, else fp32)
     seed: int = 0
 
     def e_cap(self, n_edges: int) -> int:

@@ -2,7 +2,9 @@
 ``repro.core.dispatch``).
 
   stage 1 — Equation 1 label intersection:
-      ``label_intersect_dispatch`` -> ``kernels.label_intersect.ops``.
+      ``label_intersect_dispatch`` / ``label_intersect_rows_dispatch``
+      -> ``kernels.label_intersect.ops``; delta16 rows go to the packed
+      kernel, which decodes them in registers.
 
   stage 2 — label-seeded bidirectional core relaxation:
       ``CoreRelaxer`` — the reference backend keeps the COO scatter-min
@@ -32,7 +34,7 @@ import os
 import numpy as np
 import torch
 
-from repro_torch.core.labels import LabelRows, decode_rows
+from repro_torch.core.labels import LabelRows
 from repro_torch.core.sync import host_read, upload
 from repro_torch.kernels.backend import resolve_backend
 from repro_torch.kernels.label_intersect import ops as li_ops
@@ -58,11 +60,9 @@ def label_intersect_dispatch(ids_s, d_s, ids_t, d_t, n_sentinel: int,
 
 def label_intersect_rows_dispatch(rows_s: LabelRows, rows_t: LabelRows,
                                   n_sentinel: int, codec: str, backend: str):
-    """Equation 1 μ over gathered ``LabelRows``."""
-    ids_s, d_s = decode_rows(rows_s, n_sentinel, codec)
-    ids_t, d_t = decode_rows(rows_t, n_sentinel, codec)
-    return label_intersect_dispatch(ids_s, d_s, ids_t, d_t, n_sentinel,
-                                    backend)
+    """Equation 1 μ over gathered ``LabelRows`` in either codec."""
+    return li_ops.label_intersect_rows(rows_s, rows_t, n_sentinel, codec,
+                                       backend=backend)
 
 
 def relax_rounds(step, state: tuple, max_rounds: int):

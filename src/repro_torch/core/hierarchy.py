@@ -1,5 +1,5 @@
 """Vertex-hierarchy construction (paper §4.1, §5.1; Algorithms 2+3), the
-counterpart of ``repro.core.hierarchy.build_hierarchy_device``.
+counterpart of ``repro.core.hierarchy``.
 
 Each level: pick an independent set L_i of G_i (mis.py), record the
 adjacency of L_i at removal time (the *up-edges* used for labeling and
@@ -18,6 +18,13 @@ of the level, then reads the stats. Rounds past the MIS fixed point are
 exact no-ops, so the guess changes nothing but time; when it falls short
 the stats say so, the MIS continues and the rest of the level runs
 again from the unchanged pre-level state (one more read).
+
+``build_hierarchy_host`` is the original loop, kept as the reference
+the device builder is gated against: it reads every scalar on its own,
+drives the MIS one round per read, and pulls the IS mask and the
+neighbour matrices to numpy to record each level on the host. At a
+fixed permutation source both builders give the same hierarchy,
+bitwise.
 """
 from __future__ import annotations
 
@@ -201,13 +208,91 @@ def build_hierarchy_device(n: int, src, dst, w, cfg: IndexConfig,
                      host_syncs=loop_syncs, peel_iters=peel_iters)
 
 
+def build_hierarchy_host(n: int, src, dst, w, cfg: IndexConfig,
+                         device="cpu", perms=None) -> Hierarchy:
+    """Host-driven reference loop: per-level scalar reads (IS size,
+    deduped edge count, augmentation fill, MIS rounds), the MIS run to
+    its fixed point one round per read, and full pulls of the IS mask
+    and the neighbour matrices to numpy. ``perms`` as in
+    ``build_hierarchy_device``."""
+    if perms is None:
+        perms = torch_permutations(cfg.seed, n)
+    m0 = len(src)
+    e_cap = cfg.e_cap(m0)
+    aug_cap = cfg.aug_cap(m0)
+    g = gcsr.from_host_edges(src, dst, w, n, e_cap, device=device)
+    cur = (g.src, g.dst, g.weight, g.via)
+    active = torch.ones(n, dtype=torch.bool, device=device)
+    level = np.zeros(n, np.int32)
+    up_ids = np.full((n + 1, cfg.d_cap), n, np.int32)
+    up_w = np.full((n + 1, cfg.d_cap), np.inf, np.float32)
+    up_via = np.full((n + 1, cfg.d_cap), -1, np.int32)
+
+    n_verts = n
+    graph_sizes = [n + m0 // 2]
+    level_sizes, mis_rounds = [], []
+    k = 1
+    peel_iters = 0
+    with hsync.sync_span() as span:
+        for i in range(1, cfg.k_max + 1):
+            peel_iters = i
+            perm = hsync.upload(next(perms), device, torch.int32)
+            mis = MISState.start(cur[0], cur[1], cur[0] < n, active, perm,
+                                 n, cfg.d_cap)
+            while hsync.host_read(mis.advance(1).pool_left()):
+                pass
+            out = peel_level(*cur, mis.in_is, n, cfg.d_cap, aug_cap)
+            n_is = int(hsync.host_read(out[8]))
+            n_unique = int(hsync.host_read(out[7]))
+            if n_unique > e_cap:
+                raise RuntimeError(
+                    f"edge capacity overflow at level {i}: {n_unique} > "
+                    f"{e_cap}; raise IndexConfig.e_cap_factor")
+            if int(hsync.host_read(out[9])) > aug_cap:
+                raise RuntimeError(
+                    f"augmentation buffer overflow at level {i}; raise "
+                    f"aug_cap_factor")
+            if n_is == 0:
+                k = i
+                break
+            # record level + up-edges on the host
+            is_mask = hsync.host_read(mis.in_is)
+            level[is_mask] = i
+            up_ids[:n][is_mask] = hsync.host_read(out[4])[:n][is_mask]
+            up_w[:n][is_mask] = hsync.host_read(out[5])[:n][is_mask]
+            up_via[:n][is_mask] = hsync.host_read(out[6])[:n][is_mask]
+            active = active & ~mis.in_is
+            level_sizes.append(n_is)
+            mis_rounds.append(int(hsync.host_read(mis.rounds)))
+            n_verts -= n_is
+            new_size = n_verts + n_unique // 2
+            cur = out[:4]
+            k = i + 1
+            graph_sizes.append(new_size)
+            if cfg.k_force:
+                if k >= cfg.k_force:
+                    break
+            elif new_size > cfg.sigma * graph_sizes[-2]:
+                break
+    loop_syncs = span.count
+
+    level[level == 0] = k
+    c_src, c_dst, c_w, c_via = (hsync.host_read(x) for x in cur)
+    mask = c_src < n
+    return Hierarchy(n=n, k=k, level=level, up_ids=up_ids, up_w=up_w,
+                     up_via=up_via, core_src=c_src[mask],
+                     core_dst=c_dst[mask], core_w=c_w[mask],
+                     core_via=c_via[mask], level_sizes=level_sizes,
+                     graph_sizes=graph_sizes, mis_rounds=mis_rounds,
+                     host_syncs=loop_syncs, peel_iters=peel_iters)
+
+
 def build_hierarchy(n: int, src, dst, w, cfg: IndexConfig, device="cpu",
                     perms=None) -> Hierarchy:
-    """Peel levels until the size-reduction stop rule (§5.1)."""
-    if cfg.builder == "host":
-        raise NotImplementedError(
-            "IndexConfig(builder='host') is not ported yet (ROADMAP.md "
-            "queue 1); use builder='device'")
-    if cfg.builder != "device":
+    """Peel levels until the size-reduction stop rule (§5.1), with the
+    builder ``cfg.builder`` names: "device" (default) or "host"."""
+    builders = {"device": build_hierarchy_device,
+                "host": build_hierarchy_host}
+    if cfg.builder not in builders:
         raise ValueError(f"unknown IndexConfig.builder: {cfg.builder!r}")
-    return build_hierarchy_device(n, src, dst, w, cfg, device, perms)
+    return builders[cfg.builder](n, src, dst, w, cfg, device, perms)

@@ -8,8 +8,10 @@
 The entry points run on the card unless the caller passes
 ``device="cpu"``; without CUDA they raise. ``save`` writes the same
 ``index.npz`` + ``meta.json`` as ``repro``, so an index built by either
-package loads and answers in the other. Paths (§8.1) and mutation
-(§8.3) are not ported yet.
+package loads and answers in the other. The label codec
+(``cfg.label_dtype``) travels in ``meta.json`` beside the fp32 planes,
+and the engine encodes them again on load, so a compressed index
+crosses too. Paths (§8.1) and mutation (§8.3) are not ported yet.
 """
 from __future__ import annotations
 

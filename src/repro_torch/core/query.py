@@ -26,7 +26,8 @@ import torch
 
 from repro_torch.core.dispatch import (CoreRelaxer,
                                        label_intersect_rows_dispatch)
-from repro_torch.core.labels import LabelRows, decode_rows
+from repro_torch.core.labels import (LabelRows, decode_rows, encode_labels,
+                                     try_encode_labels)
 from repro_torch.core.sync import host_read, upload
 from repro_torch.kernels.backend import resolve_backend
 
@@ -60,6 +61,14 @@ class QueryEngine:
     the labels lie on a CUDA device, the reference elsewhere; see
     ``repro_torch.kernels.backend``). ``query_chunk`` > 0 tiles query
     batches. ``core_local_edges`` are host (numpy) arrays.
+
+    ``label_dtype`` ("fp32" | "compressed" | "auto") selects the label
+    storage codec (``core/labels.py``): "compressed" encodes delta16 ids
+    (+ int32 distances when integral) and raises
+    ``LabelCompressionError`` if the planes don't fit; "auto" compresses
+    when it can and keeps fp32 otherwise. The encoded planes live on the
+    engine's device; stage 1 reads them through the packed kernel and
+    the stage-2 seeds decode them.
     """
 
     def __init__(self, lbl_ids, lbl_d, core_pos, core_local_edges, n: int,
@@ -67,11 +76,6 @@ class QueryEngine:
                  query_chunk: int = 0, label_dtype: str = "fp32"):
         if label_dtype not in ("fp32", "compressed", "auto"):
             raise ValueError(f"unknown label_dtype {label_dtype!r}")
-        if label_dtype != "fp32":
-            raise NotImplementedError(
-                f"label_dtype={label_dtype!r} needs the delta16 codec and "
-                f"label_intersect_packed_kernel, not ported yet (ROADMAP.md "
-                f"queue 2 item 5)")
         self.lbl_ids = lbl_ids
         self.lbl_d = lbl_d
         self.device = lbl_ids.device
@@ -84,6 +88,16 @@ class QueryEngine:
         self.query_chunk = query_chunk
         self.label_dtype = label_dtype
         self.codec = "none"
+        self.enc_ids, self.enc_base, self.enc_d = lbl_ids, None, lbl_d
+        if label_dtype != "fp32":
+            encode = (encode_labels if label_dtype == "compressed"
+                      else try_encode_labels)
+            # the planes come to the host once per engine, for the encode
+            enc = encode(*host_read((lbl_ids, lbl_d)), n)
+            if enc is not None:
+                self.codec = "delta16"
+                self.enc_ids, self.enc_base, self.enc_d = (
+                    upload(x, self.device) for x in enc)
         self.relaxer = CoreRelaxer(*core_local_edges, n_core,
                                    device=self.device) if n_core > 0 else None
         self._last_rounds = 0
@@ -102,9 +116,12 @@ class QueryEngine:
                                self.device)
 
     def _rows(self, idx) -> LabelRows:
-        """Gather label rows for a vertex batch."""
+        """Gather label rows for a vertex batch in the active codec."""
         idx = idx.long()
-        return LabelRows(self.lbl_ids[idx], None, self.lbl_d[idx])
+        if self.codec == "none":
+            return LabelRows(self.lbl_ids[idx], None, self.lbl_d[idx])
+        return LabelRows(self.enc_ids[idx], self.enc_base[idx],
+                         self.enc_d[idx])
 
     def _seed(self, ids, d):
         """[Q, n_core+1] stage-2 seeds: label distances scattered (min)

@@ -37,6 +37,8 @@ _I = ctypes.c_int
 # ctypes does not cut them to 32 bits)
 SIGNATURES = {
     "islabel_label_intersect": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "islabel_label_intersect_packed": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                       _I, _I, _P],
     "islabel_spmv_relax": [_P, _P, _P, _P, _I, _I, _I, _P],
     "islabel_fused_relax": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "islabel_minplus_matmul": [_P, _P, _P, _I, _I, _I, _P],

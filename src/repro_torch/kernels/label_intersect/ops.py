@@ -1,23 +1,34 @@
-"""Wrapper of the label-intersect kernel (stage 1 of every query).
+"""Wrappers of the label-intersect kernels (stage 1 of every query).
 
-Replaces ``repro/kernels/label_intersect/kernel.py:label_intersect_kernel``.
+``label_intersect`` replaces
+``repro/kernels/label_intersect/kernel.py:label_intersect_kernel``.
 Bound on Hopper: bytes (four [Q, L] label planes read once); the CUDA
 kernel takes one warp per query and binary-searches instead of the TPU's
 L^2 equality join (``csrc/label_intersect.cu``).
 
+``label_intersect_rows`` is the counterpart of ``repro``'s wrapper of
+the same name: codec ``"none"`` goes to ``label_intersect``, codec
+``"delta16"`` to ``label_intersect_packed_kernel``, which decodes the
+compressed rows in registers and merges them
+(``csrc/label_intersect_packed.cu``).
+
 On a CUDA tensor the ``cuda`` backend launches the kernel, or raises;
 on a CPU tensor it runs the kernel's plain version (``ref.py``), which
 is also the ``reference`` backend. ``LAUNCHES`` counts kernel launches.
+
+``ref`` is bound as a module: it imports ``repro_torch.core.labels``,
+whose package imports this module, so its names resolve at call time.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.backend import resolve_backend
-from repro_torch.kernels.label_intersect.kernel import label_intersect_kernel
-from repro_torch.kernels.label_intersect.ref import label_intersect_ref
+from repro_torch.kernels.label_intersect import ref
+from repro_torch.kernels.label_intersect.kernel import (
+    label_intersect_kernel, label_intersect_packed_kernel)
 
-LAUNCHES = {"label_intersect_kernel": 0}
+LAUNCHES = {"label_intersect_kernel": 0, "label_intersect_packed_kernel": 0}
 
 
 def label_intersect(ids_s, d_s, ids_t, d_t, n_sentinel: int, *,
@@ -30,7 +41,25 @@ def label_intersect(ids_s, d_s, ids_t, d_t, n_sentinel: int, *,
     d_s = d_s.to(torch.float32).contiguous()
     d_t = d_t.to(torch.float32).contiguous()
     if backend == "reference" or not ids_s.is_cuda:
-        return label_intersect_ref(ids_s, d_s, ids_t, d_t, n_sentinel)
+        return ref.label_intersect_ref(ids_s, d_s, ids_t, d_t, n_sentinel)
     out = label_intersect_kernel(ids_s, d_s, ids_t, d_t, n_sentinel)
     LAUNCHES["label_intersect_kernel"] += 1
+    return out
+
+
+def label_intersect_rows(rows_s, rows_t, n_sentinel: int,
+                         codec: str = "none", *, backend=None):
+    """μ float32[Q] over gathered ``LabelRows`` (``core/labels.py``) in
+    either codec; any Q and L."""
+    if codec == "none":
+        return label_intersect(rows_s.ids, rows_s.d, rows_t.ids, rows_t.d,
+                               n_sentinel, backend=backend)
+    if codec != "delta16":
+        raise ValueError(f"unknown label codec {codec!r}")
+    backend = resolve_backend(backend, rows_s.ids.device)
+    args = [x.contiguous() for x in (*rows_s, *rows_t)]
+    if backend == "reference" or not args[0].is_cuda:
+        return ref.label_intersect_packed_ref(*args, n_sentinel)
+    out = label_intersect_packed_kernel(*args, n_sentinel)
+    LAUNCHES["label_intersect_packed_kernel"] += 1
     return out

@@ -1,6 +1,10 @@
-"""Plain PyTorch version of the label-intersect kernel: μ via a per-row
-searchsorted merge (the same math as ``repro``'s jnp reference)."""
+"""Plain PyTorch versions of the label-intersect kernels: μ via a per-row
+searchsorted merge (the same math as ``repro``'s jnp reference), and the
+packed variant over delta16 rows, decoded first with the torch decoders
+of ``core/labels.py``."""
 import torch
+
+from repro_torch.core.labels import decode_d, decode_ids
 
 
 def label_intersect_ref(ids_s, d_s, ids_t, d_t, n_sentinel: int):
@@ -9,3 +13,11 @@ def label_intersect_ref(ids_s, d_s, ids_t, d_t, n_sentinel: int):
     hit = (ids_t.gather(1, pos_c) == ids_s) & (ids_s < n_sentinel)
     tot = torch.where(hit, d_s + d_t.gather(1, pos_c), float("inf"))
     return tot.amin(1)
+
+
+def label_intersect_packed_ref(delta_s, base_s, d_s, delta_t, base_t, d_t,
+                               n_sentinel: int):
+    return label_intersect_ref(decode_ids(delta_s, base_s, n_sentinel),
+                               decode_d(d_s),
+                               decode_ids(delta_t, base_t, n_sentinel),
+                               decode_d(d_t), n_sentinel)

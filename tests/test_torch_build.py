@@ -3,9 +3,10 @@
 With JAX's MIS permutations injected (one per level, split from
 ``PRNGKey(cfg.seed)`` exactly as ``repro``'s builder does) the port's
 hierarchy and labels equal ``repro``'s bitwise, MIS round counts
-included. With the port's own permutations the hierarchy differs, but
-the answers still equal ``repro``'s and Dijkstra's exactly (the
-generators' weights are integer-valued).
+included, from either builder (``builder="device"`` or ``"host"``).
+With the port's own permutations the hierarchy differs, but the answers
+still equal ``repro``'s and Dijkstra's exactly (the generators' weights
+are integer-valued).
 """
 import jax
 import numpy as np
@@ -14,9 +15,13 @@ import torch
 
 from repro.core import ISLabelIndex as JIndex
 from repro.core import IndexConfig as JConfig
+from repro.core.hierarchy import build_hierarchy_host as j_build_host
+from repro.core.labeling import build_labels as j_build_labels
 from repro.core.mis import independent_set as j_independent_set
 from repro.graphs import generators as gen
 from repro_torch.core import ISLabelIndex, IndexConfig, build_hierarchy, ref
+from repro_torch.core.hierarchy import (build_hierarchy_device,
+                                        build_hierarchy_host)
 from repro_torch.core.labeling import build_labels
 from repro_torch.core.mis import MISState, lex_less, mis_key_words
 from repro_torch.graphs import generators as tgen
@@ -107,12 +112,51 @@ def test_l_cap_overflow_raises_actionable():
         build_labels(h, cfg)
 
 
-@pytest.mark.parametrize("builder,exc", [("host", NotImplementedError),
+HIER_FIELDS = ("level", "up_ids", "up_w", "up_via", "core_src", "core_dst",
+               "core_w", "core_via")
+
+
+@pytest.mark.parametrize("builder,exc", [("host", None),
                                          ("gpu", ValueError)])
 def test_builder_choice(builder, exc):
+    """"host" builds the device builder's hierarchy from the same seed;
+    an unknown builder raises."""
     n, src, dst, w = gen.er_graph(64, 2.0, seed=0)
-    with pytest.raises(exc, match="builder"):
-        build_hierarchy(n, src, dst, w, IndexConfig(builder=builder))
+    if exc is not None:
+        with pytest.raises(exc, match="builder"):
+            build_hierarchy(n, src, dst, w, IndexConfig(builder=builder))
+        return
+    got = build_hierarchy(n, src, dst, w, IndexConfig(builder=builder))
+    want = build_hierarchy(n, src, dst, w, IndexConfig())
+    assert got.k == want.k
+    for f in HIER_FIELDS:
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f), f)
+
+
+@pytest.mark.parametrize("name,mk", GRAPHS)
+def test_host_builder_matches_repro_and_device_builder(name, mk):
+    """The host loop with JAX's permutations equals ``repro``'s host
+    loop and the port's device builder, bitwise: hierarchy, per-level
+    records and labels. It reads once per MIS round and several times
+    per level; the device builder once per level."""
+    n, src, dst, w = mk(gen)
+    cfg = IndexConfig(**CFG)
+    host = build_hierarchy_host(n, src, dst, w, cfg, perms=jax_perms(0, n))
+    dev = build_hierarchy_device(n, src, dst, w, cfg, perms=jax_perms(0, n))
+    want = j_build_host(n, src, dst, w, JConfig(**CFG))
+    for f in HIER_FIELDS:
+        a, b = getattr(host, f), np.asarray(getattr(want, f))
+        assert a.dtype == b.dtype, f
+        np.testing.assert_array_equal(a, b, f)
+        np.testing.assert_array_equal(a, getattr(dev, f), f)
+    for f in ("k", "level_sizes", "graph_sizes", "mis_rounds", "peel_iters"):
+        assert getattr(host, f) == getattr(want, f) == getattr(dev, f), f
+    assert dev.host_syncs == dev.peel_iters < host.host_syncs
+    got = build_labels(host, cfg)
+    for a, b, c in zip(got, build_labels(dev, cfg),
+                       j_build_labels(want, JConfig(**CFG))):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+        np.testing.assert_array_equal(a.numpy(), np.asarray(c))
 
 
 def test_lex_less_matches_packed_key_order():

@@ -82,8 +82,8 @@ def test_backend_env_override(monkeypatch):
 def test_kernel_bindings_refuse_cpu_tensors():
     """A binding never falls back: a CPU operand raises before any
     build or launch."""
-    from repro_torch.kernels.label_intersect.kernel import \
-        label_intersect_kernel
+    from repro_torch.kernels.label_intersect.kernel import (
+        label_intersect_kernel, label_intersect_packed_kernel)
     from repro_torch.kernels.minplus_matmul.kernel import \
         minplus_matmul_kernel
     from repro_torch.kernels.spmv_relax.kernel import (fused_relax_kernel,
@@ -92,7 +92,11 @@ def test_kernel_bindings_refuse_cpu_tensors():
     d = torch.zeros((8, 4))
     ell_ids = torch.zeros((4, 16), dtype=torch.int32)
     ell_w = torch.zeros((4, 16))
+    delta = torch.zeros((8, 4), dtype=torch.int16)
+    base = torch.zeros(8, dtype=torch.int32)
     calls = [lambda: label_intersect_kernel(ids, d, ids, d, 5),
+             lambda: label_intersect_packed_kernel(delta, base, ids, delta,
+                                                   base, ids, 5),
              lambda: spmv_relax_kernel(d, ell_ids, ell_w),
              lambda: fused_relax_kernel(d, ell_ids, ell_w, max_rounds=3),
              lambda: minplus_matmul_kernel(d, d.T.contiguous())]
@@ -102,8 +106,11 @@ def test_kernel_bindings_refuse_cpu_tensors():
 
 
 def test_compressed_labels_not_ported_yet():
+    """``label_dtype="compressed"`` builds, and its engine serves the
+    delta16 codec (the packed kernel's path)."""
     n, src, dst, w = gen.er_graph(64, 2.0, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ISLabelIndex.build(n, src, dst, w,
-                           IndexConfig(l_cap=64, label_dtype="compressed"),
-                           device="cpu")
+    idx = ISLabelIndex.build(n, src, dst, w,
+                             IndexConfig(l_cap=64, label_dtype="compressed"),
+                             device="cpu")
+    assert idx.engine.codec == "delta16"
+    assert idx.engine.enc_ids.dtype == torch.int16
