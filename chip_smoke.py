@@ -28,7 +28,10 @@ Phases, one JSON line each (with its seconds):
    labels, bitwise; then whether the 10^6 graph's labels fit delta16.
 5. kernels  — each kernel on the card against its plain PyTorch version
    (``torch.equal``) on the inputs the main path gave it, with
-   CUDA-event times and the bound of the same work.
+   CUDA-event times and the bound of the same work. ``spmv_relax_kernel``
+   is replayed round by round on both ``ell_loop`` queries (output, mask
+   and flag of every round), and its replayed round count must equal
+   the route's.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script
@@ -57,7 +60,7 @@ KERNELS = {
         "src/repro_torch/kernels/csrc/spmv_relax.cu",
         "src/repro/kernels/spmv_relax/kernel.py:55"),
     "fused_relax_kernel": (
-        "src/repro_torch/kernels/csrc/spmv_relax.cu",
+        "src/repro_torch/kernels/csrc/fused_relax.cu",
         "src/repro/kernels/spmv_relax/kernel.py:107"),
     "minplus_matmul_kernel": (
         "src/repro_torch/kernels/csrc/minplus_matmul.cu",
@@ -190,7 +193,9 @@ def drive_route(route, spec, gen_call, overrides, device):
         s = rng.integers(0, n, MAIN_QUERIES).astype(np.int32)
         t = rng.integers(0, n, MAIN_QUERIES).astype(np.int32)
         times, syncs = [], []
+        build_peak = torch.cuda.max_memory_allocated()
         for _ in range(2):       # first call builds the core layouts
+            torch.cuda.reset_peak_memory_stats()
             with sync.sync_span() as span:
                 t1 = time.perf_counter()
                 ans = idx.query(s, t)   # ends on a blocking read of rounds
@@ -227,7 +232,8 @@ def drive_route(route, spec, gen_call, overrides, device):
            "query_ms_first": times[0], "query_ms": times[1],
            "query_syncs": syncs[1], "queries": MAIN_QUERIES,
            "dijkstra_checked": n_check,
-           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "peak_device_bytes_build": build_peak,
+           "peak_device_bytes_query": torch.cuda.max_memory_allocated(),
            "label_entries": st.label_entries, "codec": eng.codec}
     if eng.codec == "delta16":
         from repro_torch.core.labels import encoded_nbytes
@@ -289,17 +295,26 @@ def phase_builders(fp32_1e6) -> dict:
     return rec
 
 
-def frontier(idx, s, t, vp: int):
-    """The stacked, padded [2Q, Vp] stage-2 seeds of one query batch."""
+def label_seeds(idx, s, t):
+    """The stage-2 label seeds of one query batch, as ``QueryEngine``
+    hands them to ``CoreRelaxer.run``, and the gathered label rows."""
     import torch
-    from repro_torch.core.dispatch import stack_frontiers
     from repro_torch.core.labels import decode_rows
     eng = idx.engine
-    sd = torch.as_tensor(s, device=idx.device)
-    td = torch.as_tensor(t, device=idx.device)
-    rs, rt = eng._rows(sd), eng._rows(td)
-    seeds = [eng._seed(*decode_rows(r, idx.n, eng.codec)) for r in (rs, rt)]
-    return stack_frontiers(*seeds, vp, 8), rs, rt
+    rs, rt = (eng._rows(torch.as_tensor(x, device=idx.device))
+              for x in (s, t))
+    seeds = [eng._label_seeds(*decode_rows(r, idx.n, eng.codec))
+             for r in (rs, rt)]
+    return seeds, rs, rt
+
+
+def frontier(idx, s, t, vp: int):
+    """The stacked, padded [2Q, Vp] row-major stage-2 seeds of one query
+    batch (the fused and dense routes' layout)."""
+    from repro_torch.core.dispatch import seed_rows, stack_frontiers
+    seeds, rs, rt = label_seeds(idx, s, t)
+    v = idx.engine.n_core + 1
+    return stack_frontiers(*(seed_rows(x, v) for x in seeds), vp, 8), rs, rt
 
 
 def _fns():
@@ -332,13 +347,25 @@ def _as_tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
 
+# spmv_relax_kernel's operands that it writes (out, changed_out, flag_out)
+OUTPUT_ARGS = {"spmv_relax_kernel": (4, 5, 6)}
+
+
+def _own_outputs(name, args):
+    """``args`` with copies of the operands that the kernel writes, so
+    kernel and plain version start from the same contents and leave the
+    caller's buffers alone."""
+    outs = OUTPUT_ARGS.get(name, ())
+    return tuple(a.clone() if i in outs else a for i, a in enumerate(args))
+
+
 def compare(name, args) -> float:
     """Run kernel and plain version on ``args``; fail unless every output
     is ``torch.equal``. Returns the max abs error (0.0)."""
     import torch
     kernel, plain = _fns()[name]
-    outs = _as_tuple(kernel(*args))
-    refs = _as_tuple(plain(*args))
+    outs = _as_tuple(kernel(*_own_outputs(name, args)))
+    refs = _as_tuple(plain(*_own_outputs(name, args)))
     torch.cuda.synchronize()
     for a, b in zip(outs, refs):
         if not torch.equal(a, b):
@@ -354,6 +381,9 @@ def phase_ragged(dev="cuda") -> dict:
     import numpy as np
     import torch
     from repro_torch.core.labels import encode_labels
+    from repro_torch.kernels.spmv_relax.kernel import (HEAVY_DEGREE,
+                                                       ROW_TILE, RelaxCSR)
+    from repro_torch.kernels.spmv_relax.ops import coo_to_csr
     g = torch.Generator(device=dev).manual_seed(0)
     r = np.random.default_rng(0)
     inf = float("inf")
@@ -407,6 +437,34 @@ def phase_ragged(dev="cuda") -> dict:
              torch.randint(0, v, (q,), generator=g, device=dev)] = 0.0
         return dist, ids, w
 
+    def csr_case(vp, rows, e, hubs, mask, flag_in=1):
+        """spmv_relax operands: e random edges into the first half of the
+        vertices (the rest have no in-edges) plus one hub for each
+        in-degree in ``hubs``, a frontier about 10% finite, a mask "all",
+        "none" or "random", and outputs filled with garbage."""
+        src = r.integers(0, vp, e)
+        dst = r.integers(0, max(1, vp // 2), e)
+        for hub, deg in enumerate(hubs):
+            src = np.concatenate([src, r.integers(0, vp, deg)])
+            dst = np.concatenate([dst, np.full(deg, 7 + hub)])
+        w = r.integers(1, 9, len(src)).astype(np.float32)
+        indptr, s_, w_, order, n_heavy = coo_to_csr(vp, src, dst, w)
+        csr = RelaxCSR(*(torch.from_numpy(x).to(dev)
+                         for x in (indptr, s_, w_, order)), n_heavy)
+        dist = torch.randint(0, 30, (vp, rows), generator=g,
+                             device=dev).float()
+        dist[torch.rand((vp, rows), generator=g, device=dev) < 0.9] = inf
+        n_tiles = -(-rows // ROW_TILE)
+        changed = {"all": torch.ones, "none": torch.zeros}.get(mask)
+        changed = (changed((n_tiles, vp), dtype=torch.bool, device=dev)
+                   if changed else torch.rand((n_tiles, vp), generator=g,
+                                              device=dev) < 0.3)
+        flag = torch.full((1,), flag_in, dtype=torch.int32, device=dev)
+        out = torch.full_like(dist, 5.0)
+        chg_out = torch.rand((n_tiles, vp), generator=g, device=dev) < 0.5
+        return (dist, csr, changed, flag, out, chg_out,
+                torch.zeros(1, dtype=torch.int32, device=dev))
+
     def mat(m, k, p_inf):
         x = torch.randint(0, 20, (m, k), generator=g, device=dev).float()
         return torch.where(torch.rand((m, k), generator=g, device=dev)
@@ -422,8 +480,17 @@ def phase_ragged(dev="cuda") -> dict:
             (*rows(13, 100, 1000), *rows(13, 100, 1000), 1000),
             (*rows(1, 1, 5), *rows(1, 1, 5), 5),
             (*rows(40, 257, 300), *rows(40, 257, 300), 300)],
-        "spmv_relax_kernel": [ell(13, 1000, 16), ell(3, 130, 48),
-                              ell(20, 5000, 32)],
+        "spmv_relax_kernel": [
+            csr_case(1001, 40, 5000, (HEAVY_DEGREE + 1, HEAVY_DEGREE),
+                     "random"),
+            csr_case(77, 8, 200, (), "all"),
+            csr_case(130, 16, 400, (HEAVY_DEGREE * 3,), "none"),
+            csr_case(5003, 136, 30000, (2512,), "random"),
+            csr_case(300, 48, 900, (600,), "all"),
+            csr_case(700, 264, 3000, (300,), "random"),
+            csr_case(1001, 256, 5000, (HEAVY_DEGREE + 1, 3 * HEAVY_DEGREE),
+                     "random"),
+            csr_case(500, 24, 2000, (), "all", flag_in=0)],
         "fused_relax_kernel": [(*ell(24, 1000, 16), 10000),
                                (*ell(8, 77, 32), 3), (*ell(16, 300, 16), 0)],
         "minplus_matmul_kernel": [
@@ -483,6 +550,127 @@ def packed_case(idx, s, t):
     return args_int, args_f32, real, bytes_real, bytes_full
 
 
+def csr_round_work(csr, changed, rows: int):
+    """(bytes, operations) one spmv_relax round must move and do on these
+    inputs: one read and one write of the [Vp, R] frontier, each real
+    in-edge (id and weight), indptr, order and both masks once; an add
+    and a min for each (edge, row) whose source is marked changed, and a
+    min per frontier entry."""
+    import torch
+    from repro_torch.core.sync import host_read
+    from repro_torch.kernels.spmv_relax.kernel import ROW_TILE
+    vp = csr.order.shape[0]
+    n_tiles = changed.shape[0]
+    tile_rows = torch.full((n_tiles,), ROW_TILE, dtype=torch.int64,
+                           device=changed.device)
+    tile_rows[-1] = rows - ROW_TILE * (n_tiles - 1)
+    live = changed[:, csr.src.long()].sum(1)
+    pairs = int(host_read((live * tile_rows).sum()))
+    n_bytes = (2 * vp * rows * 4 + csr.src.numel() * 8 + (vp + 1) * 4
+               + vp * 4 + 2 * n_tiles * vp)
+    return n_bytes, 2 * pairs + vp * rows
+
+
+def replay_csr(idx, s, t) -> dict:
+    """Replay the query's ell_loop relaxation round by round: each
+    round's output, mask and flag from the kernel against the plain
+    version (``torch.equal``), until the first round that improves
+    nothing; the count must equal the route's ``rounds``. Times the
+    first round (at the seed frontier) with its plain version, every
+    round's kernel, a quiet launch (flag in 0) and the whole
+    ``relax_csr_rounds`` loop on the host clock."""
+    import torch
+    from repro_torch.core.dispatch import relax_csr_rounds, seed_vertex_major
+    from repro_torch.core.sync import host_read
+    from repro_torch.kernels.spmv_relax.kernel import spmv_relax_kernel
+    eng = idx.engine
+    csr = eng.relaxer.csr()
+    seeds, rs, _ = label_seeds(idx, s, t)
+    vp = csr.order.shape[0]
+    bq = eng.relaxer.bq          # the route's row rounding
+    rows = -(-2 * rs.ids.shape[0] // bq) * bq
+    del rs
+
+    def round_args(cur, changed, flag_in):
+        return (cur, csr, changed, flag_in, torch.empty_like(cur),
+                torch.empty_like(changed),
+                torch.zeros(1, dtype=torch.int32, device=cur.device))
+
+    def loop_ms():
+        d0, c0 = seed_vertex_major(*seeds, vp, rows)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, r = relax_csr_rounds(d0, c0, csr, eng.max_rounds)
+        host_read(r)
+        return (time.perf_counter() - t0) * 1e3
+
+    cur, changed = seed_vertex_major(*seeds, vp, rows)
+    flag_in = torch.ones(1, dtype=torch.int32, device=cur.device)
+    args = round_args(cur, changed, flag_in)
+    n_bytes, n_ops = csr_round_work(csr, changed, rows)
+    rec = time_kernel("spmv_relax_kernel", args, n_bytes, n_ops, iters=10)
+    quiet = round_args(cur, changed, torch.zeros_like(flag_in))
+    rec["quiet_ms"], rec["quiet_wall_ms"] = cuda_ms(
+        lambda: spmv_relax_kernel(*quiet), 50)
+    rounds, all_ms, all_bound, per_round = 0, 0.0, 0.0, []
+    while rounds < eng.max_rounds:
+        if rounds:
+            args = round_args(cur, changed, flag_in)
+            n_bytes, n_ops = csr_round_work(csr, changed, rows)
+            compare("spmv_relax_kernel", args)
+        ms, _ = cuda_ms(lambda: spmv_relax_kernel(*args), 3)
+        b_ms, _ = bound(n_bytes, n_ops)
+        spmv_relax_kernel(*args)
+        cur, changed, flag_in = args[4], args[5], args[6]
+        rounds += 1
+        all_ms += ms
+        all_bound += b_ms
+        per_round.append(ms)
+        if not host_read(flag_in)[0]:
+            break
+    if rounds != eng._last_rounds:
+        fail(f"replay ran {rounds} rounds, the route counted "
+             f"{eng._last_rounds}")
+    del cur, changed, args, quiet
+    rec.update(
+        rounds=rounds, all_rounds_ms=all_ms, all_rounds_bound_ms=all_bound,
+        per_round_ms=per_round, all_rounds_wall_ms=loop_ms(), vp=vp,
+        rows=rows, edges=csr.src.numel(), n_heavy=csr.n_heavy,
+        max_in_degree=int(torch.diff(csr.indptr).max()))
+    return rec
+
+
+def profile_query(idx, s, t) -> dict:
+    """One more call of the path's query under ``torch.profiler``: host
+    wall time, the time the device was busy (the union of the kernels'
+    and copies' intervals in the trace), the device's idle share of the
+    wall time, and the kernels that took most of the busy time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        idx.query(s, t)             # ends on a blocking read of rounds
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, reach, by_name = 0.0, float("-inf"), {}
+    for start, end, name in spans:
+        busy_us += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+        ms, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + (end - start) / 1e3, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+            "idle_share": (1 - busy_us / 1e3 / wall_ms) if spans else None,
+            "device_events": len(spans),
+            "top": [{"name": k[:80], "device_ms": ms, "count": c}
+                    for k, (ms, c) in top]}
+
+
 def phase_kernels(indexes) -> list:
     """Each kernel on the inputs its route gave it in the main path."""
     from repro_torch.kernels.spmv_relax.ref import fused_relax_ref
@@ -503,37 +691,23 @@ def phase_kernels(indexes) -> list:
         float32_plane={k: f32[k] for k in ("ms", "wall_ms", "plain_ms",
                                            "bound_ms", "max_abs_err")})
 
-    # stage 1 and one ell_loop round: the 10^6 graph's 1024-pair query
+    # stage 1 of the 10^6 graph's 1024-pair query
     idx, s, t = indexes["ell_loop"]
-    nbr_ids, nbr_w = idx.engine.relaxer.ell()
-    d0, rs, rt = frontier(idx, s, t, nbr_ids.shape[0])
+    _, rs, rt = label_seeds(idx, s, t)
     q, l = rs.ids.shape
     out.append(time_kernel(
         "label_intersect_kernel", (rs.ids, rs.d, rt.ids, rt.d, idx.n),
         n_bytes=4 * q * l * 4 + q * 4, n_ops=2 * q * l, iters=200))
-    rows, v = d0.shape
-    nnz = int((nbr_w != inf).sum())
-    out.append(time_kernel(
-        "spmv_relax_kernel", (d0, nbr_ids, nbr_w),
-        n_bytes=2 * rows * v * 4 + nbr_ids.numel() * 8,
-        n_ops=rows * (2 * nnz + v), iters=10))
-    out[-1]["ell_width"] = nbr_ids.shape[1]
-    del d0, rs, rt
-    # one ell_loop round of the compressed path (R-MAT hub width)
-    idx, s, t = indexes["compressed"]
-    nbr_ids, nbr_w = idx.engine.relaxer.ell()
-    d0, _, _ = frontier(idx, s, t, nbr_ids.shape[0])
-    rows, v = d0.shape
-    nnz = int((nbr_w != inf).sum())
-    comp = time_kernel(
-        "spmv_relax_kernel", (d0, nbr_ids, nbr_w),
-        n_bytes=2 * rows * v * 4 + nbr_ids.numel() * 8,
-        n_ops=rows * (2 * nnz + v), iters=10)
-    out[-1]["compressed_path"] = {
-        k: comp[k] for k in ("ms", "wall_ms", "plain_ms", "bound_ms",
-                             "bound_by", "max_abs_err", "shape")}
-    out[-1]["compressed_path"]["ell_width"] = nbr_ids.shape[1]
-    del d0
+    del rs, rt
+    # every ell_loop round of both ell_loop paths' queries
+    out.append(replay_csr(*indexes["ell_loop"]))
+    out[-1]["profile"] = profile_query(*indexes["ell_loop"])
+    out[-1]["compressed_path"] = replay_csr(*indexes["compressed"])
+    out[-1]["compressed_path"]["profile"] = profile_query(
+        *indexes["compressed"])
+    for key in ("name", "route", "source", "replaces", "launches",
+                "library_ms"):
+        out[-1]["compressed_path"].pop(key)
 
     # all rounds of the fused route's query
     idx, s, t = indexes["fused"]

@@ -17,6 +17,9 @@
                    against a 0-diagonal dense adjacency.
       "ell_loop" — one ``spmv_relax`` launch per round, when the fused
                    working-set model exceeds its budget (large cores).
+                   The stacked frontier is vertex-major ([Vp, R]) and
+                   the kernel walks the core's real in-edges (a CSR),
+                   gathering only from sources that changed last round.
 
 Every route computes the same synchronous (Jacobi) rounds, so answers
 and round counts agree bitwise with ``repro``.
@@ -25,7 +28,14 @@ JAX ran the round loops as device ``while_loop``s. Here the loop is on
 the host and the exit test stays on the device: a round run after the
 fixed point is an exact no-op and is not counted, so ``rounds`` equals
 JAX's count, and the host reads the "improved" flag (``host_read``)
-once every ``CHECK_EVERY`` rounds instead of once per round.
+once every ``CHECK_EVERY`` rounds instead of once per round. The
+``ell_loop`` kernel writes that flag itself, and a launch after a
+round that improved nothing returns at once.
+
+A route's seeds are label seeds: per query side, the core position of
+each label entry's ancestor (the sentinel column n_core for non-core
+ancestors) and its distance (+inf for padding). Each route scatters
+them (min) into the frontier layout it relaxes.
 """
 from __future__ import annotations
 
@@ -39,8 +49,10 @@ from repro_torch.core.sync import host_read, upload
 from repro_torch.kernels.backend import resolve_backend
 from repro_torch.kernels.label_intersect import ops as li_ops
 from repro_torch.kernels.minplus_matmul.ops import minplus_matmul
-from repro_torch.kernels.spmv_relax.kernel import fused_vmem_bytes
-from repro_torch.kernels.spmv_relax.ops import (coo_to_ell, fused_relax,
+from repro_torch.kernels.spmv_relax.kernel import (ROW_TILE, RelaxCSR,
+                                                   fused_vmem_bytes)
+from repro_torch.kernels.spmv_relax.ops import (coo_to_csr, coo_to_ell,
+                                                ell_width, fused_relax,
                                                 spmv_relax)
 
 # The TPU's VMEM budget for the fused kernel's working set, kept from
@@ -115,6 +127,41 @@ def core_relax(seed_s, seed_t, ce_src, ce_dst, ce_w, mu, n_core: int,
     return torch.minimum(mu, through_core), ds, dt, rounds
 
 
+def seed_rows(seeds, v: int):
+    """[Q, v] row-major frontier from one side's label seeds ``(cpos
+    int64[Q, L], d float32[Q, L])``: +inf, with each label distance
+    scattered (min) to its core position."""
+    cpos, d = seeds
+    q = cpos.shape[0]
+    out = torch.full((q * v,), INF, dtype=torch.float32, device=d.device)
+    rows = torch.arange(q, device=d.device)[:, None] * v
+    out.scatter_reduce_(0, (rows + cpos).reshape(-1), d.reshape(-1), "amin",
+                        include_self=True)
+    return out.view(q, v)
+
+
+def seed_vertex_major(seeds_s, seeds_t, vp: int, rows: int):
+    """Both sides' label seeds scattered (min) straight into one
+    vertex-major [vp, rows] frontier (s rows 0..Q-1, t rows Q..2Q-1,
+    +inf elsewhere), and the first round's ``changed`` mask
+    bool[ceil(rows / ROW_TILE), vp]: the (tile, vertex) pairs that hold a
+    finite seed, the only sources that can lower anything."""
+    (cpos_s, d_s), (cpos_t, d_t) = seeds_s, seeds_t
+    q, l = cpos_s.shape
+    dev = d_s.device
+    cpos = torch.cat([cpos_s, cpos_t]).reshape(-1)
+    d = torch.cat([d_s, d_t]).reshape(-1)
+    r = torch.arange(2 * q, device=dev)[:, None].expand(2 * q, l).reshape(-1)
+    d0 = torch.full((vp * rows,), INF, dtype=torch.float32, device=dev)
+    d0.scatter_reduce_(0, cpos * rows + r, d, "amin", include_self=True)
+    n_tiles = -(-rows // ROW_TILE)
+    # +inf seeds park in one extra slot past the mask
+    changed = torch.zeros(n_tiles * vp + 1, dtype=torch.bool, device=dev)
+    changed.index_fill_(0, torch.where(d < INF, (r // ROW_TILE) * vp + cpos,
+                                       n_tiles * vp), True)
+    return d0.view(vp, rows), changed[:-1].view(n_tiles, vp)
+
+
 def stack_frontiers(seed_s, seed_t, vp: int, bq: int):
     """Both frontiers stacked into one [2Q rounded up to bq, Vp] matrix,
     +inf padded."""
@@ -127,43 +174,78 @@ def stack_frontiers(seed_s, seed_t, vp: int, bq: int):
 
 
 def _finish(d, q: int, v: int, mu, n_core: int, rounds):
+    """(ans, ds, dt, rounds) from the stacked [rows, Vp] frontier ``d``
+    (any strides)."""
     ds = d[:q, :v]
     dt = d[q:2 * q, :v]
     through_core = (ds[:, :n_core] + dt[:, :n_core]).amin(1)
     return torch.minimum(mu, through_core), ds, dt, rounds
 
 
-def _core_relax_ell(seed_s, seed_t, nbr_ids, nbr_w, mu, n_core: int,
+def relax_csr_rounds(cur, changed, csr: RelaxCSR, max_rounds: int):
+    """Rounds of ``spmv_relax`` over the vertex-major frontier ``cur``
+    to the fixed point or ``max_rounds``, ping-ponging between two
+    frontier buffers and two ``changed`` masks. Returns (frontier,
+    rounds int32 device scalar).
+
+    ``flags[i]`` is round i's input flag (``flags[0] = 1``); round i
+    sets ``flags[i + 1]`` if it improved anything. A round whose flag is
+    0 returns at once, leaving both buffers equal, so ``rounds`` (the
+    rounds that ran, the last non-improving one included) is
+    ``flags[:done].sum()``, JAX's ``while_loop`` count."""
+    dev = cur.device
+    nxt = torch.empty_like(cur)
+    changed_nxt = torch.empty_like(changed)
+    flags = torch.zeros(max_rounds + 1, dtype=torch.int32, device=dev)
+    flags[:1].fill_(1)
+    done = 0
+    while done < max_rounds:
+        for _ in range(min(CHECK_EVERY, max_rounds - done)):
+            spmv_relax(cur, csr, changed, flag_in=flags[done:done + 1],
+                       out=nxt, changed_out=changed_nxt,
+                       flag_out=flags[done + 1:done + 2], backend="cuda")
+            cur, nxt = nxt, cur
+            changed, changed_nxt = changed_nxt, changed
+            done += 1
+        if not host_read(flags[done]):
+            break
+    return cur, flags[:done].sum(dtype=torch.int32)
+
+
+def _core_relax_csr(seeds_s, seeds_t, csr: RelaxCSR, mu, n_core: int,
                     max_rounds: int, bq: int):
-    """Both frontiers stacked, one ``spmv_relax`` launch per round."""
-    q, v = seed_s.shape
-    d0 = stack_frontiers(seed_s, seed_t, nbr_ids.shape[0], bq)
-    (d,), rounds = relax_rounds(
-        lambda d: (spmv_relax(d, nbr_ids, nbr_w, backend="cuda"),),
-        (d0,), max_rounds)
-    return _finish(d, q, v, mu, n_core, rounds)
+    """Both frontiers stacked vertex-major, one ``spmv_relax`` launch per
+    round."""
+    q = seeds_s[0].shape[0]
+    vp = csr.order.shape[0]
+    rows = -(-2 * q // bq) * bq
+    d0, changed = seed_vertex_major(seeds_s, seeds_t, vp, rows)
+    d, rounds = relax_csr_rounds(d0, changed, csr, max_rounds)
+    return _finish(d.T, q, n_core + 1, mu, n_core, rounds)
 
 
-def _core_relax_fused(seed_s, seed_t, nbr_ids, nbr_w, mu, n_core: int,
+def _core_relax_fused(seeds_s, seeds_t, nbr_ids, nbr_w, mu, n_core: int,
                       max_rounds: int, bq: int):
     """Both frontiers stacked, all rounds in one ``fused_relax`` launch.
     Batch rounds = max over per-block rounds (all-pad blocks settle in
     one round, real blocks freeze bitwise at their own fixed point)."""
-    q, v = seed_s.shape
-    d0 = stack_frontiers(seed_s, seed_t, nbr_ids.shape[0], bq)
+    q, v = seeds_s[0].shape[0], n_core + 1
+    d0 = stack_frontiers(seed_rows(seeds_s, v), seed_rows(seeds_t, v),
+                         nbr_ids.shape[0], bq)
     d, blk_rounds = fused_relax(d0, nbr_ids, nbr_w, max_rounds=max_rounds,
                                 bq=bq)
     rounds = torch.cat([blk_rounds, blk_rounds.new_zeros(1)]).amax()
     return _finish(d, q, v, mu, n_core, rounds)
 
 
-def _core_relax_dense(seed_s, seed_t, adj, mu, n_core: int, max_rounds: int,
-                      bm: int = 8):
+def _core_relax_dense(seeds_s, seeds_t, adj, mu, n_core: int,
+                      max_rounds: int, bm: int = 8):
     """One ``minplus_matmul`` per round against the 0-diagonal adjacency
     (the diagonal supplies the keep-old term, so ``minplus(d, adj)`` IS
     the synchronous round)."""
-    q, v = seed_s.shape
-    d0 = stack_frontiers(seed_s, seed_t, adj.shape[0], bm)
+    q, v = seeds_s[0].shape[0], n_core + 1
+    d0 = stack_frontiers(seed_rows(seeds_s, v), seed_rows(seeds_t, v),
+                         adj.shape[0], bm)
     (d,), rounds = relax_rounds(
         lambda d: (minplus_matmul(d, adj, backend="cuda"),), (d0,),
         max_rounds)
@@ -174,16 +256,17 @@ class CoreRelaxer:
     """Backend-dispatched stage-2 relaxation over the local core graph.
 
     Holds the COO edge arrays (host arrays: local indices in
-    [0, n_core), weights) and derives the kernel-side layouts once, on first use, on
-    ``device``: the ELL planes of the per-round and fused kernels and,
-    for dense cores, the 0-diagonal dense adjacency — padded to a
-    multiple of ``bv`` vertices.
+    [0, n_core), weights) and derives the layout of its route once, on
+    first use, on ``device``: the in-edge CSR of the per-round kernel,
+    the ELL planes of the fused kernel or, for dense cores, the
+    0-diagonal dense adjacency — padded to a multiple of ``bv``
+    vertices.
 
     Route selection (``.mode``) is ``repro``'s: density >=
     ``dense_threshold`` (env ``ISLABEL_DENSE_THRESHOLD``) with n_core <=
     ``dense_cap`` -> "dense"; else "fused" when the fused working-set
-    model fits ``vmem_budget``; else "ell_loop". Env
-    ``ISLABEL_FUSED_RELAX=0`` forces the per-round loop.
+    model (the ELL width from the in-degrees) fits ``vmem_budget``; else
+    "ell_loop". Env ``ISLABEL_FUSED_RELAX=0`` forces the per-round loop.
     """
 
     def __init__(self, ce_src, ce_dst, ce_w, n_core: int, *,
@@ -212,6 +295,7 @@ class CoreRelaxer:
         self.vmem_budget = vmem_budget
         self.density = (len(self.ce_src) / (n_core * n_core)) if n_core else 0.0
         self._coo = None
+        self._csr = None
         self._ell = None
         self._adj = None
         self._mode = None
@@ -225,8 +309,9 @@ class CoreRelaxer:
                     and self.density >= self.dense_threshold):
                 self._mode = "dense"
             elif self.fused:
-                vp, width = self.ell()[0].shape
-                fits = fused_vmem_bytes(vp, width, self.bq) <= self.vmem_budget
+                width = ell_width(self.n_core + 1, self.ce_dst, self.d_width)
+                fits = (fused_vmem_bytes(self._vp(), width, self.bq)
+                        <= self.vmem_budget)
                 self._mode = "fused" if fits else "ell_loop"
             else:
                 self._mode = "ell_loop"
@@ -242,6 +327,17 @@ class CoreRelaxer:
                          upload(self.ce_dst, self.device),
                          upload(self.ce_w, self.device))
         return self._coo
+
+    def csr(self) -> RelaxCSR:
+        """The in-edges by destination over Vp = n_core+1 rounded up to
+        a multiple of bv vertices (sentinel included, padding vertices
+        edgeless), for ``spmv_relax``."""
+        if self._csr is None:
+            indptr, src, w, order, n_heavy = coo_to_csr(
+                self._vp(), self.ce_src, self.ce_dst, self.ce_w)
+            self._csr = RelaxCSR(*(upload(x, self.device)
+                                   for x in (indptr, src, w, order)), n_heavy)
+        return self._csr
 
     def dense_adj(self):
         """[Vp, Vp] float32 dense adjacency: adj[src, dst] = min edge
@@ -261,7 +357,7 @@ class CoreRelaxer:
     def ell(self):
         """(nbr_ids [Vp, D], nbr_w [Vp, D]) with Vp = n_core+1 rounded up
         to a multiple of bv (sentinel column included, padding rows
-        edgeless)."""
+        edgeless), for the fused kernel."""
         if self._ell is None:
             v = self.n_core + 1
             vp = self._vp()
@@ -272,20 +368,22 @@ class CoreRelaxer:
             self._ell = (upload(ids, self.device), upload(ws, self.device))
         return self._ell
 
-    def run(self, seed_s, seed_t, mu, max_rounds: int, backend=None):
-        """Relax to convergence. Returns (ans, ds, dt, rounds) with
-        ds/dt of shape [Q, n_core+1] and rounds an int32 device scalar."""
+    def run(self, seeds_s, seeds_t, mu, max_rounds: int, backend=None):
+        """Relax to convergence from both sides' label seeds ``(cpos
+        int64[Q, L], d float32[Q, L])``. Returns (ans, ds, dt, rounds)
+        with ds/dt of shape [Q, n_core+1] and rounds an int32 device
+        scalar."""
         backend = resolve_backend(backend, self.device)
+        v = self.n_core + 1
         if backend == "reference":
-            return core_relax(seed_s, seed_t, *self.coo(), mu, self.n_core,
-                              max_rounds)
+            return core_relax(seed_rows(seeds_s, v), seed_rows(seeds_t, v),
+                              *self.coo(), mu, self.n_core, max_rounds)
         mode = self.mode
         if mode == "dense":
-            return _core_relax_dense(seed_s, seed_t, self.dense_adj(), mu,
+            return _core_relax_dense(seeds_s, seeds_t, self.dense_adj(), mu,
                                      self.n_core, max_rounds, self.bq)
-        nbr_ids, nbr_w = self.ell()
         if mode == "fused":
-            return _core_relax_fused(seed_s, seed_t, nbr_ids, nbr_w, mu,
+            return _core_relax_fused(seeds_s, seeds_t, *self.ell(), mu,
                                      self.n_core, max_rounds, self.bq)
-        return _core_relax_ell(seed_s, seed_t, nbr_ids, nbr_w, mu,
-                               self.n_core, max_rounds, self.bq)
+        return _core_relax_csr(seeds_s, seeds_t, self.csr(), mu, self.n_core,
+                               max_rounds, self.bq)

@@ -123,19 +123,13 @@ class QueryEngine:
         return LabelRows(self.enc_ids[idx], self.enc_base[idx],
                          self.enc_d[idx])
 
-    def _seed(self, ids, d):
-        """[Q, n_core+1] stage-2 seeds: label distances scattered (min)
-        to the core positions of their ancestors; non-core ancestors
-        park in the sentinel column n_core."""
-        q, l = ids.shape
-        cpos = self.core_pos[torch.clamp(ids, max=self.n).long()]
-        seed = torch.full((q * (self.n_core + 1),), INF, dtype=torch.float32,
-                          device=ids.device)
-        rows = torch.arange(q, device=ids.device)[:, None] * (self.n_core + 1)
-        flat = (rows + cpos).reshape(-1)
-        vals = torch.where(ids < self.n, d, INF).reshape(-1)
-        seed.scatter_reduce_(0, flat, vals, "amin", include_self=True)
-        return seed.view(q, self.n_core + 1)
+    def _label_seeds(self, ids, d):
+        """Stage-2 label seeds of a [Q, L] label batch: the core position
+        of each entry's ancestor (non-core ancestors and padding park in
+        the sentinel column n_core) and its distance (+inf for padding),
+        as ``CoreRelaxer.run`` takes them."""
+        cpos = self.core_pos[torch.clamp(ids, max=self.n).long()].long()
+        return cpos, torch.where(ids < self.n, d, INF)
 
     def _query_block(self, s, t, backend: str):
         """One block through both stages. Returns (ans, rounds) with
@@ -147,9 +141,9 @@ class QueryEngine:
             return mu, None
         ids_s, d_s = decode_rows(rows_s, self.n, self.codec)
         ids_t, d_t = decode_rows(rows_t, self.n, self.codec)
-        ans, _, _, rounds = self.relaxer.run(self._seed(ids_s, d_s),
-                                             self._seed(ids_t, d_t), mu,
-                                             self.max_rounds, backend)
+        ans, _, _, rounds = self.relaxer.run(
+            self._label_seeds(ids_s, d_s), self._label_seeds(ids_t, d_t), mu,
+            self.max_rounds, backend)
         return ans, rounds
 
     def query(self, s, t, backend: str | None = None,

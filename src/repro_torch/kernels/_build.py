@@ -39,7 +39,8 @@ SIGNATURES = {
     "islabel_label_intersect": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "islabel_label_intersect_packed": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
                                        _I, _I, _P],
-    "islabel_spmv_relax": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "islabel_spmv_relax": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I,
+                           _I, _P],
     "islabel_fused_relax": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "islabel_minplus_matmul": [_P, _P, _P, _I, _I, _I, _P],
 }

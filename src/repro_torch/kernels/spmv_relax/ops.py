@@ -1,13 +1,13 @@
-"""Wrappers of the ELL relaxation kernels (stage 2 of a query) and the
-COO -> ELL conversion.
+"""Wrappers of the relaxation kernels (stage 2 of a query) and the COO
+-> CSR / ELL conversions.
 
 ``spmv_relax`` replaces ``repro/kernels/spmv_relax/kernel.py:
-spmv_relax_kernel`` (one round per launch, the route of large cores);
-``fused_relax`` replaces ``fused_relax_kernel`` (all rounds in one
-launch, per 8-row block). Bound on Hopper: bytes, as random gathers of
-frontier rows through L2; the CUDA kernels serve 8 rows from each load
-of a vertex's ELL slots and skip padding slots
-(``csrc/spmv_relax.cu``).
+spmv_relax_kernel`` (one round per launch, the route of large cores):
+a vertex-major frontier, the core's real in-edges as a CSR, a per-(row
+tile, source) "changed last round" mask and an in-kernel exit flag
+(``csrc/spmv_relax.cu``). ``fused_relax`` replaces ``fused_relax_kernel``
+(all rounds in one launch, per 8-row block, over ELL planes;
+``csrc/fused_relax.cu``). Bound on Hopper: bytes, in both.
 
 On a CUDA tensor a wrapper launches its kernel, or raises; on a CPU
 tensor it runs the kernel's plain version (``ref.py``). ``LAUNCHES``
@@ -19,11 +19,20 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.backend import resolve_backend
-from repro_torch.kernels.spmv_relax.kernel import (fused_relax_kernel,
+from repro_torch.kernels.spmv_relax.kernel import (HEAVY_DEGREE, RelaxCSR,
+                                                   fused_relax_kernel,
                                                    spmv_relax_kernel)
 from repro_torch.kernels.spmv_relax.ref import fused_relax_ref, spmv_relax_ref
 
 LAUNCHES = {"spmv_relax_kernel": 0, "fused_relax_kernel": 0}
+
+
+def ell_width(n_v: int, dst, d_width: int = 16) -> int:
+    """ELL width of the COO's in-degrees: the largest in-degree (at
+    least 1) rounded up to a multiple of ``d_width``."""
+    indeg = np.bincount(np.asarray(dst, np.int64), minlength=n_v)
+    return max(d_width, int(-(-max(1, indeg.max(initial=0)) // d_width)
+                            * d_width))
 
 
 def ell_layout(n_v: int, dst, d_width: int = 16):
@@ -32,12 +41,11 @@ def ell_layout(n_v: int, dst, d_width: int = 16):
     the group's CSR offset). Returns ``(order, rows, slots, width)``.
     """
     dst = np.asarray(dst, np.int64)
-    indeg = np.bincount(dst, minlength=n_v)
-    width = max(d_width, int(-(-max(1, indeg.max(initial=0)) // d_width)
-                             * d_width))
+    width = ell_width(n_v, dst, d_width)
     if len(dst) == 0:
         empty = np.zeros(0, np.int64)
         return empty, empty, empty, width
+    indeg = np.bincount(dst, minlength=n_v)
     order = np.argsort(dst, kind="stable")
     d_sorted = dst[order]
     indptr = np.concatenate([[0], np.cumsum(indeg)])
@@ -61,15 +69,45 @@ def coo_to_ell(n_v: int, src, dst, w, d_width: int = 16):
     return ids, ws
 
 
-def spmv_relax(dist, nbr_ids, nbr_w, *, backend=None):
-    """One synchronous relaxation round, any [Q, V]."""
+def coo_to_csr(n_v: int, src, dst, w, heavy: int = HEAVY_DEGREE):
+    """COO (src -> dst relaxation direction) as host in-edge CSR arrays
+    ``(indptr int32[n_v+1], src int32[E], w float32[E], order
+    int32[n_v], n_heavy)``: the in-edges of each destination in COO
+    order (the ELL rows' order), and the destinations by in-degree,
+    heaviest first, the first ``n_heavy`` above ``heavy``."""
+    src = np.asarray(src, np.int32)
+    w = np.asarray(w, np.float32)
+    indeg = np.bincount(np.asarray(dst, np.int64), minlength=n_v)
+    edge_order = ell_layout(n_v, dst)[0]
+    indptr = np.concatenate([[0], np.cumsum(indeg)]).astype(np.int32)
+    order = np.argsort(-indeg, kind="stable").astype(np.int32)
+    return (indptr, src[edge_order], w[edge_order], order,
+            int((indeg > heavy).sum()))
+
+
+def spmv_relax(dist, csr: RelaxCSR, changed, *, flag_in=None, out=None,
+               changed_out=None, flag_out=None, backend=None):
+    """One synchronous round over the vertex-major frontier ``dist``
+    [Vp, R], gathering only from sources marked in ``changed``
+    [ceil(R / ROW_TILE), Vp]. Outputs not given are allocated (``flag_in``
+    defaults to 1, ``flag_out`` to 0). Returns (out, changed_out,
+    flag_out)."""
     backend = resolve_backend(backend, dist.device)
-    dist = dist.to(torch.float32).contiguous()
+    dev = dist.device
+    if flag_in is None:
+        flag_in = torch.ones(1, dtype=torch.int32, device=dev)
+    if out is None:
+        out = torch.empty_like(dist)
+    if changed_out is None:
+        changed_out = torch.empty_like(changed)
+    if flag_out is None:
+        flag_out = torch.zeros(1, dtype=torch.int32, device=dev)
+    args = (dist, csr, changed, flag_in, out, changed_out, flag_out)
     if backend == "reference" or not dist.is_cuda:
-        return spmv_relax_ref(dist, nbr_ids, nbr_w)
-    out = spmv_relax_kernel(dist, nbr_ids, nbr_w)
+        return spmv_relax_ref(*args)
+    res = spmv_relax_kernel(*args)
     LAUNCHES["spmv_relax_kernel"] += 1
-    return out
+    return res
 
 
 def fused_relax(dist, nbr_ids, nbr_w, *, max_rounds: int, bq: int = 8):

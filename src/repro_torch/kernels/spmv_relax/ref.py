@@ -1,12 +1,62 @@
-"""Plain PyTorch versions of the ELL min-plus relaxation kernels."""
+"""Plain PyTorch versions of the min-plus relaxation kernels."""
 import torch
 
+from repro_torch.kernels.spmv_relax.kernel import ROW_TILE
 
-def spmv_relax_ref(dist, nbr_ids, nbr_w):
-    """One Jacobi round. The min over the D slots runs one [Q, V] gather
-    per slot, so memory stays O(Q V) (the jnp form's [Q, V, D] gather
-    does not fit at the 10^6 graph's core); min is exact and
-    order-free, so the result is bitwise the same."""
+GATHER_ELEMS = 2 ** 25   # [edges, R] gather elements per chunk (128 MB)
+
+
+def tile_any(mask):
+    """bool [Vp, R] -> [ceil(R / ROW_TILE), Vp]: whether any row of each
+    row tile is set, per vertex."""
+    vp, rows = mask.shape
+    n_tiles = -(-rows // ROW_TILE)
+    pad = n_tiles * ROW_TILE - rows
+    if pad:
+        mask = torch.cat([mask, mask.new_zeros(vp, pad)], 1)
+    return mask.view(vp, n_tiles, ROW_TILE).any(2).T.contiguous()
+
+
+def spmv_relax_ref(dist, csr, changed, flag_in, out, changed_out, flag_out):
+    """One Jacobi round over the vertex-major frontier ``dist`` [Vp, R]:
+    ``out[v, r] = min(dist[v, r], dist[u, r] + w)`` over the in-edges
+    (u -> v, w) of ``csr`` whose source is marked in
+    ``changed[r // ROW_TILE, u]``. ``changed_out[t, v]``: some row of
+    tile t improved at v; ``flag_out`` is set to 1 if any entry improved. When ``flag_in`` is 0
+    the outputs keep what they held. Returns (out, changed_out, flag_out).
+
+    The min over the in-edges runs in chunks of edges, so memory stays
+    O(Vp R); min is exact and order-free, so the result is bitwise the
+    kernel's whatever the order."""
+    rows = dist.shape[1]
+    src = csr.src.long()
+    n_edges = src.shape[0]
+    dst = torch.searchsorted(
+        csr.indptr[1:].long(),
+        torch.arange(n_edges, device=dist.device), right=True)
+    row_tile = torch.arange(rows, device=dist.device) // ROW_TILE
+    cand = torch.full_like(dist, float("inf"))
+    chunk = max(1, GATHER_ELEMS // max(rows, 1))
+    for lo in range(0, n_edges, chunk):
+        u = src[lo:lo + chunk]
+        live = changed[:, u].T[:, row_tile]                 # [c, R]
+        g = torch.where(live, dist[u] + csr.w[lo:lo + chunk, None],
+                        float("inf"))
+        cand.scatter_reduce_(0, dst[lo:lo + chunk, None].expand_as(g), g,
+                             "amin")
+    new = torch.minimum(dist, cand)
+    improved = new < dist
+    go = flag_in.reshape(()) != 0
+    out.copy_(torch.where(go, new, out))
+    changed_out.copy_(torch.where(go, tile_any(improved), changed_out))
+    flag_out |= (go & improved.any()).to(flag_out.dtype)
+    return out, changed_out, flag_out
+
+
+def _ell_round(dist, nbr_ids, nbr_w):
+    """One Jacobi round over row-major [Q, V] frontiers in ELL layout.
+    The min over the D slots runs one [Q, V] gather per slot, so memory
+    stays O(Q V); min is exact and order-free."""
     cand = torch.full_like(dist, float("inf"))
     for j in range(nbr_ids.shape[1]):
         cand = torch.minimum(
@@ -26,7 +76,7 @@ def fused_relax_ref(dist, nbr_ids, nbr_w, max_rounds: int, bq: int = 8):
                         device=dist.device)
     d = dist
     for _ in range(max_rounds):
-        d2 = spmv_relax_ref(d, nbr_ids, nbr_w)
+        d2 = _ell_round(d, nbr_ids, nbr_w)
         rounds += active
         active &= (d2 < d).view(nb, bq * v).any(1)
         d = d2

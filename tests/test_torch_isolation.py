@@ -86,7 +86,8 @@ def test_kernel_bindings_refuse_cpu_tensors():
         label_intersect_kernel, label_intersect_packed_kernel)
     from repro_torch.kernels.minplus_matmul.kernel import \
         minplus_matmul_kernel
-    from repro_torch.kernels.spmv_relax.kernel import (fused_relax_kernel,
+    from repro_torch.kernels.spmv_relax.kernel import (RelaxCSR,
+                                                       fused_relax_kernel,
                                                        spmv_relax_kernel)
     ids = torch.zeros((8, 4), dtype=torch.int32)
     d = torch.zeros((8, 4))
@@ -94,10 +95,16 @@ def test_kernel_bindings_refuse_cpu_tensors():
     ell_w = torch.zeros((4, 16))
     delta = torch.zeros((8, 4), dtype=torch.int16)
     base = torch.zeros(8, dtype=torch.int32)
+    csr = RelaxCSR(torch.zeros(9, dtype=torch.int32),
+                   torch.zeros(0, dtype=torch.int32), torch.zeros(0),
+                   torch.arange(8, dtype=torch.int32), 0)
+    mask = torch.ones((1, 8), dtype=torch.bool)
+    flag = torch.ones(1, dtype=torch.int32)
     calls = [lambda: label_intersect_kernel(ids, d, ids, d, 5),
              lambda: label_intersect_packed_kernel(delta, base, ids, delta,
                                                    base, ids, 5),
-             lambda: spmv_relax_kernel(d, ell_ids, ell_w),
+             lambda: spmv_relax_kernel(d, csr, mask, flag, d.clone(),
+                                       mask.clone(), flag.clone()),
              lambda: fused_relax_kernel(d, ell_ids, ell_w, max_rounds=3),
              lambda: minplus_matmul_kernel(d, d.T.contiguous())]
     for call in calls:

@@ -18,13 +18,20 @@ from repro.kernels.label_intersect.ops import label_intersect as j_intersect
 from repro.kernels.minplus_matmul.ops import minplus_matmul as j_minplus
 from repro.kernels.spmv_relax.kernel import fused_relax_kernel as j_fused
 from repro.kernels.spmv_relax.ops import coo_to_ell as j_coo_to_ell
+from repro.core.dispatch import CoreRelaxer as JRelaxer
+from repro.graphs import generators as jgen
 from repro.kernels.spmv_relax.ops import spmv_relax as j_spmv
 from repro_torch.graphs import csr as tcsr
 from repro_torch.graphs import segment_ops as tsops
 from repro_torch.kernels.label_intersect.ops import label_intersect
 from repro_torch.kernels.minplus_matmul.ops import minplus_matmul
-from repro_torch.kernels.spmv_relax.ops import (coo_to_ell, fused_relax,
-                                                spmv_relax)
+from repro_torch.core.dispatch import (CoreRelaxer, relax_csr_rounds,
+                                       seed_vertex_major)
+from repro_torch.kernels.spmv_relax.kernel import (HEAVY_DEGREE, ROW_TILE,
+                                                   RelaxCSR, fused_vmem_bytes)
+from repro_torch.kernels.spmv_relax.ops import (coo_to_csr, coo_to_ell,
+                                                fused_relax, spmv_relax)
+from repro_torch.kernels.spmv_relax.ref import tile_any
 
 J_BACKENDS = ("interpret", "reference")
 
@@ -81,6 +88,28 @@ def _ell_case(seed, v, e, q):
     return src, dst, w, dist
 
 
+def _hub_case(seed, v, e, q, hub_deg):
+    """R-MAT-like: one hub whose in-degree (> HEAVY_DEGREE) is far above
+    the average, plus random edges."""
+    src, dst, w, dist = _ell_case(seed, v, e, q)
+    r = np.random.default_rng(seed + 1)
+    src = np.concatenate([src, r.integers(0, v, hub_deg).astype(np.int32)])
+    dst = np.concatenate([dst, np.full(hub_deg, 3, np.int32)])
+    w = np.concatenate([w, r.integers(1, 9, hub_deg).astype(np.float32)])
+    return src, dst, w, dist
+
+
+SPMV_CASES = {"er97": lambda: _ell_case(97, 97, 400, 13),
+              "er256": lambda: _ell_case(256, 256, 900, 16),
+              "hub": lambda: _hub_case(3, 300, 900, 21, HEAVY_DEGREE + 300)}
+
+
+def _csr(v, src, dst, w):
+    indptr, s, ws, order, n_heavy = coo_to_csr(v, src, dst, w)
+    return RelaxCSR(*(torch.from_numpy(x) for x in (indptr, s, ws, order)),
+                    n_heavy)
+
+
 def test_coo_to_ell_matches_repro():
     src, dst, w, _ = _ell_case(0, 97, 400, 1)
     ids, ws = coo_to_ell(97, src, dst, w)
@@ -89,19 +118,159 @@ def test_coo_to_ell_matches_repro():
     _same(torch.from_numpy(ws), j_ws)
 
 
-@pytest.mark.parametrize("v,e,q", [(97, 400, 13), (256, 900, 16)])
-def test_spmv_relax_plain_matches_repro(v, e, q):
-    """One round; ELL rows that are all padding (half the vertices have
-    no in-edges); Q and V off the block multiples."""
-    src, dst, w, dist = _ell_case(v, v, e, q)
+@pytest.mark.parametrize("case", sorted(SPMV_CASES))
+def test_coo_to_csr_matches_repro_ell(case):
+    """Each destination's CSR in-edges are the same multiset of (src, w)
+    as its row of ``repro``'s ELL planes; destinations come by
+    in-degree, heaviest first, the hubs counted."""
+    src, dst, w, dist = SPMV_CASES[case]()
+    v = dist.shape[1]
+    indptr, s, ws, order, n_heavy = coo_to_csr(v, src, dst, w)
+    j_ids, j_ws = (np.asarray(x) for x in j_coo_to_ell(v, src, dst, w))
+    for x in range(v):
+        real = np.isfinite(j_ws[x])
+        lo, hi = indptr[x], indptr[x + 1]
+        assert (sorted(zip(s[lo:hi].tolist(), ws[lo:hi].tolist()))
+                == sorted(zip(j_ids[x][real].tolist(),
+                              j_ws[x][real].tolist())))
+    deg = np.diff(indptr)
+    assert sorted(order.tolist()) == list(range(v))
+    assert np.all(np.diff(deg[order]) <= 0)
+    assert n_heavy == int((deg > HEAVY_DEGREE).sum())
+    assert n_heavy == (1 if case == "hub" else 0)
+
+
+def _round(dist_vm, csr, changed, **kw):
+    return spmv_relax(torch.from_numpy(dist_vm), csr,
+                      torch.from_numpy(changed), backend="cuda", **kw)
+
+
+@pytest.mark.parametrize("case", sorted(SPMV_CASES))
+def test_spmv_relax_plain_matches_repro(case):
+    """One round with every source marked changed, on the vertex-major
+    frontier, equals ``repro``'s round on the ELL planes of the same COO
+    (transposed); vertices without in-edges, R off the row tile, and a
+    hub above the heavy degree. The mask out is the improved set per
+    row tile, the flag its OR."""
+    src, dst, w, dist = SPMV_CASES[case]()
+    q, v = dist.shape
+    csr = _csr(v, src, dst, w)
+    dist_vm = np.ascontiguousarray(dist.T)
+    n_tiles = -(-q // ROW_TILE)
+    out, changed, flag = _round(dist_vm, csr,
+                                np.ones((n_tiles, v), bool))
     ids, ws = coo_to_ell(v, src, dst, w)
-    t_args = [torch.from_numpy(x) for x in (dist, ids, ws)]
-    got = [spmv_relax(*t_args, backend=be) for be in ("cuda", "reference")]
     for jb in J_BACKENDS:
         want = j_spmv(jnp.asarray(dist), jnp.asarray(ids), jnp.asarray(ws),
                       backend=jb)
-        for g in got:
-            _same(g, want)
+        _same(out.T.contiguous(), want)
+    improved = np.asarray(want).T < dist_vm
+    _same(changed, np.asarray(tile_any(torch.from_numpy(improved))))
+    assert int(flag) == int(improved.any()) == 1
+    _same(out, spmv_relax(torch.from_numpy(dist_vm), csr,
+                          torch.ones((n_tiles, v), dtype=torch.bool),
+                          backend="reference")[0])
+
+
+@pytest.mark.parametrize("rows", [48, 264])
+def test_spmv_relax_plain_random_mask(rows):
+    """Under a random mask the plain version gathers exactly from the
+    marked (row tile, source) pairs: equal to a numpy loop over the
+    edges. R % 8 == 0, off the row tile: inside one tile, or over three."""
+    src, dst, w, dist = _hub_case(8, 200, 700, 45, HEAVY_DEGREE + 40)
+    q, v = dist.shape
+    d = np.full((v, rows), np.inf, np.float32)
+    d[:, :q] = dist.T
+    d[:, rows - q:] = np.minimum(d[:, rows - q:], dist.T[:, ::-1])
+    rng = np.random.default_rng(rows)
+    mask = rng.random((-(-rows // ROW_TILE), v)) < 0.4
+    out, changed, flag = spmv_relax(
+        torch.from_numpy(d), _csr(v, src, dst, w), torch.from_numpy(mask))
+    want = d.copy()
+    for u, x, wt in zip(src, dst, w):
+        for r in range(rows):
+            if mask[r // ROW_TILE, u]:
+                want[x, r] = min(want[x, r], np.float32(d[u, r] + wt))
+    _same(out, want)
+    imp = want < d
+    _same(changed, np.asarray(tile_any(torch.from_numpy(imp))))
+    assert int(flag) == int(imp.any())
+
+
+def test_spmv_relax_plain_quiet_round_writes_nothing():
+    """flag_in = 0: out, changed_out and flag_out keep what they held."""
+    src, dst, w, dist = _ell_case(4, 64, 300, 8)
+    dist_vm = torch.from_numpy(np.ascontiguousarray(dist.T))
+    out = torch.full_like(dist_vm, 7.0)
+    chg = torch.zeros((1, 64), dtype=torch.bool)
+    flag = torch.zeros(1, dtype=torch.int32)
+    spmv_relax(dist_vm, _csr(64, src, dst, w),
+               torch.ones((1, 64), dtype=torch.bool),
+               flag_in=torch.zeros(1, dtype=torch.int32), out=out,
+               changed_out=chg, flag_out=flag)
+    assert bool((out == 7.0).all()) and not chg.any() and int(flag) == 0
+
+
+@pytest.mark.parametrize("case", sorted(SPMV_CASES))
+def test_masked_rounds_match_repro_rounds(case):
+    """From label-like seeds (a few finite entries a row) to the fixed
+    point: every masked round of the plain version equals ``repro``'s
+    unmasked round bitwise, and both stop after the same number of
+    rounds (the last, non-improving one included)."""
+    src, dst, w, _ = SPMV_CASES[case]()
+    v = int(max(src.max(), dst.max())) + 1
+    q = 12
+    rng = np.random.default_rng(len(case))
+    cpos = rng.integers(0, v, (2, q, 5))
+    dl = rng.integers(0, 6, (2, q, 5)).astype(np.float32)
+    dl[rng.random(dl.shape) < 0.3] = np.inf          # label padding
+    seeds = [(torch.from_numpy(cpos[i]), torch.from_numpy(dl[i]))
+             for i in range(2)]
+    rows = 2 * q
+    cur, changed = seed_vertex_major(*seeds, v, rows)
+    assert cur.shape == (v, rows) and changed.shape == (1, v)
+    _same(changed[0], np.isfinite(cur.numpy()).any(1))
+    csr = _csr(v, src, dst, w)
+    ids, ws = (jnp.asarray(x) for x in coo_to_ell(v, src, dst, w))
+    j_d = jnp.asarray(cur.numpy().T)
+    j_rounds, improved = 0, True
+    flag_in = torch.ones(1, dtype=torch.int32)
+    while improved:
+        j_next = j_spmv(j_d, ids, ws, backend="reference")
+        improved = bool(jnp.any(j_next < j_d))
+        j_rounds += 1
+        cur, changed, flag_in = spmv_relax(cur, csr, changed,
+                                           flag_in=flag_in)
+        _same(cur.T.contiguous(), j_next)
+        assert int(flag_in) == int(improved)
+        j_d = j_next
+    assert j_rounds > 2
+    d0, changed0 = seed_vertex_major(*seeds, v, rows)
+    d, rounds = relax_csr_rounds(d0, changed0, csr, max_rounds=10 * v)
+    _same(d.T.contiguous(), j_d)
+    assert int(rounds) == j_rounds
+
+
+@pytest.mark.parametrize("graph", ["er", "rmat", "grid"])
+def test_default_mode_matches_repro(graph):
+    """The port's default route equals ``repro``'s on the same COO, with
+    the ELL width taken from the in-degrees (no planes uploaded): at the
+    default budget, and with the fused budget set just at and just
+    below the fused working set."""
+    n, src, dst, w = {"er": lambda: jgen.er_graph(260, 3.0, seed=11),
+                      "rmat": lambda: jgen.rmat_graph(8, 8.0, seed=2),
+                      "grid": lambda: jgen.grid_graph(14, seed=3)}[graph]()
+    base = CoreRelaxer(src, dst, w, n)
+    vp = base._vp()
+    width = np.asarray(j_coo_to_ell(n + 1, src, dst, w)[0]).shape[1]
+    need = fused_vmem_bytes(vp, width)
+    for kw in (dict(), dict(dense_threshold=2.0, vmem_budget=need),
+               dict(dense_threshold=2.0, vmem_budget=need - 1)):
+        got = CoreRelaxer(src, dst, w, n, **kw)
+        assert got.mode == JRelaxer(src, dst, w, n, **kw).mode
+        assert got._ell is None                    # no ELL planes built
+    assert CoreRelaxer(src, dst, w, n, dense_threshold=2.0,
+                       vmem_budget=need - 1).mode == "ell_loop"
 
 
 @pytest.mark.parametrize("max_rounds", [0, 2, 1000])
