@@ -31,7 +31,10 @@ Phases, one JSON line each (with its seconds):
    CUDA-event times and the bound of the same work. ``spmv_relax_kernel``
    is replayed round by round on both ``ell_loop`` queries (output, mask
    and flag of every round), and its replayed round count must equal
-   the route's.
+   the route's. ``fused_relax_kernel`` is timed in both variants on the
+   fused core, ``minplus_matmul_kernel`` with its instruction-issue bound
+   at the SM clock read under its load. Each path's query is profiled
+   once (device idle share).
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script
@@ -153,7 +156,13 @@ def phase_device() -> dict:
     lines = [ln.strip() for ln in smi.stdout.splitlines() if ln.strip()]
     if smi.returncode or not lines:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits", "--id=0"], capture_output=True, text=True, timeout=60)
+    if clk.returncode:
+        fail(f"nvidia-smi failed: {clk.stderr.strip()}")
     return {"name": torch.cuda.get_device_name(0), "smi": lines,
+            "clock_max_mhz": float(clk.stdout.split()[0]),
             "count": torch.cuda.device_count(),
             "torch": torch.__version__, "cuda": torch.version.cuda}
 
@@ -334,13 +343,47 @@ def _fns():
         "label_intersect_kernel": (label_intersect_kernel,
                                    label_intersect_ref),
         "spmv_relax_kernel": (spmv_relax_kernel, spmv_relax_ref),
+        # the last argument picks the kernel's variant; the plain version
+        # has none
         "fused_relax_kernel": (
-            lambda d, i, w, r: fused_relax_kernel(d, i, w, max_rounds=r),
-            fused_relax_ref),
+            lambda d, edges, r, var: fused_relax_kernel(
+                d, edges, max_rounds=r, variant=var),
+            lambda d, edges, r, var: fused_relax_ref(d, edges, r)),
         "minplus_matmul_kernel": (minplus_matmul_kernel, minplus_matmul_ref),
         "label_intersect_packed_kernel": (label_intersect_packed_kernel,
                                           label_intersect_packed_ref),
     }
+
+
+def fused_variants(v: int) -> list:
+    """The fused kernel's variants that take a core of ``v`` vertices:
+    the global one always, the shared one where the route picks it."""
+    from repro_torch.kernels.spmv_relax.kernel import fused_variant
+    return sorted({"global", fused_variant(v)})
+
+
+def fused_work(d0, edges, blk_rounds, bq: int = 8) -> int:
+    """Operations the fused route's rounds need on this input: per block
+    and round, an add and a min for each (row, in-edge) whose source
+    changed in the block's previous round (any row finite before the
+    first), and a min per entry."""
+    import torch
+    from repro_torch.kernels.spmv_relax.ref import _edge_round, sliced_dst
+    live = torch.isfinite(edges.w)
+    src = edges.src.long()[live]
+    dst = sliced_dst(edges)[live]
+    q, v = d0.shape
+    nb = q // bq
+    d = d0
+    changed = torch.isfinite(d).view(nb, bq, v).any(1)
+    pairs = 0
+    for r in range(int(blk_rounds.max())):
+        on = blk_rounds > r
+        pairs += int((changed[:, src].sum(1) * on).sum()) * bq
+        d2 = _edge_round(d, src, dst, edges.w[live])
+        changed = (d2 < d).view(nb, bq, v).any(1)
+        d = d2
+    return 2 * pairs + int(blk_rounds.sum()) * bq * v
 
 
 def _as_tuple(x):
@@ -382,8 +425,9 @@ def phase_ragged(dev="cuda") -> dict:
     import torch
     from repro_torch.core.labels import encode_labels
     from repro_torch.kernels.spmv_relax.kernel import (HEAVY_DEGREE,
-                                                       ROW_TILE, RelaxCSR)
-    from repro_torch.kernels.spmv_relax.ops import coo_to_csr
+                                                       ROW_TILE, RelaxCSR,
+                                                       SlicedEdges)
+    from repro_torch.kernels.spmv_relax.ops import coo_to_csr, coo_to_sliced
     g = torch.Generator(device=dev).manual_seed(0)
     r = np.random.default_rng(0)
     inf = float("inf")
@@ -427,15 +471,24 @@ def phase_ragged(dev="cuda") -> dict:
         d = torch.randint(0, 9, (q, l), generator=g, device=dev).float()
         return ids, torch.where(ids < n_sent, d, inf)
 
-    def ell(q, v, deg):
-        ids = torch.randint(0, v, (v, deg), generator=g, device=dev,
-                            dtype=torch.int32)
-        w = torch.randint(1, 5, (v, deg), generator=g, device=dev).float()
-        w[v // 2:, deg // 2:] = inf                     # padding slots
+    def fused_cases(q, v, deg, max_rounds):
+        """fused_relax operands, one case per variant that takes ``v``
+        (``fused_variants``): about ``deg`` random in-edges a vertex into
+        the first half of the vertices, a hub of in-degree 3 deg, one
+        zero a row, the last block without seeds."""
+        e = deg * v // 2
+        src = np.concatenate([r.integers(0, v, e), r.integers(0, v, 3 * deg)])
+        dst = np.concatenate([r.integers(0, max(1, v // 2), e),
+                              np.full(3 * deg, v // 3)])
+        w = r.integers(1, 5, len(src)).astype(np.float32)
         dist = torch.full((q, v), inf, device=dev)
         dist[torch.arange(q, device=dev),
              torch.randint(0, v, (q,), generator=g, device=dev)] = 0.0
-        return dist, ids, w
+        if q > 8:
+            dist[q - 8:] = inf
+        edges = SlicedEdges(*(torch.from_numpy(x).to(dev)
+                              for x in coo_to_sliced(v, src, dst, w)))
+        return [(dist, edges, max_rounds, var) for var in fused_variants(v)]
 
     def csr_case(vp, rows, e, hubs, mask, flag_in=1):
         """spmv_relax operands: e random edges into the first half of the
@@ -470,6 +523,24 @@ def phase_ragged(dev="cuda") -> dict:
         return torch.where(torch.rand((m, k), generator=g, device=dev)
                            < p_inf, inf, x)
 
+    def inf_lines(m, k, n):
+        """A [m, k] x [k, n] pair with all-inf rows of A and columns of B."""
+        a, b = mat(m, k, 0.2), mat(k, n, 0.2)
+        a[::7] = inf
+        b[:, 3::5] = inf
+        return a, b
+
+    minplus = [(mat(37, 100, 0.3), mat(100, 70, 0.3)),
+               (torch.full((65, 3), inf, device=dev),
+                torch.ones((3, 129), device=dev)),
+               (mat(130, 260, 0.5), mat(260, 5, 0.0)),
+               (mat(200, 5, 0.1), mat(5, 131, 0.1)),      # K < one slice
+               (mat(129, 1, 0.0), mat(1, 257, 0.3)),
+               (mat(5, 0, 0.0), mat(0, 7, 0.0)),          # K = 0: all inf
+               (mat(100, 40, 0.2), mat(40, 132, 0.2)),    # N % 4 == 0
+               (mat(128, 48, 0.2), mat(48, 128, 0.2)),    # whole tiles
+               inf_lines(257, 33, 190), inf_lines(300, 161, 260)]
+
     cases = {
         "label_intersect_packed_kernel": [
             packed_rows(q, l, n_sent, d_dtype)
@@ -491,13 +562,16 @@ def phase_ragged(dev="cuda") -> dict:
             csr_case(1001, 256, 5000, (HEAVY_DEGREE + 1, 3 * HEAVY_DEGREE),
                      "random"),
             csr_case(500, 24, 2000, (), "all", flag_in=0)],
-        "fused_relax_kernel": [(*ell(24, 1000, 16), 10000),
-                               (*ell(8, 77, 32), 3), (*ell(16, 300, 16), 0)],
-        "minplus_matmul_kernel": [
-            (mat(37, 100, 0.3), mat(100, 70, 0.3)),
-            (torch.full((65, 3), inf, device=dev),
-             torch.ones((3, 129), device=dev)),
-            (mat(130, 260, 0.5), mat(260, 5, 0.0))],
+        # V on both sides of the shared variant's limit (3,521 vertices),
+        # none a multiple of the 1024 threads
+        "fused_relax_kernel": [
+            case for q, v, deg, mr in (
+                (24, 1000, 16, 10000), (8, 77, 32, 3), (16, 300, 16, 0),
+                (16, 2047, 12, 1), (16, 2049, 12, 7), (24, 3521, 8, 7),
+                (16, 3522, 8, 10000), (16, 5001, 6, 1),
+                (32, 1920, 17, 10000))
+            for case in fused_cases(q, v, deg, mr)],
+        "minplus_matmul_kernel": minplus,
     }
     for name, args_list in cases.items():
         for args in args_list:
@@ -648,15 +722,18 @@ def profile_query(idx, s, t) -> dict:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        idx.query(s, t)             # ends on a blocking read of rounds
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+    for attempt in range(1, 4):  # a trace came back without device events
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            idx.query(s, t)         # ends on a blocking read of rounds
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        if spans:
+            break
     busy_us, reach, by_name = 0.0, float("-inf"), {}
     for start, end, name in spans:
         busy_us += max(0.0, end - max(start, reach))
@@ -665,16 +742,53 @@ def profile_query(idx, s, t) -> dict:
         by_name[name] = (ms + (end - start) / 1e3, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+            "attempts": attempt,
             "idle_share": (1 - busy_us / 1e3 / wall_ms) if spans else None,
             "device_events": len(spans),
             "top": [{"name": k[:80], "device_ms": ms, "count": c}
                     for k, (ms, c) in top]}
 
 
-def phase_kernels(indexes) -> list:
-    """Each kernel on the inputs its route gave it in the main path."""
+def clock_under_load(fn, seconds: float = 1.0) -> dict:
+    """The SM clock and power draw (``nvidia-smi``) read while ``fn``
+    runs back to back on the card for about ``seconds``."""
+    import threading
+    import torch
+    stop = threading.Event()
+
+    def spin():
+        while not stop.is_set():
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+
+    th = threading.Thread(target=spin)
+    th.start()
+    try:
+        time.sleep(seconds / 2)
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "--id=0"],
+            capture_output=True, text=True, timeout=60)
+        time.sleep(seconds / 2)
+    finally:
+        stop.set()
+        th.join()
+    if smi.returncode:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    clk, watts = (float(x) for x in smi.stdout.split(","))
+    return {"clock_sm_mhz": clk, "power_draw_w": watts}
+
+
+def phase_kernels(indexes, clock_max_hz: float) -> list:
+    """Each kernel on the inputs its route gave it in the main path;
+    ``clock_max_hz`` is the card's highest SM clock."""
+    import torch
+    from repro_torch.kernels.minplus_matmul.kernel import \
+        minplus_matmul_kernel
+    from repro_torch.kernels.spmv_relax.kernel import fused_variant
+    from repro_torch.kernels.spmv_relax.ops import ell_width
     from repro_torch.kernels.spmv_relax.ref import fused_relax_ref
-    inf = float("inf")
     out = []
     # stage 1 of the compressed path: its 1024-pair query's rows
     idx, s, t = indexes["compressed"]
@@ -709,20 +823,35 @@ def phase_kernels(indexes) -> list:
                 "library_ms"):
         out[-1]["compressed_path"].pop(key)
 
-    # all rounds of the fused route's query
+    # all rounds of the fused route's query, in every variant that takes
+    # its core
     idx, s, t = indexes["fused"]
-    nbr_ids, nbr_w = idx.engine.relaxer.ell()
-    d0, _, _ = frontier(idx, s, t, nbr_ids.shape[0])
+    relaxer = idx.engine.relaxer
+    edges = relaxer.sliced()
+    d0, _, _ = frontier(idx, s, t, edges.order.shape[0])
     mr = idx.engine.max_rounds
-    _, blk = fused_relax_ref(d0, nbr_ids, nbr_w, mr)
+    _, blk = fused_relax_ref(d0, edges, mr)
     rows, v = d0.shape
-    nnz = int((nbr_w != inf).sum())
-    out.append(time_kernel(
-        "fused_relax_kernel", (d0, nbr_ids, nbr_w, mr),
-        n_bytes=2 * rows * v * 4 + nbr_ids.numel() * 8,
-        n_ops=int(blk.sum()) * 8 * (2 * nnz + v), iters=20))
-    out[-1]["block_rounds_max"] = int(blk.max())
-    out[-1]["ell_width"] = nbr_ids.shape[1]
+    nnz = int(torch.isfinite(edges.w).sum())
+    all_edges_ops = int(blk.sum()) * 8 * (2 * nnz + v)
+    work = dict(n_bytes=2 * rows * v * 4 + nnz * 8 + (2 * v + 1) * 4,
+                n_ops=fused_work(d0, edges, blk))
+    variant = fused_variant(v)
+    out.append(time_kernel("fused_relax_kernel", (d0, edges, mr, variant),
+                           **work, iters=20))
+    out[-1]["variants"] = {variant: out[-1]["ms"]}
+    for other in fused_variants(v):
+        if other != variant:
+            out[-1]["variants"][other] = time_kernel(
+                "fused_relax_kernel", (d0, edges, mr, other), **work,
+                iters=20)["ms"]
+    out[-1].update(variant=variant, block_rounds_max=int(blk.max()),
+                   block_rounds_sum=int(blk.sum()), edges=nnz,
+                   slots=edges.src.numel(), ops=work["n_ops"],
+                   bound_ms_all_edges=bound(work["n_bytes"],
+                                            all_edges_ops)[0],
+                   ell_width=ell_width(v, relaxer.ce_dst, relaxer.d_width),
+                   profile=profile_query(idx, s, t))
 
     # one round of the dense route's query
     idx, s, t = indexes["dense"]
@@ -732,6 +861,20 @@ def phase_kernels(indexes) -> list:
     out.append(time_kernel(
         "minplus_matmul_kernel", (d0, adj),
         n_bytes=(2 * m * k + k * k) * 4, n_ops=2 * m * k * k, iters=50))
+    # issue bound: an FADD and an FMNMX a term, two of the four issue
+    # slots an SM has a clock (FMNMX also runs 64 a clock an SM), so 64
+    # terms per SM and clock, at the clock read under this kernel's load
+    load = clock_under_load(lambda: minplus_matmul_kernel(d0, adj))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = load["clock_sm_mhz"] * 1e6
+    issue_ms = m * k * k / (64 * sms * clock_hz) * 1e3
+    out[-1].update(issue_bound_ms=issue_ms, sms=sms,
+                   issue_bound_ms_at_max_clock=m * k * k / (
+                       64 * sms * clock_max_hz) * 1e3,
+                   clock_max_hz=clock_max_hz, under_load=load,
+                   share_of_bound=out[-1]["bound_ms"] / out[-1]["ms"],
+                   share_of_issue_bound=issue_ms / out[-1]["ms"],
+                   profile=profile_query(idx, s, t))
     return out
 
 
@@ -784,7 +927,7 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
-    kernels = phase_kernels(indexes)
+    kernels = phase_kernels(indexes, dev["clock_max_mhz"] * 1e6)
     for rec in kernels:
         rec["launches"] = counters[rec["name"]]
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0,

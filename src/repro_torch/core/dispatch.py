@@ -12,7 +12,8 @@
       three routes (``CoreRelaxer.mode``), by the same rule as ``repro``:
 
       "fused"    — one ``fused_relax`` launch runs all rounds, per
-                   8-row block of the stacked frontiers.
+                   8-row block of the stacked frontiers, over the
+                   core's real in-edges sliced 32 destinations a warp.
       "dense"    — small dense cores relax via ``minplus_matmul``
                    against a 0-diagonal dense adjacency.
       "ell_loop" — one ``spmv_relax`` launch per round, when the fused
@@ -50,8 +51,9 @@ from repro_torch.kernels.backend import resolve_backend
 from repro_torch.kernels.label_intersect import ops as li_ops
 from repro_torch.kernels.minplus_matmul.ops import minplus_matmul
 from repro_torch.kernels.spmv_relax.kernel import (ROW_TILE, RelaxCSR,
+                                                   SlicedEdges,
                                                    fused_vmem_bytes)
-from repro_torch.kernels.spmv_relax.ops import (coo_to_csr, coo_to_ell,
+from repro_torch.kernels.spmv_relax.ops import (coo_to_csr, coo_to_sliced,
                                                 ell_width, fused_relax,
                                                 spmv_relax)
 
@@ -224,16 +226,15 @@ def _core_relax_csr(seeds_s, seeds_t, csr: RelaxCSR, mu, n_core: int,
     return _finish(d.T, q, n_core + 1, mu, n_core, rounds)
 
 
-def _core_relax_fused(seeds_s, seeds_t, nbr_ids, nbr_w, mu, n_core: int,
-                      max_rounds: int, bq: int):
+def _core_relax_fused(seeds_s, seeds_t, edges: SlicedEdges, mu,
+                      n_core: int, max_rounds: int, bq: int):
     """Both frontiers stacked, all rounds in one ``fused_relax`` launch.
     Batch rounds = max over per-block rounds (all-pad blocks settle in
     one round, real blocks freeze bitwise at their own fixed point)."""
     q, v = seeds_s[0].shape[0], n_core + 1
     d0 = stack_frontiers(seed_rows(seeds_s, v), seed_rows(seeds_t, v),
-                         nbr_ids.shape[0], bq)
-    d, blk_rounds = fused_relax(d0, nbr_ids, nbr_w, max_rounds=max_rounds,
-                                bq=bq)
+                         edges.order.shape[0], bq)
+    d, blk_rounds = fused_relax(d0, edges, max_rounds=max_rounds, bq=bq)
     rounds = torch.cat([blk_rounds, blk_rounds.new_zeros(1)]).amax()
     return _finish(d, q, v, mu, n_core, rounds)
 
@@ -258,7 +259,7 @@ class CoreRelaxer:
     Holds the COO edge arrays (host arrays: local indices in
     [0, n_core), weights) and derives the layout of its route once, on
     first use, on ``device``: the in-edge CSR of the per-round kernel,
-    the ELL planes of the fused kernel or, for dense cores, the
+    the sliced in-edges of the fused kernel or, for dense cores, the
     0-diagonal dense adjacency — padded to a multiple of ``bv``
     vertices.
 
@@ -267,6 +268,7 @@ class CoreRelaxer:
     ``dense_cap`` -> "dense"; else "fused" when the fused working-set
     model (the ELL width from the in-degrees) fits ``vmem_budget``; else
     "ell_loop". Env ``ISLABEL_FUSED_RELAX=0`` forces the per-round loop.
+    No kernel reads ELL planes; only the rule's width does.
     """
 
     def __init__(self, ce_src, ce_dst, ce_w, n_core: int, *,
@@ -296,7 +298,7 @@ class CoreRelaxer:
         self.density = (len(self.ce_src) / (n_core * n_core)) if n_core else 0.0
         self._coo = None
         self._csr = None
-        self._ell = None
+        self._sliced = None
         self._adj = None
         self._mode = None
 
@@ -339,6 +341,15 @@ class CoreRelaxer:
                                    for x in (indptr, src, w, order)), n_heavy)
         return self._csr
 
+    def sliced(self) -> SlicedEdges:
+        """The in-edges over the same Vp vertices, sliced 32
+        destinations a warp, for ``fused_relax``."""
+        if self._sliced is None:
+            self._sliced = SlicedEdges(*(
+                upload(x, self.device) for x in coo_to_sliced(
+                    self._vp(), self.ce_src, self.ce_dst, self.ce_w)))
+        return self._sliced
+
     def dense_adj(self):
         """[Vp, Vp] float32 dense adjacency: adj[src, dst] = min edge
         weight, +inf elsewhere, diagonal min'd with 0 on ALL rows
@@ -353,20 +364,6 @@ class CoreRelaxer:
             adj[idx, idx] = np.minimum(adj[idx, idx], 0.0)
             self._adj = upload(adj, self.device)
         return self._adj
-
-    def ell(self):
-        """(nbr_ids [Vp, D], nbr_w [Vp, D]) with Vp = n_core+1 rounded up
-        to a multiple of bv (sentinel column included, padding rows
-        edgeless), for the fused kernel."""
-        if self._ell is None:
-            v = self.n_core + 1
-            vp = self._vp()
-            ids, ws = coo_to_ell(v, self.ce_src, self.ce_dst, self.ce_w,
-                                 d_width=self.d_width)
-            ids = np.pad(ids, ((0, vp - v), (0, 0)))
-            ws = np.pad(ws, ((0, vp - v), (0, 0)), constant_values=np.inf)
-            self._ell = (upload(ids, self.device), upload(ws, self.device))
-        return self._ell
 
     def run(self, seeds_s, seeds_t, mu, max_rounds: int, backend=None):
         """Relax to convergence from both sides' label seeds ``(cpos
@@ -383,7 +380,7 @@ class CoreRelaxer:
             return _core_relax_dense(seeds_s, seeds_t, self.dense_adj(), mu,
                                      self.n_core, max_rounds, self.bq)
         if mode == "fused":
-            return _core_relax_fused(seeds_s, seeds_t, *self.ell(), mu,
+            return _core_relax_fused(seeds_s, seeds_t, self.sliced(), mu,
                                      self.n_core, max_rounds, self.bq)
         return _core_relax_csr(seeds_s, seeds_t, self.csr(), mu, self.n_core,
                                max_rounds, self.bq)

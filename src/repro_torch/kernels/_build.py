@@ -41,7 +41,8 @@ SIGNATURES = {
                                        _I, _I, _P],
     "islabel_spmv_relax": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I,
                            _I, _P],
-    "islabel_fused_relax": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "islabel_fused_relax": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _I, _P],
     "islabel_minplus_matmul": [_P, _P, _P, _I, _I, _I, _P],
 }
 

@@ -13,10 +13,12 @@ from repro_torch.kernels import _build
 FUSED_BQ = 8        # rows per fused block (fixed in the CUDA source)
 ROW_TILE = 128      # frontier rows per work item (fixed in the CUDA source)
 HEAVY_DEGREE = 256  # in-degree above which a hub takes a whole block
+SLICE = 32          # fused destinations a slice (a warp; fixed in the source)
 
 
 class RelaxCSR(NamedTuple):
-    """In-edges of the core graph by destination, for ``spmv_relax``.
+    """In-edges of the core graph by destination, for ``spmv_relax`` and
+    ``fused_relax``.
 
     ``indptr`` int32[Vp+1], ``src`` int32[E], ``w`` float32[E]: the
     in-edges of destination v are ``src/w[indptr[v]:indptr[v+1]]``.
@@ -30,14 +32,20 @@ class RelaxCSR(NamedTuple):
     n_heavy: int
 
 
-def _check_ell(dist, nbr_ids, nbr_w):
-    _build.require(dist, "dist", torch.float32, 2)
-    _build.require(nbr_ids, "nbr_ids", torch.int32, 2)
-    _build.require(nbr_w, "nbr_w", torch.float32, 2)
-    if nbr_ids.shape != nbr_w.shape or nbr_ids.shape[0] != dist.shape[1]:
-        raise ValueError(f"ELL planes {tuple(nbr_ids.shape)} / "
-                         f"{tuple(nbr_w.shape)} do not fit dist "
-                         f"{tuple(dist.shape)}")
+class SlicedEdges(NamedTuple):
+    """In-edges of the core graph for ``fused_relax``, sliced: slot k
+    holds destination ``order[k]`` (destinations by in-degree, heaviest
+    first), 32 slots to a slice (one warp). Edge j of slot k is at
+    ``slice_ptr[k // 32] + 32 * j + k % 32`` in ``src`` / ``w``; a slice
+    is as deep as its largest in-degree, and the slots past a
+    destination's in-degree hold source 0 and weight +inf.
+
+    ``order`` int32[V], ``slice_ptr`` int32[ceil(V / 32) + 1], ``src``
+    int32[S], ``w`` float32[S]."""
+    order: torch.Tensor
+    slice_ptr: torch.Tensor
+    src: torch.Tensor
+    w: torch.Tensor
 
 
 def _check_flag(t, name):
@@ -90,22 +98,61 @@ def spmv_relax_kernel(dist, csr: RelaxCSR, changed, flag_in, out,
     return out, changed_out, flag_out
 
 
-def fused_relax_kernel(dist, nbr_ids, nbr_w, *, max_rounds: int,
-                       bq: int = FUSED_BQ):
-    """All relaxation rounds in one launch. dist: [Q, V] f32 seeds with
-    Q % 8 == 0. Returns (fixed-point dist [Q, V], per-block rounds
-    int32[Q // 8])."""
+# the fused kernel's variants (``csrc/fused_relax.cu``), by the C entry
+# point's index: the block's rows and flags in shared memory, or in
+# device scratch
+FUSED_VARIANTS = {"shared": 0, "global": 1}
+SMEM_BLOCK_BYTES = 232_448       # shared memory one block may use on Hopper
+VERTEX_BYTES = 4 * FUSED_BQ + 1  # one vertex's rows and changed flag
+
+
+def fused_variant(v: int) -> str:
+    """The fused kernel's variant for a core of ``v`` (padded) vertices:
+    "shared" while two buffers of rows and flags fit one block's shared
+    memory, else "global"."""
+    return ("shared" if 2 * v * VERTEX_BYTES <= SMEM_BLOCK_BYTES
+            else "global")
+
+
+def fused_relax_kernel(dist, edges: SlicedEdges, *, max_rounds: int,
+                       bq: int = FUSED_BQ, variant: str | None = None):
+    """All relaxation rounds in one launch over the sliced in-edges
+    ``edges``. dist: [Q, V] f32 seeds with Q % 8 == 0. ``variant``
+    defaults to ``fused_variant(V)``. Returns (fixed-point dist [Q, V],
+    per-block rounds int32[Q // 8])."""
     if bq != FUSED_BQ:
         raise ValueError(f"the CUDA fused kernel takes bq={FUSED_BQ}, got {bq}")
-    _check_ell(dist, nbr_ids, nbr_w)
+    _build.require(dist, "dist", torch.float32, 2)
+    _build.require(edges.order, "order", torch.int32, 1)
+    _build.require(edges.slice_ptr, "slice_ptr", torch.int32, 1)
+    _build.require(edges.src, "src", torch.int32, 1)
+    _build.require(edges.w, "w", torch.float32, 1)
     q, v = dist.shape
     if q % bq:
         raise ValueError(f"fused_relax_kernel needs Q % {bq} == 0, got Q={q}")
+    if (edges.order.shape != (v,)
+            or edges.slice_ptr.shape != (-(-v // SLICE) + 1,)
+            or edges.src.shape != edges.w.shape):
+        raise ValueError(
+            f"sliced edges do not fit dist {tuple(dist.shape)}: order "
+            f"{tuple(edges.order.shape)}, slice_ptr "
+            f"{tuple(edges.slice_ptr.shape)}, src {tuple(edges.src.shape)}, "
+            f"w {tuple(edges.w.shape)}")
+    variant = fused_variant(v) if variant is None else variant
+    if variant not in FUSED_VARIANTS:
+        raise ValueError(f"unknown fused variant {variant!r}; expected one "
+                         f"of {sorted(FUSED_VARIANTS)}")
     out = torch.empty_like(dist)
-    scratch = torch.empty_like(dist)
+    # the global variant's two [V, 8] row buffers and two [V] flag
+    # buffers a block
+    n_scratch = 2 * q * v if variant == "global" else 0
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=dist.device)
+    scratch_chg = torch.empty(n_scratch // FUSED_BQ, dtype=torch.uint8,
+                              device=dist.device)
     rounds = torch.empty(q // bq, dtype=torch.int32, device=dist.device)
-    _build.launch("islabel_fused_relax", dist, nbr_ids, nbr_w, out, scratch,
-                  rounds, q, v, nbr_ids.shape[1], max_rounds)
+    _build.launch("islabel_fused_relax", dist, edges.order, edges.slice_ptr,
+                  edges.src, edges.w, out, scratch, scratch_chg, rounds, q, v,
+                  max_rounds, FUSED_VARIANTS[variant])
     return out, rounds
 
 

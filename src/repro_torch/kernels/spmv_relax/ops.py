@@ -1,13 +1,16 @@
-"""Wrappers of the relaxation kernels (stage 2 of a query) and the COO
--> CSR / ELL conversions.
+"""Wrappers of the relaxation kernels (stage 2 of a query), the COO ->
+CSR and COO -> sliced conversions they take, and the ELL width of the
+route rule.
 
 ``spmv_relax`` replaces ``repro/kernels/spmv_relax/kernel.py:
 spmv_relax_kernel`` (one round per launch, the route of large cores):
 a vertex-major frontier, the core's real in-edges as a CSR, a per-(row
 tile, source) "changed last round" mask and an in-kernel exit flag
 (``csrc/spmv_relax.cu``). ``fused_relax`` replaces ``fused_relax_kernel``
-(all rounds in one launch, per 8-row block, over ELL planes;
-``csrc/fused_relax.cu``). Bound on Hopper: bytes, in both.
+(all rounds in one launch, per 8-row block, over the in-edges sliced
+32 destinations a warp, the block's rows vertex-major in shared memory
+where they fit; ``csrc/fused_relax.cu``). Bound on Hopper: bytes in
+the first, the gathers in the second.
 
 On a CUDA tensor a wrapper launches its kernel, or raises; on a CPU
 tensor it runs the kernel's plain version (``ref.py``). ``LAUNCHES``
@@ -19,7 +22,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.backend import resolve_backend
-from repro_torch.kernels.spmv_relax.kernel import (HEAVY_DEGREE, RelaxCSR,
+from repro_torch.kernels.spmv_relax.kernel import (HEAVY_DEGREE, SLICE,
+                                                   RelaxCSR, SlicedEdges,
                                                    fused_relax_kernel,
                                                    spmv_relax_kernel)
 from repro_torch.kernels.spmv_relax.ref import fused_relax_ref, spmv_relax_ref
@@ -29,44 +33,12 @@ LAUNCHES = {"spmv_relax_kernel": 0, "fused_relax_kernel": 0}
 
 def ell_width(n_v: int, dst, d_width: int = 16) -> int:
     """ELL width of the COO's in-degrees: the largest in-degree (at
-    least 1) rounded up to a multiple of ``d_width``."""
+    least 1) rounded up to a multiple of ``d_width``. No kernel of the
+    port reads ELL planes; the route rule (``core/dispatch.py``) sizes
+    ``repro``'s fused working set with this width."""
     indeg = np.bincount(np.asarray(dst, np.int64), minlength=n_v)
     return max(d_width, int(-(-max(1, indeg.max(initial=0)) // d_width)
                             * d_width))
-
-
-def ell_layout(n_v: int, dst, d_width: int = 16):
-    """Slot assignment for the ELL conversion: stable-sort edges by dst,
-    each edge's slot is its rank within the dst group (position minus
-    the group's CSR offset). Returns ``(order, rows, slots, width)``.
-    """
-    dst = np.asarray(dst, np.int64)
-    width = ell_width(n_v, dst, d_width)
-    if len(dst) == 0:
-        empty = np.zeros(0, np.int64)
-        return empty, empty, empty, width
-    indeg = np.bincount(dst, minlength=n_v)
-    order = np.argsort(dst, kind="stable")
-    d_sorted = dst[order]
-    indptr = np.concatenate([[0], np.cumsum(indeg)])
-    rank = np.arange(len(dst), dtype=np.int64) - indptr[d_sorted]
-    return order, d_sorted, rank, width
-
-
-def coo_to_ell(n_v: int, src, dst, w, d_width: int = 16):
-    """COO (src -> dst relaxation direction) as host ELL planes
-    ``(ids int32[n_v, width], w float32[n_v, width])``, width = max
-    in-degree rounded up to a multiple of d_width; padding has id 0 and
-    weight +inf."""
-    src = np.asarray(src, np.int32)
-    w = np.asarray(w, np.float32)
-    order, rows, slots, width = ell_layout(n_v, dst, d_width)
-    ids = np.zeros((n_v, width), np.int32)
-    ws = np.full((n_v, width), np.inf, np.float32)
-    if len(src):
-        ids[rows, slots] = src[order]
-        ws[rows, slots] = w[order]
-    return ids, ws
 
 
 def coo_to_csr(n_v: int, src, dst, w, heavy: int = HEAVY_DEGREE):
@@ -78,11 +50,44 @@ def coo_to_csr(n_v: int, src, dst, w, heavy: int = HEAVY_DEGREE):
     src = np.asarray(src, np.int32)
     w = np.asarray(w, np.float32)
     indeg = np.bincount(np.asarray(dst, np.int64), minlength=n_v)
-    edge_order = ell_layout(n_v, dst)[0]
+    edge_order = np.argsort(np.asarray(dst, np.int64), kind="stable")
     indptr = np.concatenate([[0], np.cumsum(indeg)]).astype(np.int32)
     order = np.argsort(-indeg, kind="stable").astype(np.int32)
     return (indptr, src[edge_order], w[edge_order], order,
             int((indeg > heavy).sum()))
+
+
+def coo_to_sliced(n_v: int, src, dst, w):
+    """COO (src -> dst relaxation direction) as the host arrays of
+    ``SlicedEdges``: ``(order int32[n_v], slice_ptr int32[ceil(n_v /
+    32) + 1], src int32[S], w float32[S])``. Destinations go by
+    in-degree, heaviest first (``coo_to_csr``'s order); each slice of 32
+    is as deep as its largest in-degree; a destination's in-edges keep
+    COO order; unused slots hold source 0 and weight +inf."""
+    src = np.asarray(src, np.int32)
+    w = np.asarray(w, np.float32)
+    dst = np.asarray(dst, np.int64)
+    indeg = np.bincount(dst, minlength=n_v)
+    order = np.argsort(-indeg, kind="stable")
+    n_sl = -(-n_v // SLICE)
+    deg = np.zeros(n_sl * SLICE, np.int64)
+    deg[:n_v] = indeg[order]
+    depth = deg.reshape(n_sl, SLICE).max(1, initial=0)
+    slice_ptr = np.concatenate([[0], np.cumsum(depth * SLICE)])
+    pos = np.empty(n_v, np.int64)                  # destination -> slot
+    pos[order] = np.arange(n_v)
+    edge_order = np.argsort(dst, kind="stable")
+    d_sorted = dst[edge_order]
+    indptr = np.concatenate([[0], np.cumsum(indeg)])
+    rank = np.arange(len(dst), dtype=np.int64) - indptr[d_sorted]
+    p = pos[d_sorted]
+    slot = slice_ptr[p // SLICE] + rank * SLICE + p % SLICE
+    s_out = np.zeros(int(slice_ptr[-1]), np.int32)
+    w_out = np.full(int(slice_ptr[-1]), np.inf, np.float32)
+    s_out[slot] = src[edge_order]
+    w_out[slot] = w[edge_order]
+    return (order.astype(np.int32), slice_ptr.astype(np.int32), s_out,
+            w_out)
 
 
 def spmv_relax(dist, csr: RelaxCSR, changed, *, flag_in=None, out=None,
@@ -110,13 +115,14 @@ def spmv_relax(dist, csr: RelaxCSR, changed, *, flag_in=None, out=None,
     return res
 
 
-def fused_relax(dist, nbr_ids, nbr_w, *, max_rounds: int, bq: int = 8):
-    """All rounds, per ``bq``-row block (Q % bq == 0). Returns
-    (fixed-point dist, per-block rounds int32[Q // bq])."""
+def fused_relax(dist, edges: SlicedEdges, *, max_rounds: int,
+                bq: int = 8):
+    """All rounds over the sliced in-edges ``edges``, per ``bq``-row
+    block (Q % bq == 0). Returns (fixed-point dist, per-block rounds
+    int32[Q // bq])."""
     dist = dist.to(torch.float32).contiguous()
     if not dist.is_cuda:
-        return fused_relax_ref(dist, nbr_ids, nbr_w, max_rounds, bq)
-    out = fused_relax_kernel(dist, nbr_ids, nbr_w, max_rounds=max_rounds,
-                             bq=bq)
+        return fused_relax_ref(dist, edges, max_rounds, bq)
+    out = fused_relax_kernel(dist, edges, max_rounds=max_rounds, bq=bq)
     LAUNCHES["fused_relax_kernel"] += 1
     return out

@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the min-plus relaxation kernels."""
 import torch
 
-from repro_torch.kernels.spmv_relax.kernel import ROW_TILE
+from repro_torch.kernels.spmv_relax.kernel import ROW_TILE, SLICE
 
 GATHER_ELEMS = 2 ** 25   # [edges, R] gather elements per chunk (128 MB)
 
@@ -53,30 +53,48 @@ def spmv_relax_ref(dist, csr, changed, flag_in, out, changed_out, flag_out):
     return out, changed_out, flag_out
 
 
-def _ell_round(dist, nbr_ids, nbr_w):
-    """One Jacobi round over row-major [Q, V] frontiers in ELL layout.
-    The min over the D slots runs one [Q, V] gather per slot, so memory
-    stays O(Q V); min is exact and order-free."""
+def _edge_round(dist, src, dst, w):
+    """One Jacobi round over row-major [Q, V] frontiers along the in-edges
+    (src[e] -> dst[e], w[e]), in chunks of edges so memory stays
+    O(Q V); min is exact and order-free."""
+    q = dist.shape[0]
     cand = torch.full_like(dist, float("inf"))
-    for j in range(nbr_ids.shape[1]):
-        cand = torch.minimum(
-            cand, dist.index_select(1, nbr_ids[:, j]) + nbr_w[:, j])
+    chunk = max(1, GATHER_ELEMS // max(q, 1))
+    for lo in range(0, src.shape[0], chunk):
+        g = dist[:, src[lo:lo + chunk]] + w[lo:lo + chunk]
+        cand.scatter_reduce_(1, dst[None, lo:lo + chunk].expand_as(g), g,
+                             "amin")
     return torch.minimum(dist, cand)
 
 
-def fused_relax_ref(dist, nbr_ids, nbr_w, max_rounds: int, bq: int = 8):
-    """All rounds, each block of ``bq`` rows to its own fixed point or
-    ``max_rounds``. Returns (dist [Q, V], rounds int32[Q // bq]). A block
-    at its fixed point is unchanged by further rounds, so the batch runs
-    as one matrix and only the round counts are kept per block."""
+def sliced_dst(edges):
+    """int64[S]: the destination of each slot of ``SlicedEdges`` (0 for
+    the slots of a last slice's missing lanes, all +inf-weighted)."""
+    n_slots = edges.src.shape[0]
+    slot = torch.arange(n_slots, device=edges.src.device)
+    s = torch.searchsorted(edges.slice_ptr[1:].long(), slot, right=True)
+    k = s * SLICE + (slot - edges.slice_ptr[s].long()) % SLICE
+    order = torch.cat([edges.order.long(),
+                       edges.order.new_zeros(len(edges.slice_ptr) * SLICE)])
+    return order[k]
+
+
+def fused_relax_ref(dist, edges, max_rounds: int, bq: int = 8):
+    """All rounds over the sliced in-edges ``edges``, each block of
+    ``bq`` rows to its own fixed point or ``max_rounds``. Returns (dist
+    [Q, V], rounds int32[Q // bq]). Padding slots weigh +inf and add
+    nothing to a min. A block at its fixed point is unchanged by further
+    rounds, so the batch runs as one matrix and only the round counts
+    are kept per block."""
     q, v = dist.shape
     nb = q // bq
+    src, dst = edges.src.long(), sliced_dst(edges)
     rounds = torch.zeros(nb, dtype=torch.int32, device=dist.device)
     active = torch.full((nb,), max_rounds > 0, dtype=torch.bool,
                         device=dist.device)
     d = dist
     for _ in range(max_rounds):
-        d2 = _ell_round(d, nbr_ids, nbr_w)
+        d2 = _edge_round(d, src, dst, edges.w)
         rounds += active
         active &= (d2 < d).view(nb, bq * v).any(1)
         d = d2

@@ -86,18 +86,19 @@ def test_kernel_bindings_refuse_cpu_tensors():
         label_intersect_kernel, label_intersect_packed_kernel)
     from repro_torch.kernels.minplus_matmul.kernel import \
         minplus_matmul_kernel
-    from repro_torch.kernels.spmv_relax.kernel import (RelaxCSR,
+    from repro_torch.kernels.spmv_relax.kernel import (RelaxCSR, SlicedEdges,
                                                        fused_relax_kernel,
                                                        spmv_relax_kernel)
     ids = torch.zeros((8, 4), dtype=torch.int32)
     d = torch.zeros((8, 4))
-    ell_ids = torch.zeros((4, 16), dtype=torch.int32)
-    ell_w = torch.zeros((4, 16))
     delta = torch.zeros((8, 4), dtype=torch.int16)
     base = torch.zeros(8, dtype=torch.int32)
     csr = RelaxCSR(torch.zeros(9, dtype=torch.int32),
                    torch.zeros(0, dtype=torch.int32), torch.zeros(0),
                    torch.arange(8, dtype=torch.int32), 0)
+    sliced = SlicedEdges(torch.arange(4, dtype=torch.int32),
+                         torch.zeros(2, dtype=torch.int32),
+                         torch.zeros(0, dtype=torch.int32), torch.zeros(0))
     mask = torch.ones((1, 8), dtype=torch.bool)
     flag = torch.ones(1, dtype=torch.int32)
     calls = [lambda: label_intersect_kernel(ids, d, ids, d, 5),
@@ -105,7 +106,7 @@ def test_kernel_bindings_refuse_cpu_tensors():
                                                    base, ids, 5),
              lambda: spmv_relax_kernel(d, csr, mask, flag, d.clone(),
                                        mask.clone(), flag.clone()),
-             lambda: fused_relax_kernel(d, ell_ids, ell_w, max_rounds=3),
+             lambda: fused_relax_kernel(d, sliced, max_rounds=3),
              lambda: minplus_matmul_kernel(d, d.T.contiguous())]
     for call in calls:
         with pytest.raises(ValueError, match="CUDA tensor"):

@@ -27,9 +27,11 @@ from repro_torch.kernels.label_intersect.ops import label_intersect
 from repro_torch.kernels.minplus_matmul.ops import minplus_matmul
 from repro_torch.core.dispatch import (CoreRelaxer, relax_csr_rounds,
                                        seed_vertex_major)
-from repro_torch.kernels.spmv_relax.kernel import (HEAVY_DEGREE, ROW_TILE,
-                                                   RelaxCSR, fused_vmem_bytes)
-from repro_torch.kernels.spmv_relax.ops import (coo_to_csr, coo_to_ell,
+from repro_torch.kernels.spmv_relax.kernel import (
+    FUSED_VARIANTS, HEAVY_DEGREE, ROW_TILE, SLICE,
+    SMEM_BLOCK_BYTES, VERTEX_BYTES, RelaxCSR, SlicedEdges, fused_variant,
+    fused_vmem_bytes)
+from repro_torch.kernels.spmv_relax.ops import (coo_to_csr, coo_to_sliced,
                                                 fused_relax, spmv_relax)
 from repro_torch.kernels.spmv_relax.ref import tile_any
 
@@ -104,18 +106,15 @@ SPMV_CASES = {"er97": lambda: _ell_case(97, 97, 400, 13),
               "hub": lambda: _hub_case(3, 300, 900, 21, HEAVY_DEGREE + 300)}
 
 
+def _sliced(v, src, dst, w):
+    return SlicedEdges(*(torch.from_numpy(x)
+                         for x in coo_to_sliced(v, src, dst, w)))
+
+
 def _csr(v, src, dst, w):
     indptr, s, ws, order, n_heavy = coo_to_csr(v, src, dst, w)
     return RelaxCSR(*(torch.from_numpy(x) for x in (indptr, s, ws, order)),
                     n_heavy)
-
-
-def test_coo_to_ell_matches_repro():
-    src, dst, w, _ = _ell_case(0, 97, 400, 1)
-    ids, ws = coo_to_ell(97, src, dst, w)
-    j_ids, j_ws = j_coo_to_ell(97, src, dst, w)
-    _same(torch.from_numpy(ids), j_ids)
-    _same(torch.from_numpy(ws), j_ws)
 
 
 @pytest.mark.parametrize("case", sorted(SPMV_CASES))
@@ -159,7 +158,7 @@ def test_spmv_relax_plain_matches_repro(case):
     n_tiles = -(-q // ROW_TILE)
     out, changed, flag = _round(dist_vm, csr,
                                 np.ones((n_tiles, v), bool))
-    ids, ws = coo_to_ell(v, src, dst, w)
+    ids, ws = j_coo_to_ell(v, src, dst, w)
     for jb in J_BACKENDS:
         want = j_spmv(jnp.asarray(dist), jnp.asarray(ids), jnp.asarray(ws),
                       backend=jb)
@@ -231,7 +230,7 @@ def test_masked_rounds_match_repro_rounds(case):
     assert cur.shape == (v, rows) and changed.shape == (1, v)
     _same(changed[0], np.isfinite(cur.numpy()).any(1))
     csr = _csr(v, src, dst, w)
-    ids, ws = (jnp.asarray(x) for x in coo_to_ell(v, src, dst, w))
+    ids, ws = j_coo_to_ell(v, src, dst, w)
     j_d = jnp.asarray(cur.numpy().T)
     j_rounds, improved = 0, True
     flag_in = torch.ones(1, dtype=torch.int32)
@@ -268,29 +267,100 @@ def test_default_mode_matches_repro(graph):
                dict(dense_threshold=2.0, vmem_budget=need - 1)):
         got = CoreRelaxer(src, dst, w, n, **kw)
         assert got.mode == JRelaxer(src, dst, w, n, **kw).mode
-        assert got._ell is None                    # no ELL planes built
+        assert (got._csr, got._sliced, got._adj) == (None,) * 3  # no layout
     assert CoreRelaxer(src, dst, w, n, dense_threshold=2.0,
                        vmem_budget=need - 1).mode == "ell_loop"
+
+
+def _fused_case(v, q, hub_deg, seed):
+    """A random core of ``v`` vertices (rows >= v/2 without in-edges),
+    one hub of in-degree ``hub_deg`` (it sets the ELL width), and ``q``
+    rows seeded with a zero and a few 3.0 entries each, the last block
+    without seeds."""
+    src, dst, w, dist = _ell_case(seed, v, 4 * v, q)
+    r = np.random.default_rng(seed + 1)
+    src = np.concatenate([src, r.integers(0, v, hub_deg).astype(np.int32)])
+    dst = np.concatenate([dst, np.full(hub_deg, 1, np.int32)])
+    w = np.concatenate([w, r.integers(1, 9, hub_deg).astype(np.float32)])
+    dist[q - 8:] = np.inf
+    return src, dst, w, dist
+
+
+def _fused_vs_repro(v, q, hub_deg, max_rounds, seed):
+    """The plain version on the sliced in-edges against ``repro``'s Pallas
+    program on the ELL planes of the same COO: fixed point and per-block
+    rounds."""
+    src, dst, w, dist = _fused_case(v, q, hub_deg, seed)
+    d, rounds = fused_relax(torch.from_numpy(dist), _sliced(v, src, dst, w),
+                            max_rounds=max_rounds)
+    ids, ws = j_coo_to_ell(v, src, dst, w)
+    j_d, j_rounds = j_fused(jnp.asarray(dist), ids, ws,
+                            max_rounds=max_rounds, interpret=True)
+    _same(d, j_d)
+    _same(rounds, j_rounds)
+    return ids.shape[1], rounds.numpy()
 
 
 @pytest.mark.parametrize("max_rounds", [0, 2, 1000])
 def test_fused_relax_plain_matches_repro(max_rounds):
     """Fixed point and per-block round counts of the fused kernel's plain
-    version equal the Pallas program's; includes an all-inf block and a
-    round cap that stops blocks early."""
-    v, q = 128, 24
-    src, dst, w, dist = _ell_case(5, v, 600, q)
-    dist[16:24] = np.inf                       # a block with no seeds
-    ids, ws = coo_to_ell(v, src, dst, w)
-    d, rounds = fused_relax(*(torch.from_numpy(x) for x in (dist, ids, ws)),
-                            max_rounds=max_rounds)
-    j_d, j_rounds = j_fused(jnp.asarray(dist), jnp.asarray(ids),
-                            jnp.asarray(ws), max_rounds=max_rounds,
-                            interpret=True)
-    _same(d, j_d)
-    _same(rounds, j_rounds)
+    version (over the sliced in-edges) equal the Pallas program's (over the
+    ELL planes); includes an all-inf block and a round cap that stops
+    blocks early."""
+    _, rounds = _fused_vs_repro(128, 24, 0, max_rounds, 5)
     if max_rounds:
-        assert rounds.numpy()[2] == 1          # the empty block: one round
+        assert rounds[2] == 1                  # the empty block: one round
+
+
+@pytest.mark.parametrize("max_rounds", [1, 3, 7])
+@pytest.mark.parametrize("v,hub_deg,width", [(77, 0, 16), (200, 40, 64),
+                                             (136, 70, 80)])
+def test_fused_relax_sliced_matches_repro_ell(v, hub_deg, width, max_rounds):
+    """Over V off the 128-vertex padding, ELL widths 16, 64 and 80, round
+    caps of one round, an odd count and past most blocks' fixed point,
+    the plain version on the sliced in-edges equals ``repro``'s fused
+    kernel on the
+    ELL planes bitwise, per-block rounds included."""
+    got_width, rounds = _fused_vs_repro(v, 16, hub_deg, max_rounds, v)
+    assert got_width == width
+    assert rounds.max() == max_rounds or rounds.max() < max_rounds == 7
+
+
+def test_fused_variant_by_core_size():
+    """Two shared buffers of rows and flags while they fit one block's
+    shared memory, device scratch above; each variant has an entry point
+    index."""
+    v_max = SMEM_BLOCK_BYTES // (2 * VERTEX_BYTES)
+    assert VERTEX_BYTES == 33 and v_max == 3521
+    assert fused_variant(1) == fused_variant(v_max) == "shared"
+    assert fused_variant(1920) == "shared"          # the fused cell's core
+    assert fused_variant(v_max + 1) == fused_variant(120_000) == "global"
+    assert sorted(FUSED_VARIANTS.values()) == list(range(len(FUSED_VARIANTS)))
+
+
+@pytest.mark.parametrize("case", sorted(SPMV_CASES))
+def test_coo_to_sliced_holds_the_csr_in_edges(case):
+    """Slot k of a slice holds destination order[k]'s in-edges, the CSR's
+    multiset, at slice_ptr[k // 32] + 32 j + k % 32, then +inf padding to
+    the slice's depth (its largest in-degree); the order is the CSR's."""
+    src, dst, w, dist = SPMV_CASES[case]()
+    v = dist.shape[1]
+    order, slice_ptr, s_src, s_w = coo_to_sliced(v, src, dst, w)
+    indptr, c_src, c_w, c_order, _ = coo_to_csr(v, src, dst, w)
+    _same(order, c_order)
+    deg = np.diff(indptr)
+    assert slice_ptr.shape == (-(-v // SLICE) + 1,) and slice_ptr[0] == 0
+    for k, x in enumerate(order):
+        s, lane = divmod(k, SLICE)
+        depth = (slice_ptr[s + 1] - slice_ptr[s]) // SLICE
+        assert depth == deg[order[s * SLICE:(s + 1) * SLICE]].max()
+        slots = slice_ptr[s] + SLICE * np.arange(depth) + lane
+        real = slots[:deg[x]]
+        assert (sorted(zip(s_src[real].tolist(), s_w[real].tolist()))
+                == sorted(zip(c_src[indptr[x]:indptr[x + 1]].tolist(),
+                              c_w[indptr[x]:indptr[x + 1]].tolist())))
+        assert np.isinf(s_w[slots[deg[x]:]]).all()
+    assert np.isfinite(s_w).sum() == len(src)
 
 
 # ----------------------------------------------------------- min-plus
