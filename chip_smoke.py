@@ -2,20 +2,24 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one GPU and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --label-sweep SRC   # stage-1 sweep of SRC's port
 
 Phases, one JSON line each (with its seconds):
 
 1. device   — the card's name and power limit (``nvidia-smi``).
 2. build    — compile the hand-written CUDA kernels from ``kernels/csrc``,
    then hold each against its plain PyTorch version (``torch.equal``)
-   on small random inputs at ragged shapes.
+   on small random inputs at ragged shapes; the label kernels both on
+   gathered rows and reading rows in place by endpoint id (rows ending
+   on and one past a 32-slot chunk, duplicate ids, the all-pad row,
+   repeated endpoints, int32 and float32 distance planes).
 3. main path, one real build per path, with the launch counters set to
    0 before each path and read after it; each path must launch exactly
    its own kernels:
    - ``ell_loop``: ``ISLabelIndex.build`` on ``er:1000000:2.2@1``
      (``l_cap=64``, ``label_chunk=8192``), then ``query`` on 1024 seeded
-     random pairs; the first 16 sources are checked bitwise against
-     Dijkstra;
+     random pairs (two calls, then ``QUERY_REPEATS`` timed ones); the
+     first 16 sources are checked bitwise against Dijkstra;
    - ``fused``: the same on ``er:10000:2.2@1``;
    - ``dense``: the same on ``rmat:12:24@1`` (a small dense core);
    - ``compressed``: the same on ``rmat:15:8@1`` with
@@ -28,7 +32,12 @@ Phases, one JSON line each (with its seconds):
    labels, bitwise; then whether the 10^6 graph's labels fit delta16.
 5. kernels  — each kernel on the card against its plain PyTorch version
    (``torch.equal``) on the inputs the main path gave it, with
-   CUDA-event times and the bound of the same work. ``spmv_relax_kernel``
+   CUDA-event times and the bound of the same work. The label kernels
+   also run at ``repro``'s serving batches (Q = 64, 256, 1024) beside
+   the launch floor (a one-element ``fill_``), on gathered rows too, and
+   with the whole μ-only lane (``query_mu_only``) timed at each Q on the
+   ``ell_loop`` and ``compressed`` indexes (``label_sweep``).
+   ``spmv_relax_kernel``
    is replayed round by round on both ``ell_loop`` queries (output, mask
    and flag of every round), and its replayed round count must equal
    the route's. ``fused_relax_kernel`` is timed in both variants on the
@@ -40,10 +49,17 @@ Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script
 exits nonzero and prints no result. It needs one CUDA card and the
 repository's ``src/`` beside it.
+
+``--label-sweep SRC`` builds the four paths' indexes with the port
+under ``SRC`` (for instance an older commit unpacked with ``git
+archive``) and prints ``label_sweep``'s line with each path's query
+times, so two trees' stage 1 and queries can be timed in turns in one
+call.
 """
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -55,6 +71,9 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 MAIN_QUERIES = 1024
+QUERY_REPEATS = 10       # timed query calls after the first two
+# the serving buckets of repro's batcher (src/repro/serve/batcher.py:52)
+SWEEP_QS = (64, 256, 1024)
 KERNELS = {
     "label_intersect_kernel": (
         "src/repro_torch/kernels/csrc/label_intersect.cu",
@@ -102,14 +121,22 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: {msg}")
 
 
+# timings whose device ms may hold host gaps (see cuda_ms)
+UNCOVERED = [0]
+
+
 def cuda_ms(fn, iters: int) -> tuple[float, float]:
     """(device ms, wall ms) of one call of ``fn``, means over ``iters``
     calls after one warm-up call.
 
     Device ms: the calls are queued behind a device-side sleep long
     enough to cover their host-side launch cost, and CUDA events around
-    them time the device alone. Wall ms: the same calls back to back on
-    the host clock, ending in a synchronize, launch cost included."""
+    them time the device alone. If the sleep ended before the last call
+    was queued (the start event had completed by then), the device may
+    have waited on the host: the run is repeated behind a longer sleep,
+    up to 2 s, and counted in ``UNCOVERED`` if it still was. Wall ms:
+    the same calls back to back on the host clock, ending in a
+    synchronize, launch cost included."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -117,15 +144,22 @@ def cuda_ms(fn, iters: int) -> tuple[float, float]:
     fn()                       # the queue is empty: this times the enqueue
     enqueue_s = time.perf_counter() - t0
     torch.cuda.synchronize()
-    # at most 2e9 SM cycles a second on an H100; twice the enqueue time
-    torch.cuda._sleep(int(min(2 * enqueue_s * iters, 2.0) * 2e9))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
+    sleep_s = min(2 * enqueue_s * iters, 2.0)
+    for _ in range(3):
+        # at most 2e9 SM cycles a second on an H100
+        torch.cuda._sleep(int(sleep_s * 2e9))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        covered = not start.query()
+        torch.cuda.synchronize()
+        if covered or sleep_s >= 2.0:
+            break
+        sleep_s = min(4 * sleep_s, 2.0)
+    UNCOVERED[0] += not covered
     t0 = time.perf_counter()
     for _ in range(iters):
         fn()
@@ -210,6 +244,11 @@ def drive_route(route, spec, gen_call, overrides, device):
                 ans = idx.query(s, t)   # ends on a blocking read of rounds
                 times.append((time.perf_counter() - t1) * 1e3)
             syncs.append(span.count)
+        repeats = []
+        for _ in range(QUERY_REPEATS):
+            t1 = time.perf_counter()
+            idx.query(s, t)
+            repeats.append((time.perf_counter() - t1) * 1e3)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     if mode != route:
@@ -239,6 +278,8 @@ def drive_route(route, spec, gen_call, overrides, device):
            "build_syncs": st.host_syncs,
            "rounds": idx.engine._last_rounds,
            "query_ms_first": times[0], "query_ms": times[1],
+           "query_ms_median": statistics.median(repeats),
+           "query_ms_repeats": repeats,
            "query_syncs": syncs[1], "queries": MAIN_QUERIES,
            "dijkstra_checked": n_check,
            "peak_device_bytes_build": build_peak,
@@ -471,6 +512,39 @@ def phase_ragged(dev="cuda") -> dict:
         d = torch.randint(0, 9, (q, l), generator=g, device=dev).float()
         return ids, torch.where(ids < n_sent, d, inf)
 
+    def plane_cases(n, l, q, dup, d_dtype=None):
+        """Label planes [n+1, L] read in place by endpoint id, and the
+        same rows gathered (null index): rows of 0, 1, 31, 32, 33, 63,
+        64, 65, 96 and 97 real ids (cut to L), then random counts; with
+        ``dup`` every third row has repeated ids (any distances); row n
+        all pad. Endpoints (the last Q of): those rows against each other
+        and themselves, repeated ids, random ids, and n on either side and
+        both. ``d_dtype`` encodes
+        the planes as delta16 with that distance plane."""
+        counts = (0, 1, 31, 32, 33, 63, 64, 65, 96, 97)
+        ids = np.full((n + 1, l), n, np.int64)
+        d = np.full((n + 1, l), inf)
+        for v in range(n):
+            k = min(l, counts[v] if v < len(counts)
+                    else int(r.integers(0, l + 1)))
+            ids[v, :k] = np.sort(r.choice(n, k, replace=dup and v % 3 == 0))
+            d[v, :k] = r.integers(0, 90, k)
+        if d_dtype is None:
+            planes = (ids.astype(np.int32), d.astype(np.float32))
+        else:
+            planes = encode_labels(ids, d, n, d_dtype)
+        planes = [torch.from_numpy(x).to(dev) for x in planes]
+        k = len(counts)
+        s, t = (r.integers(0, n + 1, max(q, 2 * k + 8)) for _ in range(2))
+        s[:2 * k] = np.tile(np.arange(k), 2)
+        t[:2 * k] = np.concatenate([np.arange(k), np.roll(np.arange(k), 1)])
+        s[2 * k:2 * k + 4] = s[2 * k + 4]
+        s[-3:-1], t[-2:] = n, n
+        s, t = (torch.from_numpy(x[-q:].astype(np.int32)).to(dev)
+                for x in (s, t))
+        gathered = [p[e.long()] for e in (s, t) for p in planes]
+        return [(*planes, *planes, n, s, t), (*gathered, n)]
+
     def fused_cases(q, v, deg, max_rounds):
         """fused_relax operands, one case per variant that takes ``v``
         (``fused_variants``): about ``deg`` random in-edges a vertex into
@@ -541,16 +615,25 @@ def phase_ragged(dev="cuda") -> dict:
                (mat(128, 48, 0.2), mat(48, 128, 0.2)),    # whole tiles
                inf_lines(257, 33, 190), inf_lines(300, 161, 260)]
 
+    # (n, L, Q, duplicate ids) of the planes read in place; L on and off
+    # the 32-slot chunks
+    planes = ((1000, 45, 77, False), (1000, 64, 130, True),
+              (300, 70, 41, True), (2000, 129, 200, False),
+              (300, 257, 64, True), (400, 97, 5, False))
     cases = {
         "label_intersect_packed_kernel": [
             packed_rows(q, l, n_sent, d_dtype)
             for d_dtype in ("int32", "float32")
             for q, l, n_sent in ((13, 100, 100_000), (1, 1, 5),
-                                 (40, 257, 300_000), (37, 33, 70_000))],
+                                 (40, 257, 300_000), (37, 33, 70_000))] + [
+            case for d_dtype in ("int32", "float32") for n, l, q, dup in planes
+            for case in plane_cases(n, l, q, dup, d_dtype)],
         "label_intersect_kernel": [
             (*rows(13, 100, 1000), *rows(13, 100, 1000), 1000),
             (*rows(1, 1, 5), *rows(1, 1, 5), 5),
-            (*rows(40, 257, 300), *rows(40, 257, 300), 300)],
+            (*rows(40, 257, 300), *rows(40, 257, 300), 300)] + [
+            case for n, l, q, dup in planes
+            for case in plane_cases(n, l, q, dup)],
         "spmv_relax_kernel": [
             csr_case(1001, 40, 5000, (HEAVY_DEGREE + 1, HEAVY_DEGREE),
                      "random"),
@@ -576,6 +659,20 @@ def phase_ragged(dev="cuda") -> dict:
     for name, args_list in cases.items():
         for args in args_list:
             compare(name, args)
+    if dev == "cuda":
+        # endpoint ids outside the planes give NaN, and only there (the
+        # plain versions raise)
+        for name in ("label_intersect_kernel", "label_intersect_packed_kernel"):
+            *planes, s, t = cases[name][-2]
+            rows = planes[0].shape[0]
+            bad_s, bad_t = s.clone(), t.clone()
+            bad_s[::5], bad_t[1::7] = rows, -1
+            kernel, plain = _fns()[name]
+            mu = kernel(*planes, bad_s, bad_t)
+            bad = (bad_s == rows) | (bad_t < 0)
+            if not (torch.isnan(mu[bad]).all() and torch.equal(
+                    mu[~bad], plain(*planes, s, t)[~bad])):
+                fail(f"{name}: endpoint ids outside the planes")
     return {name: len(v) for name, v in cases.items()}
 
 
@@ -595,33 +692,101 @@ def time_kernel(name, args, n_bytes, n_ops, iters) -> dict:
             "shape": [list(x.shape) for x in args if hasattr(x, "shape")]}
 
 
-def packed_case(idx, s, t):
-    """The compressed path's gathered rows as packed-kernel arguments,
-    with the int32 distance plane and with the same rows encoded with a
-    float32 one (4 bytes a distance either way); the number of real
-    entries, and the bytes a kernel must move: those of the real entries
-    plus each row's first pad marker and base, or of the full planes."""
+def label_case(idx, s, t, d_plane=None) -> dict:
+    """Stage 1 of the pairs (s, t) on ``idx``: the kernel's name, its
+    arguments reading the rows in place (the label planes for each side,
+    then the endpoint ids; ``None`` where the tree's kernels take only
+    gathered rows) and on rows gathered first, and the work: the bytes
+    the in-place form needs (each row's ids up to and including its first
+    pad, the bases, the distances of the hits, the endpoint ids and μ),
+    the same with the full [Q, L] rows, the real entries and the hits.
+    ``d_plane`` replaces the distance plane (``lbl_d``: a delta16 index
+    with a float32 one; 4 bytes a distance either way)."""
+    import inspect
     import torch
-    from repro_torch.core.labels import decode_ids, encode_labels
-    from repro_torch.core.sync import host_read, upload
+    from repro_torch.core.labels import decode_rows
+    from repro_torch.core.sync import host_read
     eng = idx.engine
-    rows = [eng._rows(torch.as_tensor(x, device=idx.device)) for x in (s, t)]
-    args_int = (*rows[0], *rows[1], idx.n)
-    args_f32 = []
-    for x in (s, t):
-        sel = torch.as_tensor(x, device=idx.device).long()
-        enc = encode_labels(*host_read((eng.lbl_ids[sel], eng.lbl_d[sel])),
-                            idx.n, d_dtype="float32")
-        args_f32 += [upload(a, idx.device) for a in enc]
-    args_f32 = (*args_f32, idx.n)
-    q, l = rows[0].ids.shape
-    real = sum(int(host_read((decode_ids(r.ids, r.base, idx.n) < idx.n)
-                             .sum(dtype=torch.int64))) for r in rows)
-    marks = sum(int(host_read((r.ids[:, -1] >= 0).logical_not()
-                              .sum(dtype=torch.int64))) for r in rows)
-    bytes_real = real * (2 + 4) + marks * 2 + 2 * q * 4 + q * 4
-    bytes_full = 2 * q * l * (2 + 4) + 2 * q * 4 + q * 4
-    return args_int, args_f32, real, bytes_real, bytes_full
+    sq, tq = (torch.as_tensor(x, dtype=torch.int32, device=idx.device)
+              for x in (s, t))
+    if eng.codec == "none":
+        name, slot_bytes, base_bytes = "label_intersect_kernel", 4, 0
+        planes = (eng.lbl_ids, eng.lbl_d if d_plane is None else d_plane)
+    else:
+        name, slot_bytes, base_bytes = "label_intersect_packed_kernel", 2, 4
+        planes = (eng.enc_ids, eng.enc_base,
+                  eng.enc_d if d_plane is None else d_plane)
+    gathered = (*(p[e.long()] for e in (sq, tq) for p in planes), idx.n)
+    in_place = "idx_s" in inspect.signature(_fns()[name][0]).parameters
+    indexed = (*planes, *planes, idx.n, sq, tq) if in_place else None
+    (ids_s, _), (ids_t, _) = (decode_rows(eng._rows(e), idx.n, eng.codec)
+                              for e in (sq, tq))
+    q, l = ids_s.shape
+    real_rows = torch.stack([(x < idx.n).sum(1) for x in (ids_s, ids_t)])
+    pos = torch.searchsorted(ids_t, ids_s).clamp(max=l - 1)
+    hits = ((ids_t.gather(1, pos) == ids_s) & (ids_s < idx.n)).sum()
+    real, slots, hits = (int(x) for x in host_read(
+        (real_rows.sum(), (real_rows + 1).clamp(max=l).sum(), hits)))
+    ends = 2 * q * (base_bytes + 4) + q * 4     # bases, endpoint ids, μ
+    return {"name": name, "indexed": indexed, "gathered": gathered,
+            "bytes": slots * slot_bytes + hits * 2 * 4 + ends,
+            "bytes_full": 2 * q * l * (slot_bytes + 4) + ends,
+            "ops": 2 * real, "real_entries": real, "hits": hits}
+
+
+def launch_floor() -> dict:
+    """Device and wall ms of the smallest launch, a one-element
+    ``fill_``, under the same timing as the kernels (``cuda_ms``)."""
+    import torch
+    x = torch.zeros(1, device="cuda")
+    ms, wall_ms = cuda_ms(lambda: x.fill_(1.0), 200)
+    return {"ms": ms, "wall_ms": wall_ms}
+
+
+def label_sweep(indexes) -> dict:
+    """Stage 1 at ``repro``'s serving batches (SWEEP_QS) on the
+    ``ell_loop`` index (fp32 rows, 10^6 vertices) and the ``compressed``
+    one (delta16), on the first Q pairs of the main path: the kernel
+    reading rows in place (where the tree's kernels can) and on gathered
+    rows, each held ``torch.equal`` to the plain version; the plain
+    version's ms; both byte bounds; and the whole μ-only lane
+    (``query_mu_only`` on int32 endpoint ids on the card), device and
+    wall ms a call. Runs on any tree of the port (``--label-sweep``)."""
+    import torch
+    out = {"floor": launch_floor(), "paths": {}}
+    for path in ("ell_loop", "compressed"):
+        idx, s, t = indexes[path]
+        eng = idx.engine
+        recs = []
+        for q in SWEEP_QS:
+            case = label_case(idx, s[:q], t[:q])
+            kernel, plain = _fns()[case["name"]]
+            rec = {"q": q, "real_entries": case["real_entries"],
+                   "hits": case["hits"],
+                   "bound_ms": bound(case["bytes"], case["ops"])[0],
+                   "bound_ms_full_rows": bound(case["bytes_full"], 0)[0]}
+            if case["indexed"] is not None:
+                compare(case["name"], case["indexed"])
+                rec["ms"], rec["wall_ms"] = cuda_ms(
+                    lambda: kernel(*case["indexed"]), 200)
+            compare(case["name"], case["gathered"])
+            rec["gathered_ms"], rec["gathered_wall_ms"] = cuda_ms(
+                lambda: kernel(*case["gathered"]), 200)
+            rec["plain_ms"], _ = cuda_ms(lambda: plain(*case["gathered"]), 20)
+            sq, tq = (torch.as_tensor(x, dtype=torch.int32, device=idx.device)
+                      for x in (s[:q], t[:q]))
+            if not torch.equal(eng.query_mu_only(sq, tq),
+                               plain(*case["gathered"])):
+                fail(f"{path}: query_mu_only differs from the plain "
+                     f"intersect at Q = {q}")
+            # 50 calls: a lane that gathers rows launches about nine
+            # kernels a call, and more than the launch queue holds would
+            # let the device wait on the host
+            rec["lane_ms"], rec["lane_wall_ms"] = cuda_ms(
+                lambda: eng.query_mu_only(sq, tq), 50)
+            recs.append(rec)
+        out["paths"][path] = {"kernel": case["name"], "batches": recs}
+    return out
 
 
 def csr_round_work(csr, changed, rows: int):
@@ -790,29 +955,31 @@ def phase_kernels(indexes, clock_max_hz: float) -> list:
     from repro_torch.kernels.spmv_relax.ops import ell_width
     from repro_torch.kernels.spmv_relax.ref import fused_relax_ref
     out = []
-    # stage 1 of the compressed path: its 1024-pair query's rows
-    idx, s, t = indexes["compressed"]
-    args_int, args_f32, real, bytes_real, bytes_full = packed_case(idx, s, t)
-    out.append(time_kernel("label_intersect_packed_kernel", args_int,
-                           n_bytes=bytes_real, n_ops=2 * real,
-                           iters=200))
-    full_ms, _ = bound(bytes_full, 0)
-    f32 = time_kernel("label_intersect_packed_kernel", args_f32,
-                      n_bytes=bytes_real, n_ops=2 * real,
-                      iters=200)
-    out[-1].update(
-        real_entries=real, bound_ms_full_planes=full_ms,
-        float32_plane={k: f32[k] for k in ("ms", "wall_ms", "plain_ms",
-                                           "bound_ms", "max_abs_err")})
+    # stage 1 of the compressed and the 10^6 graph's 1024-pair queries,
+    # rows read in place as the engine reads them; the sweep over the
+    # serving batches beside the launch floor
+    sweep = label_sweep(indexes)
+    for path in ("compressed", "ell_loop"):
+        idx, s, t = indexes[path]
+        case = label_case(idx, s, t)
+        rec = time_kernel(case["name"], case["indexed"], n_bytes=case["bytes"],
+                          n_ops=case["ops"], iters=200)
+        at_main = sweep["paths"][path]["batches"][-1]
+        rec.update(floor_ms=sweep["floor"]["ms"],
+                   floor_wall_ms=sweep["floor"]["wall_ms"],
+                   bound_ms_full_rows=bound(case["bytes_full"], 0)[0],
+                   real_entries=case["real_entries"], hits=case["hits"],
+                   gathered_ms=at_main["gathered_ms"],
+                   gathered_wall_ms=at_main["gathered_wall_ms"],
+                   sweep=sweep["paths"][path]["batches"])
+        if path == "compressed":
+            f32 = label_case(idx, s, t, d_plane=idx.engine.lbl_d)
+            f32 = time_kernel(f32["name"], f32["indexed"], n_bytes=f32["bytes"],
+                              n_ops=f32["ops"], iters=200)
+            rec["float32_plane"] = {k: f32[k] for k in (
+                "ms", "wall_ms", "plain_ms", "bound_ms", "max_abs_err")}
+        out.append(rec)
 
-    # stage 1 of the 10^6 graph's 1024-pair query
-    idx, s, t = indexes["ell_loop"]
-    _, rs, rt = label_seeds(idx, s, t)
-    q, l = rs.ids.shape
-    out.append(time_kernel(
-        "label_intersect_kernel", (rs.ids, rs.d, rt.ids, rt.d, idx.n),
-        n_bytes=4 * q * l * 4 + q * 4, n_ops=2 * q * l, iters=200))
-    del rs, rt
     # every ell_loop round of both ell_loop paths' queries
     out.append(replay_csr(*indexes["ell_loop"]))
     out[-1]["profile"] = profile_query(*indexes["ell_loop"])
@@ -878,16 +1045,45 @@ def phase_kernels(indexes, clock_max_hz: float) -> list:
     return out
 
 
-def main() -> int:
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        print("chip_smoke: src/repro_torch not found beside chip_smoke.py",
+def sweep_main(src: Path) -> int:
+    """``--label-sweep SRC``: build the four paths' indexes with the port
+    found under ``SRC`` (this tree's ``src`` or an unpacked older
+    commit's), run ``label_sweep`` and print it as one line with each
+    path's query times, so two trees' label kernels, μ-only lanes and
+    queries can be timed in one call on one card."""
+    dev = phase_device()
+    emit({"phase": "build", **phase_build()})
+    indexes, queries = {}, {}
+    for path, route, spec, gen_call, overrides, _ in PATHS:
+        rec, idx, s, t = drive_route(route, spec, gen_call, overrides, "cuda")
+        indexes[path] = (idx, s, t)
+        queries[path] = {k: rec[k] for k in ("rounds", "query_ms",
+                                             "query_ms_median",
+                                             "query_ms_repeats")}
+    emit({"label_sweep": label_sweep(indexes), "queries": queries,
+          "src": str(src),
+          "uncovered_timings": UNCOVERED[0], "power_limit": dev["smi"]})
+    return 0
+
+
+def main(argv) -> int:
+    src = ROOT / "src"
+    if argv[:1] == ["--label-sweep"] and len(argv) == 2:
+        src = Path(argv[1]).resolve()
+    elif argv:
+        print("usage: chip_smoke.py [--label-sweep SRC]", file=sys.stderr)
+        return 2
+    if not (src / "repro_torch").is_dir():
+        print(f"chip_smoke: {src / 'repro_torch'} not found",
               file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(src))
+    if argv:
+        return sweep_main(src)
     from repro_torch.kernels.label_intersect import ops as li_ops
     from repro_torch.kernels.minplus_matmul import ops as mp_ops
     from repro_torch.kernels.spmv_relax import ops as sp_ops
@@ -931,7 +1127,7 @@ def main() -> int:
     for rec in kernels:
         rec["launches"] = counters[rec["name"]]
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0,
-          "power_limit": dev["smi"]})
+          "uncovered_timings": UNCOVERED[0], "power_limit": dev["smi"]})
     emit({"kernels": kernels})
     emit({"phase": "total", "seconds": time.perf_counter() - t_all})
     for line in dev["smi"]:
@@ -942,4 +1138,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

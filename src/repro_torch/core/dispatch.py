@@ -2,7 +2,9 @@
 ``repro.core.dispatch``).
 
   stage 1 — Equation 1 label intersection:
-      ``label_intersect_dispatch`` / ``label_intersect_rows_dispatch``
+      ``label_intersect_dispatch`` (gathered fp32 rows) /
+      ``label_intersect_planes_dispatch`` (endpoint ids; the kernels
+      read the rows in place from the label planes)
       -> ``kernels.label_intersect.ops``; delta16 rows go to the packed
       kernel, which decodes them in registers.
 
@@ -72,11 +74,12 @@ def label_intersect_dispatch(ids_s, d_s, ids_t, d_t, n_sentinel: int,
                                   backend=backend)
 
 
-def label_intersect_rows_dispatch(rows_s: LabelRows, rows_t: LabelRows,
-                                  n_sentinel: int, codec: str, backend: str):
-    """Equation 1 μ over gathered ``LabelRows`` in either codec."""
-    return li_ops.label_intersect_rows(rows_s, rows_t, n_sentinel, codec,
-                                       backend=backend)
+def label_intersect_planes_dispatch(planes: LabelRows, s, t, n_sentinel: int,
+                                    codec: str, backend: str):
+    """Equation 1 μ of the endpoint pairs (s[q], t[q]) over [n+1, L]
+    label planes in either codec, rows read in place."""
+    return li_ops.label_intersect_planes(planes, s, t, n_sentinel, codec,
+                                         backend=backend)
 
 
 def relax_rounds(step, state: tuple, max_rounds: int):

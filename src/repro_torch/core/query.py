@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.dispatch import (CoreRelaxer,
-                                       label_intersect_rows_dispatch)
+                                       label_intersect_planes_dispatch)
 from repro_torch.core.labels import (LabelRows, decode_rows, encode_labels,
                                      try_encode_labels)
 from repro_torch.core.sync import host_read, upload
@@ -68,7 +68,8 @@ class QueryEngine:
     ``LabelCompressionError`` if the planes don't fit; "auto" compresses
     when it can and keeps fp32 otherwise. The encoded planes live on the
     engine's device; stage 1 reads them through the packed kernel and
-    the stage-2 seeds decode them.
+    the stage-2 seeds decode them. Stage 1 reads label rows in place by
+    endpoint id in either codec; only the stage-2 seeds gather rows.
     """
 
     def __init__(self, lbl_ids, lbl_d, core_pos, core_local_edges, n: int,
@@ -115,6 +116,13 @@ class QueryEngine:
         return resolve_backend(self.backend if backend is None else backend,
                                self.device)
 
+    def _mu(self, s, t, backend: str):
+        """Stage 1 (Equation 1) of int32 endpoint ids on the index's
+        device: the kernel reads the label rows in place."""
+        return label_intersect_planes_dispatch(
+            LabelRows(self.enc_ids, self.enc_base, self.enc_d), s, t, self.n,
+            self.codec, backend)
+
     def _rows(self, idx) -> LabelRows:
         """Gather label rows for a vertex batch in the active codec."""
         idx = idx.long()
@@ -134,11 +142,10 @@ class QueryEngine:
     def _query_block(self, s, t, backend: str):
         """One block through both stages. Returns (ans, rounds) with
         rounds a device scalar (None when there is no core)."""
-        rows_s, rows_t = self._rows(s), self._rows(t)
-        mu = label_intersect_rows_dispatch(rows_s, rows_t, self.n,
-                                           self.codec, backend)
+        mu = self._mu(s, t, backend)
         if self.n_core == 0:
             return mu, None
+        rows_s, rows_t = self._rows(s), self._rows(t)
         ids_s, d_s = decode_rows(rows_s, self.n, self.codec)
         ids_t, d_t = decode_rows(rows_t, self.n, self.codec)
         ans, _, _, rounds = self.relaxer.run(
@@ -174,10 +181,8 @@ class QueryEngine:
 
     def query_mu_only(self, s, t, backend: str | None = None):
         """Equation-1-only answers (exact for §5.2 Type-1 queries)."""
-        s, t = self._index(s), self._index(t)
-        return label_intersect_rows_dispatch(self._rows(s), self._rows(t),
-                                             self.n, self.codec,
-                                             self._backend(backend))
+        return self._mu(self._index(s), self._index(t),
+                        self._backend(backend))
 
     def classify(self, s, t, level, k):
         """Paper Table 5 endpoint classes: 1 = both core, 2 = one core,
@@ -213,9 +218,7 @@ class QueryEngine:
         backend = self._backend(backend)
         if backend not in self._mu_batch_fns:
             def run(s, t):
-                return label_intersect_rows_dispatch(
-                    self._rows(self._index(s)), self._rows(self._index(t)),
-                    self.n, self.codec, backend)
+                return self._mu(self._index(s), self._index(t), backend)
             self._mu_batch_fns[backend] = run
         return self._mu_batch_fns[backend]
 

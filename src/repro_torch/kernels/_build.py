@@ -36,9 +36,10 @@ _I = ctypes.c_int
 # entry point -> argument types (pointers and the stream as c_void_p, so
 # ctypes does not cut them to 32 bits)
 SIGNATURES = {
-    "islabel_label_intersect": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "islabel_label_intersect_packed": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                       _I, _I, _P],
+    "islabel_label_intersect": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I,
+                                _I, _P],
+    "islabel_label_intersect_packed": [_P, _P, _P, _P, _I, _P, _P, _P, _P,
+                                       _I, _P, _I, _I, _I, _I, _P],
     "islabel_spmv_relax": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I,
                            _I, _P],
     "islabel_fused_relax": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -65,8 +66,9 @@ def sources() -> list[Path]:
 
 
 def source_hash() -> str:
+    """Key of the build: the flags, and every source and header."""
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -2,15 +2,20 @@
 
 ``label_intersect`` replaces
 ``repro/kernels/label_intersect/kernel.py:label_intersect_kernel``.
-Bound on Hopper: bytes (four [Q, L] label planes read once); the CUDA
-kernel takes one warp per query and binary-searches instead of the TPU's
-L^2 equality join (``csrc/label_intersect.cu``).
+Bound on Hopper at the serving batches: the latency of dependent loads;
+the CUDA kernel takes one warp per query and merges the two rows 32
+slots at a time instead of the TPU's L^2 equality join
+(``csrc/label_intersect.cu``, ``csrc/label_merge.cuh``).
 
 ``label_intersect_rows`` is the counterpart of ``repro``'s wrapper of
 the same name: codec ``"none"`` goes to ``label_intersect``, codec
 ``"delta16"`` to ``label_intersect_packed_kernel``, which decodes the
-compressed rows in registers and merges them
+compressed rows in registers and merges them with the same core
 (``csrc/label_intersect_packed.cu``).
+
+``label_intersect_planes`` is what the query engine calls: the same
+function of endpoint ids, each kernel reading the rows in place from the
+[n+1, L] label planes (no gathered [Q, L] copies).
 
 On a CUDA tensor the ``cuda`` backend launches the kernel, or raises;
 on a CPU tensor it runs the kernel's plain version (``ref.py``), which
@@ -62,4 +67,32 @@ def label_intersect_rows(rows_s, rows_t, n_sentinel: int,
         return ref.label_intersect_packed_ref(*args, n_sentinel)
     out = label_intersect_packed_kernel(*args, n_sentinel)
     LAUNCHES["label_intersect_packed_kernel"] += 1
+    return out
+
+
+def label_intersect_planes(planes, s, t, n_sentinel: int,
+                           codec: str = "none", *, backend=None):
+    """μ float32[Q] of the endpoint pairs (s[q], t[q]): the rows are read
+    in place from ``planes`` (``LabelRows`` of [R, L] planes in either
+    codec; base None for ``"none"``). The same function as
+    ``label_intersect_rows`` on the gathered rows."""
+    backend = resolve_backend(backend, planes.ids.device)
+    idx = tuple(x.to(planes.ids.device, torch.int32).contiguous()
+                for x in (s, t))
+    if codec == "none":
+        name, kernel, plain = ("label_intersect_kernel", label_intersect_kernel,
+                               ref.label_intersect_ref)
+        side = (planes.ids.to(torch.int32).contiguous(),
+                planes.d.to(torch.float32).contiguous())
+    elif codec == "delta16":
+        name, kernel, plain = ("label_intersect_packed_kernel",
+                               label_intersect_packed_kernel,
+                               ref.label_intersect_packed_ref)
+        side = tuple(x.contiguous() for x in planes)
+    else:
+        raise ValueError(f"unknown label codec {codec!r}")
+    if backend == "reference" or not planes.ids.is_cuda:
+        return plain(*side, *side, n_sentinel, *idx)
+    out = kernel(*side, *side, n_sentinel, *idx)
+    LAUNCHES[name] += 1
     return out

@@ -1,13 +1,26 @@
 """Plain PyTorch versions of the label-intersect kernels: μ via a per-row
 searchsorted merge (the same math as ``repro``'s jnp reference), and the
 packed variant over delta16 rows, decoded first with the torch decoders
-of ``core/labels.py``."""
+of ``core/labels.py``. Like the kernels, each takes optional row ids
+``idx_s`` / ``idx_t``: the rows are then gathered from the planes
+first, which is the same function."""
 import torch
 
 from repro_torch.core.labels import decode_d, decode_ids
 
 
-def label_intersect_ref(ids_s, d_s, ids_t, d_t, n_sentinel: int):
+def _gather(idx, *planes):
+    """Rows ``idx`` of each plane (all of them when ``idx`` is None)."""
+    if idx is None:
+        return planes
+    idx = idx.long()
+    return tuple(p[idx] for p in planes)
+
+
+def label_intersect_ref(ids_s, d_s, ids_t, d_t, n_sentinel: int,
+                        idx_s=None, idx_t=None):
+    ids_s, d_s = _gather(idx_s, ids_s, d_s)
+    ids_t, d_t = _gather(idx_t, ids_t, d_t)
     pos = torch.searchsorted(ids_t, ids_s)
     pos_c = pos.clamp(max=ids_t.shape[1] - 1)
     hit = (ids_t.gather(1, pos_c) == ids_s) & (ids_s < n_sentinel)
@@ -16,7 +29,9 @@ def label_intersect_ref(ids_s, d_s, ids_t, d_t, n_sentinel: int):
 
 
 def label_intersect_packed_ref(delta_s, base_s, d_s, delta_t, base_t, d_t,
-                               n_sentinel: int):
+                               n_sentinel: int, idx_s=None, idx_t=None):
+    delta_s, base_s, d_s = _gather(idx_s, delta_s, base_s, d_s)
+    delta_t, base_t, d_t = _gather(idx_t, delta_t, base_t, d_t)
     return label_intersect_ref(decode_ids(delta_s, base_s, n_sentinel),
                                decode_d(d_s),
                                decode_ids(delta_t, base_t, n_sentinel),

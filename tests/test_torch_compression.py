@@ -7,7 +7,8 @@
   CPU tensor) against ``repro``'s ``label_intersect_rows(...,
   codec="delta16")`` running the Pallas program (``backend="interpret"``)
   and the jnp reference, and against the fp32 intersect on the decoded
-  planes.
+  planes; likewise its indexed form, which reads rows by endpoint id
+  from the encoded planes.
 - A compressed engine against ``repro``'s compressed engine and the
   port's fp32 engine on every stage-2 route, and against Dijkstra; the
   ``"auto"`` fallbacks; compressed indexes saved by one package and
@@ -32,7 +33,9 @@ from repro.kernels.label_intersect.ops import \
 from repro_torch.core import ISLabelIndex, IndexConfig, QueryEngine, ref
 from repro_torch.core import labels
 from repro_torch.kernels.label_intersect.ops import (label_intersect,
+                                                     label_intersect_planes,
                                                      label_intersect_rows)
+from test_torch_kernels import label_endpoints, label_planes
 from test_torch_query import ROUTES, _pin
 
 Q = 48
@@ -170,6 +173,37 @@ def test_packed_plain_matches_repro(q, l, n, d_dtype):
         assert np.isfinite(fp32.numpy()).sum() > q // 2   # real matches
 
 
+@pytest.mark.parametrize("d_dtype", ["int32", "float32"])
+@pytest.mark.parametrize("l,dup", [(45, False), (70, True), (129, False)])
+def test_packed_planes_matches_repro(l, dup, d_dtype):
+    """The indexed form over encoded [n+1, L] planes (rows at and one
+    past the 32-slot chunks, duplicate ids, the all-pad row n, repeated
+    endpoints) against ``repro``'s packed intersect of the same rows
+    gathered in JAX, bitwise, and against the indexed fp32 form."""
+    n, q = 300, 48
+    ids, d = label_planes(l + 7, n, l, dup)
+    s, t = label_endpoints(l + 8, n, q)
+    enc = labels.encode_labels(ids, d, n, d_dtype)
+    assert enc[2].dtype == np.dtype(d_dtype)
+    planes = labels.LabelRows(*(torch.from_numpy(x) for x in enc))
+    got = {be: label_intersect_planes(planes, torch.from_numpy(s),
+                                      torch.from_numpy(t), n, "delta16",
+                                      backend=be)
+           for be in ("cuda", "reference")}
+    j_enc = [jnp.asarray(x) for x in enc]
+    j_rows = [jlabels.LabelRows(*(x[e] for x in j_enc)) for e in (s, t)]
+    for jb in ("interpret", "reference"):
+        want = torch.from_numpy(np.array(
+            j_intersect_rows(*j_rows, n, codec="delta16", backend=jb)))
+        for g in got.values():
+            assert torch.equal(g, want)
+    fp32 = label_intersect_planes(
+        labels.LabelRows(torch.from_numpy(ids), None, torch.from_numpy(d)),
+        torch.from_numpy(s), torch.from_numpy(t), n)
+    assert torch.equal(got["cuda"], fp32)
+    assert torch.isfinite(fp32).sum() > q // 2
+
+
 # ---------------------------------------------------------------- engine
 @pytest.fixture(scope="module")
 def indexes(tmp_path_factory):
@@ -241,6 +275,23 @@ def test_compressed_reference_backend_and_serving(indexes):
     _same(eng.mu_batch_fn("cuda")(s, t), fp32.mu_batch_fn("cuda")(s, t))
     assert sorted(eng.warmup([4], backend="cuda")) == [("full", 4),
                                                        ("mu", 4)]
+
+
+def test_mu_lanes_gather_no_rows(indexes, monkeypatch):
+    """``query_mu_only`` and ``mu_batch_fn`` read the label planes in
+    place in both codecs: with the row gather disabled they still equal
+    ``repro``'s μ-only answers."""
+    _, j_idx, t_idx, fp32, s, t, _ = indexes
+    want = j_idx.engine.query_mu_only(s, t, backend="interpret")
+
+    def no_gather(self, idx):
+        raise AssertionError("the mu-only lane gathered label rows")
+
+    monkeypatch.setattr(QueryEngine, "_rows", no_gather)
+    for eng in (t_idx.engine, fp32):
+        for backend in ("cuda", "reference"):
+            _same(eng.query_mu_only(s, t, backend=backend), want)
+            _same(eng.mu_batch_fn(backend)(s, t), want)
 
 
 def test_auto_fallback_modes(indexes):

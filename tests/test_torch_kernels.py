@@ -23,7 +23,9 @@ from repro.graphs import generators as jgen
 from repro.kernels.spmv_relax.ops import spmv_relax as j_spmv
 from repro_torch.graphs import csr as tcsr
 from repro_torch.graphs import segment_ops as tsops
-from repro_torch.kernels.label_intersect.ops import label_intersect
+from repro_torch.core.labels import LabelRows
+from repro_torch.kernels.label_intersect.ops import (label_intersect,
+                                                     label_intersect_planes)
 from repro_torch.kernels.minplus_matmul.ops import minplus_matmul
 from repro_torch.core.dispatch import (CoreRelaxer, relax_csr_rounds,
                                        seed_vertex_major)
@@ -76,6 +78,72 @@ def test_label_intersect_plain_matches_repro(q, l, n_sent):
         for g in got.values():
             _same(g, want)
     assert np.isinf(got["cuda"].numpy()[0])     # empty s row: no match
+
+
+# ---------------------------------- label intersect, rows read in place
+# real entries of the first rows: empty, and on both sides of the CUDA
+# merge's 32-slot chunks
+EDGE_COUNTS = (0, 1, 31, 32, 33, 63, 64, 65)
+
+
+def label_planes(seed, n, l, dup=False):
+    """[n+1, L] id-sorted label planes of n vertices (pad id n, pad
+    distance +inf): rows 0..7 hold EDGE_COUNTS real entries (cut to L),
+    the rest random counts; row n is all pad. With ``dup`` every third
+    row draws its ids with repeats; the repeats of an id carry
+    non-decreasing distances, so ``repro``'s equality join (every pair)
+    and the searchsorted reference (the first match) agree."""
+    rng = np.random.default_rng(seed)
+    ids = np.full((n + 1, l), n, np.int32)
+    d = np.full((n + 1, l), np.inf, np.float32)
+    for v in range(n):
+        k = min(l, EDGE_COUNTS[v] if v < len(EDGE_COUNTS)
+                else int(rng.integers(0, l + 1)))
+        row = rng.choice(n, k, replace=dup and v % 3 == 0)
+        dist = rng.integers(0, 90, k)
+        order = np.lexsort((dist, row))
+        ids[v, :k], d[v, :k] = row[order], dist[order]
+    return ids, d
+
+
+def label_endpoints(seed, n, q):
+    """int32[q] endpoint pairs: the EDGE_COUNTS rows against each other
+    and themselves, repeated endpoints, and the all-pad row n on either
+    side and both."""
+    rng = np.random.default_rng(seed)
+    s = rng.integers(0, n + 1, q).astype(np.int32)
+    t = rng.integers(0, n + 1, q).astype(np.int32)
+    k = len(EDGE_COUNTS)
+    s[:2 * k] = np.tile(np.arange(k), 2)
+    t[:2 * k] = np.concatenate([np.arange(k), np.roll(np.arange(k), 1)])
+    s[2 * k:2 * k + 4] = s[2 * k + 4]                   # repeated
+    s[-3:-1], t[-2:] = n, n
+    return s, t
+
+
+@pytest.mark.parametrize("l,dup", [(45, False), (64, False), (70, True),
+                                   (129, True)])
+def test_label_intersect_planes_matches_repro(l, dup):
+    """The indexed form (endpoint ids into [n+1, L] planes; L off the
+    32-slot chunks but for 64) against ``repro``'s intersect of the same
+    rows gathered in JAX, bitwise; the 'cuda' backend on CPU tensors
+    runs the plain version."""
+    n, q = 300, 48
+    ids, d = label_planes(l, n, l, dup)
+    s, t = label_endpoints(l + 1, n, q)
+    planes = LabelRows(torch.from_numpy(ids), None, torch.from_numpy(d))
+    got = {be: label_intersect_planes(planes, torch.from_numpy(s),
+                                      torch.from_numpy(t), n, backend=be)
+           for be in ("cuda", "reference")}
+    j_ids, j_d = jnp.asarray(ids), jnp.asarray(d)
+    for jb in J_BACKENDS:
+        want = torch.from_numpy(np.array(j_intersect(
+            j_ids[s], j_d[s], j_ids[t], j_d[t], n, backend=jb)))
+        for g in got.values():
+            assert torch.equal(g, want)
+    mu = got["cuda"]
+    assert torch.isinf(mu[torch.from_numpy((s == n) | (t == n))]).all()
+    assert torch.isinf(mu[0]) and torch.isfinite(mu).sum() > q // 2
 
 
 # ------------------------------------------------------------ ELL relax
