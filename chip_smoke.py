@@ -12,7 +12,8 @@ Phases, one JSON line each (with its seconds):
    on small random inputs at ragged shapes; the label kernels both on
    gathered rows and reading rows in place by endpoint id (rows ending
    on and one past a 32-slot chunk, duplicate ids, the all-pad row,
-   repeated endpoints, int32 and float32 distance planes).
+   repeated endpoints, endpoint ids n, n+3, -1, -2 and -(n+5), int32
+   and float32 distance planes).
 3. main path, one real build per path, with the launch counters set to
    0 before each path and read after it; each path must launch exactly
    its own kernels:
@@ -27,10 +28,20 @@ Phases, one JSON line each (with its seconds):
      stage 1 runs the packed kernel and stage 2 the ``ell_loop`` route.
    Builds and queries run under ``torch.cuda.set_sync_debug_mode
    ("error")``: any device sync outside ``host_read`` raises.
-4. builders — ``er:10000:2.2@1`` built with ``builder="host"`` and
+4. paths_<path> — the path lane (§8.1, ``path_batch_fn(256)``) on each
+   main path's index and 1024 pairs, launch counters zeroed around it:
+   it must launch exactly the route's stage-2 kernel, give the query's
+   distances bitwise and its round count, and every path must pass
+   ``check_path_batch`` against the generated edges; on ``fused`` and
+   ``dense`` the host oracle ``shortest_path`` is checked on 8 pairs.
+5. mutation — §8.3 on a hold-out build of ``er:10000:2.2@1``: insert
+   the held-out vertex (its distances equal to Dijkstra's on the full
+   graph, its paths checked), then delete it (answers restored, the
+   conservative rule); insert and delete ms over three cycles.
+6. builders — ``er:10000:2.2@1`` built with ``builder="host"`` and
    ``builder="device"`` from one seed must give the same hierarchy and
    labels, bitwise; then whether the 10^6 graph's labels fit delta16.
-5. kernels  — each kernel on the card against its plain PyTorch version
+7. kernels  — each kernel on the card against its plain PyTorch version
    (``torch.equal``) on the inputs the main path gave it, with
    CUDA-event times and the bound of the same work. The label kernels
    also run at ``repro``'s serving batches (Q = 64, 256, 1024) beside
@@ -111,6 +122,20 @@ PATHS = [
 ]
 BUILDER_GRAPH = ("er:10000:2.2@1", ("er_graph", (10_000, 2.2), 1),
                  dict(l_cap=64, label_chunk=4096))
+# the path lane on each main path's index: the kernel its stage 2
+# launches (its μ and meet come from the plain label intersection)
+PATH_LANE_KERNELS = {"ell_loop": {"spmv_relax_kernel"},
+                     "fused": {"fused_relax_kernel"},
+                     "dense": {"minplus_matmul_kernel"},
+                     "compressed": {"spmv_relax_kernel"}}
+PATH_HOP_CAP = 256       # repro's DEFAULT_HOP_CAP
+PATH_REPEATS = 5         # timed path batches after the first two
+ORACLE_PATHS = ("fused", "dense")   # host path oracle checked on 8 pairs
+# §8.3 on a hold-out build of the fused path's graph; insert and delete
+# through the index's entry points, queries and paths on the fused route
+MUTATION_GRAPH = BUILDER_GRAPH
+MUTATION_CYCLES = 3      # timed insert/delete pairs
+MUTATION_KERNELS = {"label_intersect_kernel", "fused_relax_kernel"}
 
 
 def emit(obj) -> None:
@@ -215,8 +240,9 @@ def phase_build() -> dict:
 
 def drive_route(route, spec, gen_call, overrides, device):
     """Build and query one graph on the card; returns (record, index,
-    s, t) and checks answers against Dijkstra (and, for a compressed
-    index, that the codec is delta16 with an int32 distance plane)."""
+    s, t, graph) and checks answers against Dijkstra (and, for a
+    compressed index, that the codec is delta16 with an int32 distance
+    plane). ``graph`` is the generated (n, src, dst, w)."""
     import numpy as np
     import torch
     from repro_torch.core import ISLabelIndex, IndexConfig, ref, sync
@@ -292,7 +318,7 @@ def drive_route(route, spec, gen_call, overrides, device):
         rec["label_plane_bytes_encoded"] = encoded_nbytes(
             eng.enc_ids, eng.enc_base, eng.enc_d)
         rec["enc_d_dtype"] = str(eng.enc_d.dtype)
-    return rec, idx, s, t
+    return rec, idx, s, t, (n, src, dst, w)
 
 
 def phase_builders(fp32_1e6) -> dict:
@@ -343,6 +369,221 @@ def phase_builders(fp32_1e6) -> dict:
     except LabelCompressionError as err:
         rec["delta16_fits_1e6"] = {"fits": False, "reason": str(err)}
     return rec
+
+
+def zero(tables) -> None:
+    for tab in tables:
+        for key in tab:
+            tab[key] = 0
+
+
+def launches_of(tables) -> dict:
+    return {k: v for tab in tables for k, v in tab.items()}
+
+
+def check_launches(what, launches, kernels) -> None:
+    launched = {k for k, v in launches.items() if v}
+    if launched != kernels:
+        fail(f"{what} launched {sorted(launched)}, expected "
+             f"{sorted(kernels)}")
+
+
+def host_batch(out):
+    """A ``PathBatch`` of numpy arrays (one blocking read)."""
+    from repro_torch.core.sync import host_read
+    return type(out)(*host_read(tuple(out)))
+
+
+def phase_paths(path, idx, s, t, graph, tables) -> dict:
+    """The path lane on one main path's index: ``path_batch_fn(256)`` on
+    the path's 1024 pairs (two calls, then ``PATH_REPEATS`` timed ones,
+    each ending on the blocking read of the batch), under sync debug
+    mode "error", with the launch counters zeroed around it. ``dist``
+    must equal the query's answers bitwise and ``rounds`` the query's
+    count; every path must pass ``check_path_batch`` against the
+    generated edge list (after escalating ``hop_cap`` as ``paths()``
+    does, where one overflowed); on ``ORACLE_PATHS`` the host oracle
+    ``shortest_path`` must give the query's distance and a valid path on
+    8 pairs."""
+    import numpy as np
+    import torch
+    from repro_torch.core import sync
+    from repro_torch.paths import (check_path_batch, check_vertex_path,
+                                   edge_weight_map)
+    zero(tables)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        eng = idx.path_engine()
+        engine_ms = (time.perf_counter() - t0) * 1e3
+        fn = eng.path_batch_fn(PATH_HOP_CAP)
+        times, syncs = [], []
+        for _ in range(2):
+            with sync.sync_span() as span:
+                t1 = time.perf_counter()
+                batch = host_batch(fn(s, t))
+                times.append((time.perf_counter() - t1) * 1e3)
+            syncs.append(span.count)
+        repeats = []
+        for _ in range(PATH_REPEATS):
+            t1 = time.perf_counter()
+            host_batch(fn(s, t))
+            repeats.append((time.perf_counter() - t1) * 1e3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    launches = launches_of(tables)
+    check_launches(f"path lane on {path}", launches, PATH_LANE_KERNELS[path])
+    peak = torch.cuda.max_memory_allocated()
+    want = sync.host_read(idx.query(s, t))
+    if not np.array_equal(batch.dist, want):
+        fail(f"{path}: path-lane distances differ from the query's")
+    if int(batch.rounds) != idx.engine._last_rounds:
+        fail(f"{path}: path lane ran {int(batch.rounds)} rounds, the query "
+             f"{idx.engine._last_rounds}")
+    n, src, dst, w = graph
+    edges = edge_weight_map(src, dst, w)
+    hc, escalations, checked = PATH_HOP_CAP, 0, batch
+    overflowed = int((~batch.ok).sum())
+    while not checked.ok.all() and escalations < 4:
+        hc, escalations = 2 * hc, escalations + 1
+        checked = host_batch(eng.path_batch_fn(hc)(s, t))
+    rep = check_path_batch(edges, s, t, checked)
+    if rep["violations"] or rep["overflowed"]:
+        fail(f"{path}: path check failed at hop_cap {hc}: "
+             f"{rep['overflowed']} overflowed, {rep['violations'][:3]}")
+    rec = {"hop_cap": PATH_HOP_CAP, "queries": len(s),
+           "path_ms_first": times[0], "path_ms": times[1],
+           "path_ms_median": statistics.median(repeats),
+           "path_ms_repeats": repeats, "path_syncs": syncs[1],
+           "engine_ms": engine_ms, "rounds": int(batch.rounds),
+           "overflowed": overflowed, "escalations": escalations,
+           "lens_max": int(checked.lens.max()),
+           "lens_mean": float(checked.lens[checked.lens > 0].mean()),
+           "reachable": int(np.isfinite(batch.dist).sum()),
+           "checked": rep["checked"], "launches": launches,
+           "chase_width": int(eng.ell_ids.shape[1]),
+           "peak_device_bytes_path": peak}
+    if path in ORACLE_PATHS:
+        for i in range(8):
+            d, p = idx.shortest_path(int(s[i]), int(t[i]))
+            bad = check_vertex_path(edges, int(s[i]), int(t[i]), d, p)
+            if np.float32(d) != want[i] or bad:
+                fail(f"{path}: shortest_path({s[i]}, {t[i]}) gave {d} "
+                     f"(query {want[i]}) {bad[:2]}")
+        rec["oracle_pairs"] = 8
+    return rec
+
+
+def phase_mutation(tables, device="cuda") -> dict:
+    """§8.3 on a hold-out build of ``MUTATION_GRAPH``: u is the last
+    vertex of degree 2–6 in the graph's largest component; the index is
+    built without u's edges. Then ``MUTATION_CYCLES`` times
+    ``insert_vertex(u, ...)`` and ``delete_vertex(u)``, each timed on
+    the host clock (the engine rebuild included), under sync debug mode
+    "error". After the first insert, u's distances to every vertex are
+    never shorter than Dijkstra's on the full graph and finite only
+    where u reaches (the lazy insert is exact where u attaches to the
+    core, and otherwise reaches only its neighbours' descendants), and
+    u's paths to 1024 vertices and to every vertex it reaches pass
+    ``check_path_batch`` against the full graph's edges with ``dist``
+    equal to the query's (paths through an entry pushed into a non-core
+    neighbour come back ``ok=False``, as in the JAX package, and are
+    counted). After the last delete (the exact
+    inverse of the insert), answers on 1024 pairs equal the hold-out
+    index's before the first insert, and on 256 of them are never
+    shorter than Dijkstra's without u (the rule of
+    ``tests/test_paths_updates.py::test_delete_vertex``)."""
+    import numpy as np
+    import torch
+    from scipy.sparse.csgraph import connected_components
+    from repro_torch.core import ISLabelIndex, IndexConfig, ref, sync
+    from repro_torch.graphs import generators as gen
+    from repro_torch.paths import check_path_batch, edge_weight_map
+
+    spec, (fn, args, seed), overrides = MUTATION_GRAPH
+    n, src, dst, w = getattr(gen, fn)(*args, seed=seed)
+    deg = np.bincount(src, minlength=n)
+    _, comp = connected_components(ref.build_csr(n, src, dst, w))
+    giant = comp == np.bincount(comp).argmax()
+    rng = np.random.default_rng(0)
+    s = rng.integers(0, n, MAIN_QUERIES).astype(np.int32)
+    t = rng.integers(0, n, MAIN_QUERIES).astype(np.int32)
+    u = int(np.flatnonzero(giant & (deg >= 2) & (deg <= 6))[-1])
+    keep = (src != u) & (dst != u)
+    nbrs, ws = dst[src == u].tolist(), w[src == u].tolist()
+    zero(tables)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        idx = ISLabelIndex.build(n, src[keep], dst[keep], w[keep],
+                                 IndexConfig(**overrides), device=device)
+        level_u = int(idx.level[u])
+        nbrs_core = int((idx.level[nbrs] == idx.k).sum())
+        before = sync.host_read(idx.query(s, t))
+        insert_ms, delete_ms = [], []
+        for cycle in range(MUTATION_CYCLES):
+            t0 = time.perf_counter()
+            touched = idx.insert_vertex(u, nbrs, ws)
+            insert_ms.append((time.perf_counter() - t0) * 1e3)
+            if cycle == 0:
+                touched_ins = touched
+                row = sync.host_read(idx.query(np.full(n, u, np.int32),
+                                               np.arange(n, dtype=np.int32)))
+                # 1024 random targets, then every vertex u reaches
+                ends = np.concatenate([t, np.flatnonzero(np.isfinite(row))])
+                ends = ends.astype(np.int32)
+                us = np.full(len(ends), u, np.int32)
+                batch = host_batch(
+                    idx.path_engine().path_batch_fn(PATH_HOP_CAP)(us, ends))
+            t0 = time.perf_counter()
+            touched_del = idx.delete_vertex(u)
+            delete_ms.append((time.perf_counter() - t0) * 1e3)
+        after = sync.host_read(idx.query(s, t))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    launches = launches_of(tables)
+    check_launches("mutation", launches, MUTATION_KERNELS)
+    full = ref.dijkstra_oracle(n, src, dst, w, [u])[0].astype(np.float32)
+    fin = np.isfinite(row)
+    if not (np.isfinite(full[fin]).all() and (row[fin] >= full[fin]).all()):
+        fail(f"{spec}: after inserting {u} a distance is shorter than "
+             f"Dijkstra's, or finite where {u} does not reach")
+    if not np.array_equal(batch.dist, row[ends]):
+        fail(f"{spec}: paths of {u} differ in distance from its queries")
+    # a path through an entry the insert pushed into a non-core
+    # neighbour v cannot be chased (its pred is v itself, as in the JAX
+    # package): ok drops there, and only there may a path be missing
+    rep = check_path_batch(edge_weight_map(src, dst, w), us, ends, batch)
+    if rep["violations"]:
+        fail(f"{spec}: paths of {u}: {rep['violations'][:3]}")
+    if not np.array_equal(after, before):
+        fail(f"{spec}: deleting {u} did not restore the answers")
+    m = 256
+    mask = (s[:m] != u) & (t[:m] != u)
+    want = ref.dijkstra_oracle(n, src[keep], dst[keep], w[keep], s[:m][mask])[
+        np.arange(mask.sum()), t[:m][mask]].astype(np.float32)
+    got = after[:m][mask]
+    ok = np.isfinite(got)
+    cover = ok & np.isfinite(want)
+    if not ((got[ok] >= want[ok]).all()
+            and (got[cover] == want[cover]).mean() > 0.8):
+        fail(f"{spec}: answers after deleting {u} break the conservative "
+             f"rule")
+    return {"graph": spec, "n": n, "u": u, "degree": int(deg[u]),
+            "neighbours_in_core": nbrs_core, "level_before": level_u,
+            "k": idx.k,
+            "insert_ms": insert_ms, "delete_ms": delete_ms,
+            "insert_ms_median": statistics.median(insert_ms),
+            "delete_ms_median": statistics.median(delete_ms),
+            "touched_insert": len(touched_ins),
+            "touched_delete": len(touched_del),
+            "row_reachable": int(fin.sum()),
+            "dijkstra_reachable": int(np.isfinite(full).sum()),
+            "row_exact": int((row[fin] == full[fin]).sum()),
+            "paths_checked": rep["checked"], "paths_not_ok": rep["overflowed"],
+            "paths_reachable": int(np.isfinite(batch.dist).sum()),
+            "delete_exact_share": float((got[cover] == want[cover]).mean()),
+            "launches": launches}
 
 
 def label_seeds(idx, s, t):
@@ -519,8 +760,9 @@ def phase_ragged(dev="cuda") -> dict:
         ``dup`` every third row has repeated ids (any distances); row n
         all pad. Endpoints (the last Q of): those rows against each other
         and themselves, repeated ids, random ids, and n on either side and
-        both. ``d_dtype`` encodes
-        the planes as delta16 with that distance plane."""
+        both; then the in-place case again with ids n, n+3, -1, -2 and
+        -(n+5) among the endpoints. ``d_dtype`` encodes the planes as
+        delta16 with that distance plane."""
         counts = (0, 1, 31, 32, 33, 63, 64, 65, 96, 97)
         ids = np.full((n + 1, l), n, np.int64)
         d = np.full((n + 1, l), inf)
@@ -543,7 +785,14 @@ def phase_ragged(dev="cuda") -> dict:
         s, t = (torch.from_numpy(x[-q:].astype(np.int32)).to(dev)
                 for x in (s, t))
         gathered = [p[e.long()] for e in (s, t) for p in planes]
-        return [(*planes, *planes, n, s, t), (*gathered, n)]
+        # endpoint ids n, n+3, -1, -2 and -(n+5) on either side and both:
+        # rows as the JAX package gathers them (row_index)
+        odd = torch.tensor([n, n + 3, -1, -2, -(n + 5)], dtype=torch.int32,
+                           device=dev)[torch.arange(q, device=dev) % 5]
+        s_odd, t_odd = s.clone(), t.clone()
+        s_odd[::3], t_odd[1::3] = odd[::3], odd.flip(0)[1::3]
+        return [(*planes, *planes, n, s, t), (*gathered, n),
+                (*planes, *planes, n, s_odd, t_odd)]
 
     def fused_cases(q, v, deg, max_rounds):
         """fused_relax operands, one case per variant that takes ``v``
@@ -659,20 +908,6 @@ def phase_ragged(dev="cuda") -> dict:
     for name, args_list in cases.items():
         for args in args_list:
             compare(name, args)
-    if dev == "cuda":
-        # endpoint ids outside the planes give NaN, and only there (the
-        # plain versions raise)
-        for name in ("label_intersect_kernel", "label_intersect_packed_kernel"):
-            *planes, s, t = cases[name][-2]
-            rows = planes[0].shape[0]
-            bad_s, bad_t = s.clone(), t.clone()
-            bad_s[::5], bad_t[1::7] = rows, -1
-            kernel, plain = _fns()[name]
-            mu = kernel(*planes, bad_s, bad_t)
-            bad = (bad_s == rows) | (bad_t < 0)
-            if not (torch.isnan(mu[bad]).all() and torch.equal(
-                    mu[~bad], plain(*planes, s, t)[~bad])):
-                fail(f"{name}: endpoint ids outside the planes")
     return {name: len(v) for name, v in cases.items()}
 
 
@@ -1055,7 +1290,8 @@ def sweep_main(src: Path) -> int:
     emit({"phase": "build", **phase_build()})
     indexes, queries = {}, {}
     for path, route, spec, gen_call, overrides, _ in PATHS:
-        rec, idx, s, t = drive_route(route, spec, gen_call, overrides, "cuda")
+        rec, idx, s, t, _ = drive_route(route, spec, gen_call, overrides,
+                                        "cuda")
         indexes[path] = (idx, s, t)
         queries[path] = {k: rec[k] for k in ("rounds", "query_ms",
                                              "query_ms_median",
@@ -1099,24 +1335,34 @@ def main(argv) -> int:
 
     tables = (li_ops.LAUNCHES, sp_ops.LAUNCHES, mp_ops.LAUNCHES)
     counters = {k: 0 for tab in tables for k in tab}
-    indexes = {}
+    indexes, graphs = {}, {}
     for path, route, spec, gen_call, overrides, kernels in PATHS:
-        for tab in tables:        # each path starts from zero
-            for key in tab:
-                tab[key] = 0
+        zero(tables)              # each path starts from zero
         t0 = time.perf_counter()
-        rec, idx, s, t = drive_route(route, spec, gen_call, overrides, "cuda")
-        launches = {k: v for tab in tables for k, v in tab.items()}
+        rec, idx, s, t, graphs[path] = drive_route(route, spec, gen_call,
+                                                   overrides, "cuda")
+        launches = launches_of(tables)
         rec["launches"] = launches
         emit({"phase": f"route_{path}", "seconds": time.perf_counter() - t0,
               **rec})
-        launched = {k for k, v in launches.items() if v}
-        if launched != kernels:
-            fail(f"path {path} launched {sorted(launched)}, expected "
-                 f"{sorted(kernels)}")
+        check_launches(f"path {path}", launches, kernels)
         for k, v in launches.items():
             counters[k] += v
         indexes[path] = (idx, s, t)
+
+    # the path lane (§8.1) on each path's index, then §8.3 mutation
+    for path, *_ in PATHS:
+        t0 = time.perf_counter()
+        rec = phase_paths(path, *indexes[path], graphs.pop(path), tables)
+        emit({"phase": f"paths_{path}", "seconds": time.perf_counter() - t0,
+              **rec})
+        for k, v in rec["launches"].items():
+            counters[k] += v
+    t0 = time.perf_counter()
+    rec = phase_mutation(tables)
+    emit({"phase": "mutation", "seconds": time.perf_counter() - t0, **rec})
+    for k, v in rec["launches"].items():
+        counters[k] += v
 
     t0 = time.perf_counter()
     emit({"phase": "builders", **phase_builders(indexes["ell_loop"][0]),

@@ -28,10 +28,11 @@ Every route computes the same synchronous (Jacobi) rounds, so answers
 and round counts agree bitwise with ``repro``.
 
 JAX ran the round loops as device ``while_loop``s. Here the loop is on
-the host and the exit test stays on the device: a round run after the
-fixed point is an exact no-op and is not counted, so ``rounds`` equals
-JAX's count, and the host reads the "improved" flag (``host_read``)
-once every ``CHECK_EVERY`` rounds instead of once per round. The
+the host and the exit test stays on the device (``device_loop``, which
+the path lane's chases share): a round run after the fixed point is an
+exact no-op and is not counted, so ``rounds`` equals JAX's count, and
+the host reads the "improved" flag (``host_read``) once every
+``CHECK_EVERY`` rounds instead of once per round. The
 ``ell_loop`` kernel writes that flag itself, and a launch after a
 round that improved nothing returns at once.
 
@@ -82,6 +83,23 @@ def label_intersect_planes_dispatch(planes: LabelRows, s, t, n_sentinel: int,
                                          backend=backend)
 
 
+def device_loop(step, state, steps: int, active):
+    """A JAX ``while_loop`` as a host loop whose test stays on the
+    device: run ``step(state, i)`` for i = 0, 1, ... up to ``steps``
+    times, stopping after the first multiple of ``CHECK_EVERY`` steps at
+    which ``active(state)`` (a device bool tensor) holds nowhere — one
+    ``host_read`` per ``CHECK_EVERY`` steps. ``step`` must leave a state
+    that is inactive everywhere unchanged."""
+    i = 0
+    while i < steps:
+        for _ in range(min(CHECK_EVERY, steps - i)):
+            state = step(state, i)
+            i += 1
+        if i < steps and not host_read(active(state).any()):
+            break
+    return state
+
+
 def relax_rounds(step, state: tuple, max_rounds: int):
     """Apply ``step`` (state -> state) until no tensor of the state
     improves, or ``max_rounds``. Returns (state, rounds int32 tensor).
@@ -89,22 +107,20 @@ def relax_rounds(step, state: tuple, max_rounds: int):
     ``improved`` is the flag JAX's ``while_loop`` tested; a round it
     does not cover leaves the state unchanged and is not counted."""
     dev = state[0].device
-    improved = torch.ones((), dtype=torch.bool, device=dev)
-    rounds = torch.zeros((), dtype=torch.int32, device=dev)
-    done = 0
-    while done < max_rounds:
-        for _ in range(min(CHECK_EVERY, max_rounds - done)):
-            new = step(*state)
-            rounds += improved
-            better = torch.zeros((), dtype=torch.bool, device=dev)
-            for a, b in zip(new, state):
-                better |= (a < b).any()
-            improved &= better
-            state = new
-            done += 1
-        if not host_read(improved):
-            break
-    return state, rounds
+
+    def round_(st, _):
+        *cur, rounds, improved = st
+        new = step(*cur)
+        better = torch.zeros((), dtype=torch.bool, device=dev)
+        for a, b in zip(new, cur):
+            better |= (a < b).any()
+        return (*new, rounds + improved, improved & better)
+
+    *state, rounds, _ = device_loop(
+        round_, (*state, torch.zeros((), dtype=torch.int32, device=dev),
+                 torch.ones((), dtype=torch.bool, device=dev)),
+        max_rounds, lambda st: st[-1])
+    return tuple(state), rounds
 
 
 def core_relax(seed_s, seed_t, ce_src, ce_dst, ce_w, mu, n_core: int,

@@ -32,7 +32,7 @@ import torch
 __all__ = [
     "LabelRows", "LabelCompressionError", "encode_labels",
     "try_encode_labels", "decode_ids", "decode_d", "decode_rows",
-    "encoded_nbytes",
+    "encoded_nbytes", "row_index",
 ]
 
 DELTA_MAX = np.int64(2 ** 15 - 1)     # int16 ceiling for a real delta
@@ -56,6 +56,16 @@ class LabelRows(NamedTuple):
     ids: torch.Tensor
     base: torch.Tensor | None
     d: torch.Tensor
+
+
+def row_index(idx, rows: int) -> torch.Tensor:
+    """Row ids of [rows, ...] planes for torch indexing, read as
+    ``repro`` reads them (jnp's gather rule: a negative id counts from
+    the end, then ids are clamped to [0, rows - 1]). The ids are clamped
+    to [-rows, rows - 1] and indexing wraps the negative ones, so ids
+    below -rows read row 0. Keeps the dtype (one launch). The label
+    kernels repeat the rule in ``csrc/label_merge.cuh``."""
+    return idx.clamp(-rows, rows - 1)
 
 
 # --------------------------------------------------------------- encode

@@ -27,7 +27,7 @@ import torch
 from repro_torch.core.dispatch import (CoreRelaxer,
                                        label_intersect_planes_dispatch)
 from repro_torch.core.labels import (LabelRows, decode_rows, encode_labels,
-                                     try_encode_labels)
+                                     row_index, try_encode_labels)
 from repro_torch.core.sync import host_read, upload
 from repro_torch.kernels.backend import resolve_backend
 
@@ -124,8 +124,9 @@ class QueryEngine:
             self.codec, backend)
 
     def _rows(self, idx) -> LabelRows:
-        """Gather label rows for a vertex batch in the active codec."""
-        idx = idx.long()
+        """Gather label rows for a vertex batch in the active codec (ids
+        mapped as ``repro`` maps them, ``row_index``)."""
+        idx = row_index(idx, self.lbl_ids.shape[0])
         if self.codec == "none":
             return LabelRows(self.lbl_ids[idx], None, self.lbl_d[idx])
         return LabelRows(self.enc_ids[idx], self.enc_base[idx],

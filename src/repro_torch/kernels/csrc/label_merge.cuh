@@ -8,9 +8,9 @@
 // One warp takes one query and reads each row in place from its label
 // planes: the row of side s is planes_s[idx_s[q]] (idx_s a vector of
 // endpoint ids), or planes_s[q] when idx_s is null (rows gathered
-// before the call). Row offsets are size_t. A row id outside the planes
-// reads nothing and gives mu[q] = NaN (a device assert there slowed
-// every launch).
+// before the call). Row offsets are size_t. A row id maps as the JAX
+// package gathers rows (plane_row): a negative id counts from the end,
+// then the id is clamped into the planes, so any id reads a real row.
 //
 //   - a row is read 32 slots at a time, one coalesced load a chunk; the
 //     decoder turns it into 32 sorted ids, pads (ids >= n_sentinel) at
@@ -165,6 +165,14 @@ __device__ __forceinline__ void advance(Row& r, int lane) {
   r.decode(lane);
 }
 
+// jnp's gather rule for a row id of [rows, L] planes: id < 0 counts
+// from the end, then the id is clamped to [0, rows - 1]
+// (core/labels.py:row_index is the same rule in torch)
+__device__ __forceinline__ int plane_row(int id, int rows) {
+  if (id < 0) id += rows;
+  return min(max(id, 0), rows - 1);
+}
+
 template <class Row, typename D>
 __global__ void __launch_bounds__(kMergeThreads)
 label_merge(typename Row::Plane plane_s, const D* __restrict__ d_s,
@@ -175,12 +183,8 @@ label_merge(typename Row::Plane plane_s, const D* __restrict__ d_s,
   const int query = blockIdx.x * kMergeWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (query >= q) return;  // the whole warp leaves together
-  const int row_s = idx_s ? idx_s[query] : query;
-  const int row_t = idx_t ? idx_t[query] : query;
-  if (row_s < 0 || row_s >= rows_s || row_t < 0 || row_t >= rows_t) {
-    if (lane == 0) mu[query] = NAN;  // no such row: flag it, read nothing
-    return;
-  }
+  const int row_s = idx_s ? plane_row(idx_s[query], rows_s) : query;
+  const int row_t = idx_t ? plane_row(idx_t[query], rows_t) : query;
   const size_t off_s = static_cast<size_t>(row_s) * l;
   const size_t off_t = static_cast<size_t>(row_t) * l;
   Row s, t;

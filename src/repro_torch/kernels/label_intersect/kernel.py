@@ -7,8 +7,9 @@ files). They replace the Pallas ``label_intersect_kernel`` and
 
 Both read label rows in place: side s of query q is row ``idx_s[q]`` of
 its planes, or row q when ``idx_s`` is None (rows gathered before the
-call, the TPU kernels' signature). A row id outside [0, R) gives
-mu[q] = NaN; the plain versions raise ``IndexError`` there."""
+call, the TPU kernels' signature). Row ids map as ``repro`` reads its
+planes (``core/labels.py:row_index``): a negative id counts from the
+end, then ids are clamped to [0, R)."""
 from __future__ import annotations
 
 import torch
@@ -46,9 +47,9 @@ def _sides(planes_s, idx_s, planes_t, idx_t) -> tuple[int, int, int]:
 def label_intersect_kernel(ids_s, d_s, ids_t, d_t, n_sentinel: int,
                            idx_s=None, idx_t=None):
     """ids_*: int32[R, L] sorted ancestor ids (pad = n_sentinel); d_*:
-    float32[R, L]; idx_*: int32[Q] row ids (each in [0, R)), or None for
-    R = Q gathered rows. All contiguous on one CUDA device; any Q and L.
-    Returns mu float32[Q]."""
+    float32[R, L]; idx_*: int32[Q] row ids (mapped by ``row_index``),
+    or None for R = Q gathered rows. All contiguous on one CUDA device;
+    any Q and L. Returns mu float32[Q]."""
     q, rows_s, rows_t = _sides(
         [("ids_s", ids_s, torch.int32, 2), ("d_s", d_s, torch.float32, 2)],
         idx_s,
@@ -65,9 +66,9 @@ def label_intersect_packed_kernel(delta_s, base_s, d_s, delta_t, base_t, d_t,
                                   n_sentinel: int, idx_s=None, idx_t=None):
     """delta_*: int16[R, L] (-1 marks the first pad slot); base_*:
     int32[R]; d_*: int32[R, L] (-1 = +inf) or float32[R, L], one dtype
-    for both sides; idx_*: int32[Q] row ids (each in [0, R)), or None for
-    R = Q gathered rows. All contiguous on one CUDA device; any Q and L.
-    Returns mu float32[Q]."""
+    for both sides; idx_*: int32[Q] row ids (mapped by ``row_index``), or
+    None for R = Q gathered rows. All contiguous on one CUDA device; any
+    Q and L. Returns mu float32[Q]."""
     d_dtype = d_s.dtype
     if d_dtype not in (torch.int32, torch.float32):
         raise ValueError(f"d_s must be int32 or float32, got {d_dtype}")

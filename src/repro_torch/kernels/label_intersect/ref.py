@@ -3,17 +3,18 @@ searchsorted merge (the same math as ``repro``'s jnp reference), and the
 packed variant over delta16 rows, decoded first with the torch decoders
 of ``core/labels.py``. Like the kernels, each takes optional row ids
 ``idx_s`` / ``idx_t``: the rows are then gathered from the planes
-first, which is the same function."""
+first, which is the same function. Row ids map as ``repro`` maps them
+(``row_index``)."""
 import torch
 
-from repro_torch.core.labels import decode_d, decode_ids
+from repro_torch.core.labels import decode_d, decode_ids, row_index
 
 
 def _gather(idx, *planes):
     """Rows ``idx`` of each plane (all of them when ``idx`` is None)."""
     if idx is None:
         return planes
-    idx = idx.long()
+    idx = row_index(idx, planes[0].shape[0])
     return tuple(p[idx] for p in planes)
 
 

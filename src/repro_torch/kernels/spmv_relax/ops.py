@@ -1,6 +1,6 @@
 """Wrappers of the relaxation kernels (stage 2 of a query), the COO ->
-CSR and COO -> sliced conversions they take, and the ELL width of the
-route rule.
+CSR and COO -> sliced conversions they take, the ELL width of the route
+rule, and the ELL slot layout of the path lane's chase planes.
 
 ``spmv_relax`` replaces ``repro/kernels/spmv_relax/kernel.py:
 spmv_relax_kernel`` (one round per launch, the route of large cores):
@@ -39,6 +39,27 @@ def ell_width(n_v: int, dst, d_width: int = 16) -> int:
     indeg = np.bincount(np.asarray(dst, np.int64), minlength=n_v)
     return max(d_width, int(-(-max(1, indeg.max(initial=0)) // d_width)
                             * d_width))
+
+
+def ell_layout(n_v: int, dst, d_width: int = 16):
+    """Slot assignment of ELL planes: a stable sort of the edges by
+    destination, each edge's slot its rank among its destination's
+    in-edges (COO order kept). Returns ``(order, rows, slots, width)``
+    so callers scatter any per-edge payload (ids, weights, vias) into
+    planes aligned slot for slot; ``width`` is ``ell_width``'s. The
+    path lane's parent chase (``paths/engine.py``) reads these planes;
+    no kernel does."""
+    dst = np.asarray(dst, np.int64)
+    width = ell_width(n_v, dst, d_width)
+    if len(dst) == 0:
+        empty = np.zeros(0, np.int64)
+        return empty, empty, empty, width
+    indeg = np.bincount(dst, minlength=n_v)
+    order = np.argsort(dst, kind="stable")
+    d_sorted = dst[order]
+    indptr = np.concatenate([[0], np.cumsum(indeg)])
+    rank = np.arange(len(dst), dtype=np.int64) - indptr[d_sorted]
+    return order, d_sorted, rank, width
 
 
 def coo_to_csr(n_v: int, src, dst, w, heavy: int = HEAVY_DEGREE):
