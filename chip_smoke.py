@@ -34,14 +34,28 @@ Phases, one JSON line each (with its seconds):
    distances bitwise and its round count, and every path must pass
    ``check_path_batch`` against the generated edges; on ``fused`` and
    ``dense`` the host oracle ``shortest_path`` is checked on 8 pairs.
-5. mutation — §8.3 on a hold-out build of ``er:10000:2.2@1``: insert
+5. serving_<path> — the serving engine (``repro_torch.serve``) on each
+   main path's index at ``launch/serve.py``'s defaults (buckets 64, 256,
+   1024; 2 ms; cache 65,536): a ``hotspot`` and a ``uniform`` trace of
+   4,096 requests (1,024 on ``ell_loop``) at 50,000 req/s on the trace
+   clock, under sync debug mode "error". Every answer equal to
+   ``idx.query`` bitwise (a Dijkstra sample of 256 on ``fused`` and
+   ``dense``); each lane launching exactly its kernels (``mu``: the
+   label kernel; ``full``: it and the route's stage-2 kernel); no
+   first-use build after warmup and the shape counts unchanged; one
+   counted sync a batch beyond the entry points' own exit-flag reads.
+   Then a profiled replay (device idle share), ``classify`` and
+   ``query_host`` on CUDA tensors, and on ``fused`` and ``dense`` a
+   path-lane replay of 512 requests at hop caps 64 and 256 whose paths
+   all pass the launcher's audit.
+6. mutation — §8.3 on a hold-out build of ``er:10000:2.2@1``: insert
    the held-out vertex (its distances equal to Dijkstra's on the full
    graph, its paths checked), then delete it (answers restored, the
    conservative rule); insert and delete ms over three cycles.
-6. builders — ``er:10000:2.2@1`` built with ``builder="host"`` and
+7. builders — ``er:10000:2.2@1`` built with ``builder="host"`` and
    ``builder="device"`` from one seed must give the same hierarchy and
    labels, bitwise; then whether the 10^6 graph's labels fit delta16.
-7. kernels  — each kernel on the card against its plain PyTorch version
+8. kernels  — each kernel on the card against its plain PyTorch version
    (``torch.equal``) on the inputs the main path gave it, with
    CUDA-event times and the bound of the same work. The label kernels
    also run at ``repro``'s serving batches (Q = 64, 256, 1024) beside
@@ -136,6 +150,17 @@ ORACLE_PATHS = ("fused", "dense")   # host path oracle checked on 8 pairs
 MUTATION_GRAPH = BUILDER_GRAPH
 MUTATION_CYCLES = 3      # timed insert/delete pairs
 MUTATION_KERNELS = {"label_intersect_kernel", "fused_relax_kernel"}
+# the serving engine on each main path's index, at launch/serve.py's
+# defaults (buckets: repro's batcher, src/repro/serve/batcher.py:52)
+SERVE_BUCKETS = (64, 256, 1024)
+SERVE_WAIT_MS = 2.0
+SERVE_CACHE = 65_536
+SERVE_RATE = 50_000.0    # requests/s on the trace clock
+SERVE_SCENARIOS = ("hotspot", "uniform")
+SERVE_REQUESTS = {"ell_loop": 1024}   # 4096 elsewhere
+SERVE_ORACLE = {"fused": 256, "dense": 256}   # Dijkstra sample
+SERVE_PATH_REQUESTS = {"fused": 512, "dense": 512}
+SERVE_HOP_CAPS = (64, 256)
 
 
 def emit(obj) -> None:
@@ -584,6 +609,315 @@ def phase_mutation(tables, device="cuda") -> dict:
             "paths_reachable": int(np.isfinite(batch.dist).sum()),
             "delete_exact_share": float((got[cover] == want[cover]).mean()),
             "launches": launches}
+
+
+def profile_idle(fn) -> dict:
+    """``fn()`` once under ``torch.profiler``: host wall ms, the time
+    the device was busy (the union of the kernels' and copies'
+    intervals in the trace), and the device's idle share of the wall
+    time; repeated up to three times while the trace holds no device
+    event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(1, 4):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        if spans:
+            break
+    busy_us, reach, by_name = 0.0, float("-inf"), {}
+    for start, end, name in spans:
+        busy_us += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+        ms, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + (end - start) / 1e3, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+            "attempts": attempt,
+            "idle_share": (1 - busy_us / 1e3 / wall_ms) if spans else None,
+            "device_events": len(spans),
+            "top": [{"name": k[:80], "device_ms": ms, "count": c}
+                    for k, (ms, c) in top]}
+
+
+class LaneMeter:
+    """Instruments one ``DistanceServer``'s lanes for the serving phase:
+    the kernel launches and the counted syncs inside each lane's entry
+    point, and the wall time of each executed batch (``_execute`` /
+    ``_execute_path``, whose timed ``exec_s`` the metrics hold). The
+    entry points keep their ``shapes``, so ``compile_cache_sizes``
+    reads through."""
+
+    def __init__(self, srv, tables):
+        from repro_torch.core import sync
+        self.tables = tables
+        self.launches: dict = {}
+        self.inner_syncs: dict = {}
+        self.exec_wall_s: dict = {}
+
+        def entry(fn, lane):
+            def run(s, t):
+                before = launches_of(tables)
+                with sync.sync_span() as span:
+                    out = fn(s, t)
+                after = launches_of(tables)
+                tab = self.launches.setdefault(lane, {})
+                for k, v in after.items():
+                    tab[k] = tab.get(k, 0) + v - before[k]
+                self.inner_syncs[lane] = (self.inner_syncs.get(lane, 0)
+                                          + span.count)
+                return out
+            run.shapes = fn.shapes
+            return run
+
+        def timed(fn, lane_of):
+            def run(*args):
+                t0 = time.perf_counter()
+                out = fn(*args)
+                lane = lane_of(args)
+                self.exec_wall_s[lane] = (self.exec_wall_s.get(lane, 0.0)
+                                          + time.perf_counter() - t0)
+                return out
+            return run
+
+        srv._fns = {lane: entry(fn, lane) for lane, fn in srv._fns.items()}
+        srv._path_fns = {h: entry(fn, "path")
+                         for h, fn in srv._path_fns.items()}
+        srv._execute = timed(srv._execute, lambda a: a[0])
+        srv._execute_path = timed(srv._execute_path, lambda a: "path")
+
+    def reset(self) -> None:
+        self.launches.clear()
+        self.inner_syncs.clear()
+        self.exec_wall_s.clear()
+
+
+def lane_batches(batches) -> dict:
+    """{lane: {bucket: batches}} of a list of ``BatchRecord``s."""
+    out: dict = {}
+    for b in batches:
+        tab = out.setdefault(b.lane, {})
+        tab[str(b.bucket)] = tab.get(str(b.bucket), 0) + 1
+    return out
+
+
+def check_lanes(what, meter, batches, kernels) -> None:
+    """Each lane that ran a batch launched exactly its kernels; a lane
+    that ran none launched nothing."""
+    ran = {b.lane for b in batches}
+    for lane, want in kernels.items():
+        got = {k for k, v in meter.launches.get(lane, {}).items() if v}
+        if got != (want if lane in ran else set()):
+            fail(f"{what}: lane {lane} launched {sorted(got)}, expected "
+                 f"{sorted(want) if lane in ran else []}")
+
+
+def replay_record(srv, meter, batches, wall_s, syncs) -> dict:
+    """The serving numbers of one replay: the metrics of its batches
+    (``batches``, this replay's ``BatchRecord``s) and the host share of
+    a batch (``_execute`` wall time minus the timed ``exec_s``)."""
+    import numpy as np
+    exec_s = sum(b.exec_s for b in batches)
+    wall_exec = sum(meter.exec_wall_s.values())
+    per_lane = {}
+    for lane in sorted({b.lane for b in batches}):
+        bs = [b for b in batches if b.lane == lane]
+        lane_exec = sum(b.exec_s for b in bs)
+        per_lane[lane] = {
+            "batches": len(bs), "requests": sum(b.n_real for b in bs),
+            "exec_ms_mean": lane_exec / len(bs) * 1e3,
+            "host_ms_per_batch": (meter.exec_wall_s[lane] - lane_exec)
+            / len(bs) * 1e3,
+            "fill": float(np.mean([b.fill for b in bs])),
+            "rounds_mean": float(np.mean([b.rounds for b in bs])),
+            "launches": dict(meter.launches.get(lane, {})),
+            "entry_syncs": meter.inner_syncs.get(lane, 0)}
+    return {"batches": len(batches), "replay_wall_s": wall_s,
+            "exec_s": exec_s, "batch_wall_s": wall_exec,
+            "host_ms_per_batch": (wall_exec - exec_s) / len(batches) * 1e3,
+            "host_share_of_batch": (wall_exec - exec_s) / wall_exec,
+            "syncs": syncs, "lanes": per_lane,
+            "by_lane_bucket": lane_batches(batches)}
+
+
+def phase_serving(path, route, idx, graph, tables, kernels) -> dict:
+    """The serving engine (``repro_torch.serve.DistanceServer``) on one
+    main path's index: buckets 64/256/1024, a 2 ms deadline and a
+    65,536-entry cache. A ``hotspot`` and a ``uniform`` trace
+    (``make_trace``, seed 0, 50,000 req/s on the trace clock) replayed
+    under sync debug mode "error": every served answer equal to
+    ``idx.query`` bitwise (and, on ``SERVE_ORACLE``, a Dijkstra sample);
+    each lane launching exactly its kernels (``mu``: the label kernel;
+    ``full``: that and the route's stage-2 kernel); no first-use build
+    in ``serve_read`` and ``compile_cache_sizes`` unchanged; exactly one
+    counted sync a batch beyond the entry points' own exit-flag reads
+    (none on the fused route). Then one more ``uniform`` replay, cache
+    cleared, under ``torch.profiler`` (the device's idle share); the
+    section-0 check (``classify`` and ``query_host`` on CUDA tensors
+    equal to the same calls on numpy arrays, ``classify`` in one
+    ``host_read``); and on ``SERVE_PATH_REQUESTS`` a path-lane replay at
+    hop caps 64 and 256 whose paths all pass the launcher's
+    ``_audit_paths``. Returns the record and the launches of the served
+    batches."""
+    import numpy as np
+    import torch
+    from repro_torch.core import ref, sync
+    from repro_torch.launch.serve import _audit_paths
+    from repro_torch.obs import BuildWatcher
+    from repro_torch.serve import DistanceServer, make_trace
+
+    stage2 = PATH_LANE_KERNELS[path]
+    lane_kernels = {"mu": kernels - stage2, "full": kernels}
+    n, src, dst, w = graph
+    n_req = SERVE_REQUESTS.get(path, 4096)
+    kw = dict(buckets=SERVE_BUCKETS, max_wait_ms=SERVE_WAIT_MS,
+              cache_size=SERVE_CACHE)
+    zero(tables)
+    with BuildWatcher() as builds:
+        srv = DistanceServer(idx, name=path, **kw)
+    rec = {"buckets": list(SERVE_BUCKETS), "max_wait_ms": SERVE_WAIT_MS,
+           "cache_size": SERVE_CACHE, "rate_qps": SERVE_RATE,
+           "requests": n_req, "warmup_seconds": srv.warmup_seconds,
+           "warmup_builds": builds.snapshot(), "replays": {}}
+    meter = LaneMeter(srv, tables)
+    served_launches: dict = {}
+    for scenario in SERVE_SCENARIOS:
+        trace = make_trace(scenario, n=n, num_requests=n_req,
+                           rate_qps=SERVE_RATE, seed=0)
+        shapes = srv.compile_cache_sizes()
+        first = len(srv.metrics.batches)
+        hits0 = srv.metrics.cache_hits
+        meter.reset()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with BuildWatcher() as watch, sync.sync_span() as span:
+                t0 = time.perf_counter()
+                served = srv.serve_trace(trace)
+                wall_s = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        batches = srv.metrics.batches[first:]
+        what = f"serving {scenario} on {path}"
+        if watch.count("serve_read") or watch.count():
+            fail(f"{what}: first-use builds after warmup "
+                 f"{watch.snapshot()}")
+        if srv.compile_cache_sizes() != shapes:
+            fail(f"{what}: shapes {shapes} -> {srv.compile_cache_sizes()}")
+        inner = sum(meter.inner_syncs.values())
+        if span.count - inner != len(batches) or (
+                route == "fused" and inner):
+            fail(f"{what}: {span.count} syncs for {len(batches)} batches "
+                 f"({inner} inside the entry points)")
+        check_lanes(what, meter, batches, lane_kernels)
+        for tab in meter.launches.values():
+            for k, v in tab.items():
+                served_launches[k] = served_launches.get(k, 0) + v
+        want = sync.host_read(idx.query(trace.s, trace.t))
+        if served.shape != want.shape or not np.array_equal(served, want):
+            fail(f"{what}: {int((served != want).sum())} answers differ "
+                 f"from idx.query")
+        one = replay_record(srv, meter, batches, wall_s, span.count)
+        one.update(cache_hits=srv.metrics.cache_hits - hits0,
+                   cache_hit_rate=(srv.metrics.cache_hits - hits0) / n_req)
+        if path in SERVE_ORACLE:
+            k = SERVE_ORACLE[path]
+            srcs, inv = np.unique(trace.s[:k], return_inverse=True)
+            oracle = ref.dijkstra_oracle(n, src, dst, w, srcs)
+            if not np.array_equal(served[:k], oracle[inv, trace.t[:k]]
+                                  .astype(np.float32)):
+                fail(f"{what}: answers differ from Dijkstra")
+            one["dijkstra_checked"] = k
+        # the per-request routing cost (route of one pair, as submit
+        # without a lane does it)
+        t0 = time.perf_counter()
+        for i in range(256):
+            srv.route(int(trace.s[i]), int(trace.t[i]))
+        one["route_us_per_request"] = (time.perf_counter() - t0) / 256 * 1e6
+        t0 = time.perf_counter()
+        srv.route(trace.s, trace.t)
+        one["route_s"] = time.perf_counter() - t0
+        rec["replays"][scenario] = one
+    snap = srv.metrics.snapshot()
+    rec.update({k: snap[k] for k in (
+        "served", "qps_compute", "qps_offered", "latency_ms",
+        "batch_fill_ratio", "cache_hit_rate", "bucket_counts",
+        "query_types")})
+    rec["by_lane_bucket"] = lane_batches(srv.metrics.batches)
+    rec["compiled_shapes"] = srv.compile_cache_sizes()
+
+    # the device's idle share of one replay (cache cleared)
+    trace = make_trace("uniform", n=n, num_requests=n_req,
+                       rate_qps=SERVE_RATE, seed=0)
+    srv.cache.clear()
+    rec["profile"] = profile_idle(lambda: srv.serve_trace(trace))
+
+    # section 0: classify and query_host take CUDA tensors
+    s_np, t_np = trace.s[:256], trace.t[:256]
+    s_cu, t_cu, lev_cu = (torch.as_tensor(x, device=idx.device)
+                          for x in (s_np, t_np, idx.level))
+    with sync.sync_span() as span:
+        cls = idx.engine.classify(s_cu, t_cu, lev_cu, idx.k)
+    if span.count != 1 or not np.array_equal(
+            cls, idx.engine.classify(s_np, t_np, idx.level, idx.k)):
+        fail(f"{path}: classify on CUDA tensors ({span.count} syncs) "
+             f"differs from classify on numpy arrays")
+    if not (np.array_equal(idx.query_types(s_cu, t_cu),
+                           idx.query_types(s_np, t_np))
+            and np.array_equal(idx.query_host(s_cu, t_cu),
+                               idx.query_host(s_np, t_np))):
+        fail(f"{path}: query_types or query_host differ on CUDA tensors")
+    rec["cuda_tensor_inputs"] = "equal"
+
+    if path in SERVE_PATH_REQUESTS:
+        with BuildWatcher() as builds:
+            psrv = DistanceServer(idx, name=f"{path}-paths",
+                                  path_hop_caps=SERVE_HOP_CAPS, **kw)
+        pmeter = LaneMeter(psrv, tables)
+        trace = make_trace("hotspot", n=n,
+                           num_requests=SERVE_PATH_REQUESTS[path],
+                           rate_qps=SERVE_RATE, seed=0)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with BuildWatcher() as watch:
+                t0 = time.perf_counter()
+                dist, paths, valid = psrv.serve_path_trace(trace)
+                wall_s = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        what = f"path lane serving on {path}"
+        if watch.count():
+            fail(f"{what}: first-use builds after warmup "
+                 f"{watch.snapshot()}")
+        batches = psrv.metrics.batches
+        check_lanes(what, pmeter, batches, {"path": stage2})
+        for k, v in pmeter.launches.get("path", {}).items():
+            served_launches[k] = served_launches.get(k, 0) + v
+        if _audit_paths(src, dst, w, trace, dist, paths, valid):
+            fail(f"{what}: a served path failed the audit")
+        want = sync.host_read(idx.query(trace.s, trace.t))
+        if not np.array_equal(dist, want):
+            fail(f"{what}: distances differ from idx.query")
+        psnap = psrv.metrics.snapshot()
+        one = replay_record(psrv, pmeter, batches, wall_s, None)
+        one.update(requests=len(trace), hop_caps=list(SERVE_HOP_CAPS),
+                   warmup_seconds=psrv.warmup_seconds,
+                   warmup_builds=builds.snapshot(),
+                   path_overflows=psnap["path_overflows"],
+                   qps_compute=psnap["qps_compute"],
+                   latency_ms=psnap["latency_ms"],
+                   cache_hit_rate=psnap["cache_hit_rate"],
+                   path_vertices_max=max(len(p) for p in paths))
+        rec["path_lane"] = one
+    rec["launches"] = served_launches
+    return rec
 
 
 def label_seeds(idx, s, t):
@@ -1058,6 +1392,7 @@ def replay_csr(idx, s, t) -> dict:
     from repro_torch.core.sync import host_read
     from repro_torch.kernels.spmv_relax.kernel import spmv_relax_kernel
     eng = idx.engine
+    idx.query(s, t)              # the route's round count of these pairs
     csr = eng.relaxer.csr()
     seeds, rs, _ = label_seeds(idx, s, t)
     vp = csr.order.shape[0]
@@ -1115,38 +1450,10 @@ def replay_csr(idx, s, t) -> dict:
 
 
 def profile_query(idx, s, t) -> dict:
-    """One more call of the path's query under ``torch.profiler``: host
-    wall time, the time the device was busy (the union of the kernels'
-    and copies' intervals in the trace), the device's idle share of the
-    wall time, and the kernels that took most of the busy time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for attempt in range(1, 4):  # a trace came back without device events
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            idx.query(s, t)         # ends on a blocking read of rounds
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                       for e in prof.events()
-                       if e.device_type == DeviceType.CUDA)
-        if spans:
-            break
-    busy_us, reach, by_name = 0.0, float("-inf"), {}
-    for start, end, name in spans:
-        busy_us += max(0.0, end - max(start, reach))
-        reach = max(reach, end)
-        ms, n = by_name.get(name, (0.0, 0))
-        by_name[name] = (ms + (end - start) / 1e3, n + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
-            "attempts": attempt,
-            "idle_share": (1 - busy_us / 1e3 / wall_ms) if spans else None,
-            "device_events": len(spans),
-            "top": [{"name": k[:80], "device_ms": ms, "count": c}
-                    for k, (ms, c) in top]}
+    """One more call of the path's query under ``torch.profiler``
+    (``profile_idle``): host wall time, device busy time and idle
+    share, and the kernels that took most of the busy time."""
+    return profile_idle(lambda: idx.query(s, t))
 
 
 def clock_under_load(fn, seconds: float = 1.0) -> dict:
@@ -1350,11 +1657,20 @@ def main(argv) -> int:
             counters[k] += v
         indexes[path] = (idx, s, t)
 
-    # the path lane (§8.1) on each path's index, then §8.3 mutation
+    # the path lane (§8.1) on each path's index, the serving engine,
+    # then §8.3 mutation
     for path, *_ in PATHS:
         t0 = time.perf_counter()
-        rec = phase_paths(path, *indexes[path], graphs.pop(path), tables)
+        rec = phase_paths(path, *indexes[path], graphs[path], tables)
         emit({"phase": f"paths_{path}", "seconds": time.perf_counter() - t0,
+              **rec})
+        for k, v in rec["launches"].items():
+            counters[k] += v
+    for path, route, _, _, _, kernels in PATHS:
+        t0 = time.perf_counter()
+        rec = phase_serving(path, route, indexes[path][0], graphs.pop(path),
+                            tables, kernels)
+        emit({"phase": f"serving_{path}", "seconds": time.perf_counter() - t0,
               **rec})
         for k, v in rec["launches"].items():
             counters[k] += v

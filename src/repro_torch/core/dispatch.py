@@ -59,6 +59,7 @@ from repro_torch.kernels.spmv_relax.kernel import (ROW_TILE, RelaxCSR,
 from repro_torch.kernels.spmv_relax.ops import (coo_to_csr, coo_to_sliced,
                                                 ell_width, fused_relax,
                                                 spmv_relax)
+from repro_torch.obs.profiler import record_build
 
 # The TPU's VMEM budget for the fused kernel's working set, kept from
 # ``repro`` so both packages take the same route on the same index;
@@ -280,7 +281,8 @@ class CoreRelaxer:
     first use, on ``device``: the in-edge CSR of the per-round kernel,
     the sliced in-edges of the fused kernel or, for dense cores, the
     0-diagonal dense adjacency — padded to a multiple of ``bv``
-    vertices.
+    vertices. Each layout's build counts one first-use build in the
+    current region (``obs.profiler.record_build``).
 
     Route selection (``.mode``) is ``repro``'s: density >=
     ``dense_threshold`` (env ``ISLABEL_DENSE_THRESHOLD``) with n_core <=
@@ -344,6 +346,7 @@ class CoreRelaxer:
     def coo(self):
         """(src, dst, w) device tensors for the COO reference."""
         if self._coo is None:
+            record_build("relax_layout:coo")
             self._coo = (upload(self.ce_src, self.device),
                          upload(self.ce_dst, self.device),
                          upload(self.ce_w, self.device))
@@ -354,6 +357,7 @@ class CoreRelaxer:
         a multiple of bv vertices (sentinel included, padding vertices
         edgeless), for ``spmv_relax``."""
         if self._csr is None:
+            record_build("relax_layout:csr")
             indptr, src, w, order, n_heavy = coo_to_csr(
                 self._vp(), self.ce_src, self.ce_dst, self.ce_w)
             self._csr = RelaxCSR(*(upload(x, self.device)
@@ -364,6 +368,7 @@ class CoreRelaxer:
         """The in-edges over the same Vp vertices, sliced 32
         destinations a warp, for ``fused_relax``."""
         if self._sliced is None:
+            record_build("relax_layout:sliced")
             self._sliced = SlicedEdges(*(
                 upload(x, self.device) for x in coo_to_sliced(
                     self._vp(), self.ce_src, self.ce_dst, self.ce_w)))
@@ -375,6 +380,7 @@ class CoreRelaxer:
         including the sentinel and lane padding so parked values
         survive each round."""
         if self._adj is None:
+            record_build("relax_layout:dense")
             vp = self._vp()
             adj = np.full((vp, vp), np.inf, np.float32)
             if len(self.ce_src):

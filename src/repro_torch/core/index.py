@@ -42,6 +42,13 @@ ARRAYS = ("level", "lbl_ids", "lbl_d", "lbl_pred", "up_ids", "up_w",
           "up_via", "core_src", "core_dst", "core_w", "core_via")
 
 
+def _batch(x):
+    """Endpoint ids as a 1-D batch: a tensor stays where it lies."""
+    if isinstance(x, torch.Tensor):
+        return x.reshape(-1)
+    return np.atleast_1d(x)
+
+
 @dataclasses.dataclass
 class ISLabelIndex:
     n: int
@@ -141,9 +148,13 @@ class ISLabelIndex:
         return self.engine.query(s, t)
 
     def query_host(self, s, t) -> np.ndarray:
-        return hsync.host_read(self.query(np.atleast_1d(s), np.atleast_1d(t)))
+        """``query`` read to the host (one ``host_read`` of the answers).
+        Endpoints may be numpy arrays, scalars or tensors on any device;
+        a CUDA tensor goes to the query as it is."""
+        return hsync.host_read(self.query(_batch(s), _batch(t)))
 
     def query_types(self, s, t):
+        """§5.2 endpoint classes (``QueryEngine.classify``) on the host."""
         return self.engine.classify(s, t, self.level, self.k)
 
     # ------------------------------------------------------------- §8.1 paths

@@ -28,12 +28,23 @@ from repro_torch.core.dispatch import (CoreRelaxer,
                                        label_intersect_planes_dispatch)
 from repro_torch.core.labels import (LabelRows, decode_rows, encode_labels,
                                      row_index, try_encode_labels)
-from repro_torch.core.sync import host_read, upload
+from repro_torch.core.sync import host_arrays, host_read, upload
 from repro_torch.kernels.backend import resolve_backend
 
-__all__ = ["QueryEngine", "label_intersect_mu"]
+__all__ = ["QueryEngine", "label_intersect_mu", "shape_counted"]
 
 INF = float("inf")
+
+
+def shape_counted(fn):
+    """``fn(s, t)`` that records in ``.shapes`` the distinct (s, t)
+    batch shapes it has run: the counterpart of the entries of a jit
+    cache, which the serving layer's zero-new-shapes check reads."""
+    def run(s, t):
+        run.shapes.add((tuple(np.shape(s)), tuple(np.shape(t))))
+        return fn(s, t)
+    run.shapes = set()
+    return run
 
 
 def label_intersect_mu(ids_s, d_s, ids_t, d_t, n: int, l_cap: int = 0):
@@ -187,10 +198,12 @@ class QueryEngine:
 
     def classify(self, s, t, level, k):
         """Paper Table 5 endpoint classes: 1 = both core, 2 = one core,
-        3 = neither. Host arrays in, host int array out."""
-        s = np.atleast_1d(np.asarray(s, np.int64))
-        t = np.atleast_1d(np.asarray(t, np.int64))
-        level = np.asarray(level)
+        3 = neither. Accepts numpy arrays, scalars and tensors on any
+        device for every argument (the CUDA ones come over in one
+        ``host_read``); always returns a host int array."""
+        s, t, level = host_arrays(s, t, level)
+        s = np.atleast_1d(s.astype(np.int64))
+        t = np.atleast_1d(t.astype(np.int64))
         in_core = (level[s] == k).astype(np.int32) + \
                   (level[t] == k).astype(np.int32)
         return 3 - in_core
@@ -200,7 +213,8 @@ class QueryEngine:
         """Fixed-shape batched query callable for serving:
         ``run(s, t) -> (ans float32[Q], rounds int32 device scalar)``
         with no host read of the answers; memoized per resolved
-        backend."""
+        backend, so every server over the engine shares it and its
+        ``shapes`` (``shape_counted``)."""
         backend = self._backend(backend)
         if backend not in self._batch_fns:
             def run(s, t):
@@ -210,17 +224,17 @@ class QueryEngine:
                     rounds = torch.zeros((), dtype=torch.int32,
                                          device=self.device)
                 return ans, rounds
-            self._batch_fns[backend] = run
+            self._batch_fns[backend] = shape_counted(run)
         return self._batch_fns[backend]
 
     def mu_batch_fn(self, backend: str | None = None):
         """Fixed-shape Equation-1-only callable ``run(s, t) -> ans``;
-        memoized per backend."""
+        memoized per backend, with its ``shapes``."""
         backend = self._backend(backend)
         if backend not in self._mu_batch_fns:
             def run(s, t):
                 return self._mu(self._index(s), self._index(t), backend)
-            self._mu_batch_fns[backend] = run
+            self._mu_batch_fns[backend] = shape_counted(run)
         return self._mu_batch_fns[backend]
 
     def warmup(self, batch_sizes, backend: str | None = None,

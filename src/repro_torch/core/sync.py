@@ -48,6 +48,21 @@ def host_read(x):
     return out if isinstance(x, (tuple, list)) else out[0]
 
 
+def host_arrays(*xs) -> list:
+    """numpy forms of ``xs`` (numpy arrays, Python scalars, lists, or
+    tensors on any device): CPU tensors as they are, and every CUDA
+    tensor among them through one counted ``host_read``."""
+    cuda = tuple(x for x in xs if isinstance(x, torch.Tensor) and x.is_cuda)
+    read = iter(host_read(cuda) if cuda else ())
+    out = []
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            out.append(next(read) if x.is_cuda else x.detach().numpy())
+        else:
+            out.append(np.asarray(x))
+    return out
+
+
 def upload(a, device, dtype: torch.dtype | None = None) -> torch.Tensor:
     """numpy (or host tensor) -> tensor on ``device`` without a blocking
     copy. Always a fresh tensor: callers update it in place."""

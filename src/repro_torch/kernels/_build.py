@@ -24,6 +24,8 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.obs.profiler import record_build
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 GENCODE = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -118,6 +120,7 @@ def load():
     """The kernel library (built on first use), with typed entry points."""
     global _LIB
     if _LIB is None:
+        record_build("kernel_library")
         lib = ctypes.CDLL(str(build()))
         for name, args in SIGNATURES.items():
             fn = getattr(lib, name)

@@ -5,8 +5,9 @@ histograms, all supporting labeled series. The port's copy of
 either package.
 
 One registry instance (the module-level ``REGISTRY`` by default) is
-shared by every component that reports through it; in the port so far
-``PathEngine`` (``path.batches`` per hop_cap tier). A single
+shared by every component that reports through it; in the port the
+path engine (``path.batches`` per hop_cap tier), the serving metrics
+(``serve.*``) and the first-use builds of ``obs.profiler``. A single
 ``snapshot()`` captures the whole process.
 
 Naming scheme: dotted ``<component>.<metric>`` names (``serve.served``,

@@ -32,10 +32,12 @@ import torch
 
 from repro_torch.core.dispatch import CoreRelaxer, seed_rows
 from repro_torch.core.labels import row_index
-from repro_torch.core.query import QueryEngine, label_intersect_mu
+from repro_torch.core.query import (QueryEngine, label_intersect_mu,
+                                    shape_counted)
 from repro_torch.core.sync import host_read, upload
 from repro_torch.kernels.backend import resolve_backend
 from repro_torch.kernels.spmv_relax.ops import ell_layout
+from repro_torch.obs.profiler import record_build
 from repro_torch.obs.registry import REGISTRY
 from repro_torch.paths.reconstruct import (core_chase, expand_vias,
                                            label_chase, stitch)
@@ -104,6 +106,7 @@ class PathEngine:
                 ce_src, ce_dst, ce_w, self.n_core, device=dev)
             # chase planes aligned slot for slot (ids, w, via) so the
             # parent chase reads edge vias with the same gather
+            record_build("chase_planes")
             order, rows, slots, width = ell_layout(self.n_core + 1, ce_dst,
                                                    d_width)
             ids = np.zeros((self.n_core + 1, width), np.int32)
@@ -215,7 +218,8 @@ class PathEngine:
         """``run(s, t) -> PathBatch`` at a fixed ``hop_cap``, memoized
         per (resolved backend, hop_cap); no host read of the results —
         the caller owns blocking, timing and hop_cap escalation. Each
-        call counts one ``path.batches`` for its tier."""
+        call counts one ``path.batches`` for its tier; ``shapes`` holds
+        the batch shapes it has run (``shape_counted``)."""
         backend = resolve_backend(self.backend if backend is None else backend,
                                   self.device)
         key = (backend, int(hop_cap))
@@ -227,7 +231,7 @@ class PathEngine:
             def run(s, t):
                 calls.inc(1, hop_cap=str(hc))
                 return self._run(s, t, hc, backend)
-            self._fns[key] = run
+            self._fns[key] = shape_counted(run)
         return self._fns[key]
 
     def warmup(self, batch_sizes, hop_caps=(DEFAULT_HOP_CAP,),
