@@ -52,10 +52,29 @@ Phases, one JSON line each (with its seconds):
    the held-out vertex (its distances equal to Dijkstra's on the full
    graph, its paths checked), then delete it (answers restored, the
    conservative rule); insert and delete ms over three cycles.
-7. builders — ``er:10000:2.2@1`` built with ``builder="host"`` and
+7. versioned_<path> — versioned mutation under traffic (§8.3 live) on
+   ``fused`` (``er:10000:2.2@1``), ``ell_loop`` (``er:1000000:2.2@1``)
+   and ``compressed`` (``rmat:15:8@1``, delta16): each builds its own
+   index over n_base + 16 spare ids and serves a ``readwrite`` trace
+   (4,096 requests on ``fused``, 1,024 elsewhere; write ratio 0.05, 0.01
+   on ``ell_loop``) through ``DistanceServer(versioned=True)`` at the
+   launcher's defaults, under sync debug mode "error". Every read equal
+   to its version's ``index.query``, every 8th version segment and the
+   last to a from-scratch build (and 256 reads of ``fused`` to
+   Dijkstra), the family's route ``repro``'s rule, each lane launching
+   exactly its kernels, no new batch shape, no first-use build in
+   ``serve_read`` (one layout build a swap in ``mutation``), one
+   serving-layer sync a read batch, and nothing retired left after
+   ``drain``. Swap ms and its stages, touched rows, ``qps_compute``,
+   read latency, state bytes and peak device bytes.
+8. directed — ``DiISLabelIndex`` (§8.2) on a random digraph (n =
+   100,000, e = 400,000, ``tests/test_directed.py``'s generator): 1,024
+   pairs in calls of 256, 16 sources against Dijkstra, ``reachable``,
+   and 8 host-oracle paths checked edge by edge. No kernel runs there.
+9. builders — ``er:10000:2.2@1`` built with ``builder="host"`` and
    ``builder="device"`` from one seed must give the same hierarchy and
    labels, bitwise; then whether the 10^6 graph's labels fit delta16.
-8. kernels  — each kernel on the card against its plain PyTorch version
+10. kernels — each kernel on the card against its plain PyTorch version
    (``torch.equal``) on the inputs the main path gave it, with
    CUDA-event times and the bound of the same work. The label kernels
    also run at ``repro``'s serving batches (Q = 64, 256, 1024) beside
@@ -161,6 +180,34 @@ SERVE_REQUESTS = {"ell_loop": 1024}   # 4096 elsewhere
 SERVE_ORACLE = {"fused": 256, "dense": 256}   # Dijkstra sample
 SERVE_PATH_REQUESTS = {"fused": 512, "dense": 512}
 SERVE_HOP_CAPS = (64, 256)
+# versioned mutation under traffic (§8.3 live): each path builds its own
+# index over n_base + VERSION_SPARES ids (launch/serve.py --spares) and
+# serves a readwrite trace through DistanceServer(versioned=True)
+# (path, expected route, graph spec, generator call, IndexConfig
+#  overrides, requests, write ratio)
+VERSIONED = [
+    ("fused", "fused", "er:10000:2.2@1", ("er_graph", (10_000, 2.2), 1),
+     dict(l_cap=64, label_chunk=4096), 4096, 0.05),
+    # write ratio 0.01 on the 10^6 graph keeps its rebuild audits short
+    ("ell_loop", "ell_loop", "er:1000000:2.2@1",
+     ("er_graph", (1_000_000, 2.2), 1), dict(l_cap=64, label_chunk=8192),
+     1024, 0.01),
+    ("compressed", "ell_loop", "rmat:15:8@1", ("rmat_graph", (15, 8.0), 1),
+     dict(l_cap=1024, label_chunk=2048, label_dtype="compressed"), 1024,
+     0.05),
+]
+VERSION_SPARES = 16
+LAUNCHER_WRITE_RATIO = 0.05   # launch/serve.py --write-ratio
+VERSION_WRITE_BATCH = 2
+VERSION_REBUILD_EVERY = 8     # rebuild audit: every 8th segment and the last
+VERSION_ORACLE = {"fused": 256}   # Dijkstra sample of the reads
+# directed graphs (§8.2): tests/test_directed.py's _digraph at scale
+DIRECTED = dict(n=100_000, e=400_000, seed=0, maxw=5, l_cap=256,
+                label_chunk=8192)
+DIRECTED_QUERIES = 1024
+DIRECTED_CALL = 256           # pairs a call: the dense [q, m_core] gathers
+DIRECTED_DIJKSTRA = 16
+DIRECTED_PATHS = 8
 
 
 def emit(obj) -> None:
@@ -651,8 +698,9 @@ def profile_idle(fn) -> dict:
 class LaneMeter:
     """Instruments one ``DistanceServer``'s lanes for the serving phase:
     the kernel launches and the counted syncs inside each lane's entry
-    point, and the wall time of each executed batch (``_execute`` /
-    ``_execute_path``, whose timed ``exec_s`` the metrics hold). The
+    point, and the wall time and counted syncs of each executed batch
+    (``_execute`` / ``_execute_path``, whose timed ``exec_s`` the
+    metrics hold). The
     entry points keep their ``shapes``, so ``compile_cache_sizes``
     reads through."""
 
@@ -662,12 +710,13 @@ class LaneMeter:
         self.launches: dict = {}
         self.inner_syncs: dict = {}
         self.exec_wall_s: dict = {}
+        self.exec_syncs: dict = {}
 
         def entry(fn, lane):
-            def run(s, t):
+            def run(*args):
                 before = launches_of(tables)
                 with sync.sync_span() as span:
-                    out = fn(s, t)
+                    out = fn(*args)
                 after = launches_of(tables)
                 tab = self.launches.setdefault(lane, {})
                 for k, v in after.items():
@@ -681,10 +730,13 @@ class LaneMeter:
         def timed(fn, lane_of):
             def run(*args):
                 t0 = time.perf_counter()
-                out = fn(*args)
+                with sync.sync_span() as span:
+                    out = fn(*args)
                 lane = lane_of(args)
                 self.exec_wall_s[lane] = (self.exec_wall_s.get(lane, 0.0)
                                           + time.perf_counter() - t0)
+                self.exec_syncs[lane] = (self.exec_syncs.get(lane, 0)
+                                         + span.count)
                 return out
             return run
 
@@ -698,6 +750,7 @@ class LaneMeter:
         self.launches.clear()
         self.inner_syncs.clear()
         self.exec_wall_s.clear()
+        self.exec_syncs.clear()
 
 
 def lane_batches(batches) -> dict:
@@ -918,6 +971,369 @@ def phase_serving(path, route, idx, graph, tables, kernels) -> dict:
         rec["path_lane"] = one
     rec["launches"] = served_launches
     return rec
+
+
+def mirror_writes(src, dst, w, ops):
+    """The undirected edge list after one §8.3 write batch: an insert
+    adds both directions of its edges, a delete drops every edge of its
+    vertex (``launch/serve.py``'s ``_audit_rebuild`` model, in numpy)."""
+    import numpy as np
+    for op in ops:
+        u = int(op.u)
+        if op.kind == "insert":
+            nb = np.asarray(op.nbrs, np.int32)
+            ws = np.asarray(op.ws, np.float32)
+            src = np.concatenate([src, np.full(len(nb), u, np.int32), nb])
+            dst = np.concatenate([dst, nb, np.full(len(nb), u, np.int32)])
+            w = np.concatenate([w, ws, ws])
+        else:
+            keep = (src != u) & (dst != u)
+            src, dst, w = src[keep], dst[keep], w[keep]
+    return src, dst, w
+
+
+def pcts(xs) -> dict:
+    import numpy as np
+    if not len(xs):
+        return {"p50": None, "p99": None, "max": None}
+    return {"p50": float(np.percentile(xs, 50)),
+            "p99": float(np.percentile(xs, 99)), "max": float(max(xs))}
+
+
+def phase_versioned(path, route, spec, gen_call, overrides, n_req,
+                    write_ratio, tables, device="cuda") -> dict:
+    """Versioned mutation under traffic on one graph: the index is built
+    over n_base + ``VERSION_SPARES`` ids and served by
+    ``DistanceServer(versioned=True)`` at ``launch/serve.py``'s defaults;
+    a ``readwrite`` trace (seed 0, 50,000 req/s, ``write_ratio``, write
+    batches of up to 2 ops, reads over the n_base ids, inserts attached
+    to the core) is replayed under sync debug mode "error". Checks:
+    the family's route is ``route`` and ``repro``'s rule (fused iff the
+    working-set model of the pinned ELL width fits 12 MiB); every served
+    read equals ``version.index.query`` of the version that served it,
+    bitwise (each version audited as it retires, the last after the
+    replay); every ``VERSION_REBUILD_EVERY``-th version segment and the
+    last equal a from-scratch build of the mirrored graph (and a
+    Dijkstra sample on ``VERSION_ORACLE``); each lane launches exactly
+    its kernels (``mu``: the codec's label kernel; ``full``: it and the
+    route's stage-2 kernel); the shape counts unchanged across the
+    swaps, no first-use build in ``serve_read`` and one layout build a
+    swap in ``mutation``; one counted sync a read batch beyond the entry
+    points' own; every retired version dropped after ``drain``."""
+    import numpy as np
+    import torch
+    from repro_torch.core import ISLabelIndex, IndexConfig, ref, sync
+    from repro_torch.core.dispatch import FUSED_VMEM_BUDGET
+    from repro_torch.graphs import generators as gen
+    from repro_torch.kernels.spmv_relax.kernel import fused_vmem_bytes
+    from repro_torch.obs import (BuildWatcher, compile_region,
+                                 version_family_gauges)
+    from repro_torch.serve import DistanceServer, make_trace
+
+    t0 = time.perf_counter()
+    fn, args, seed = gen_call
+    n_base, src, dst, w = getattr(gen, fn)(*args, seed=seed)
+    n = n_base + VERSION_SPARES
+    gen_s = time.perf_counter() - t0
+    zero(tables)
+    torch.cuda.reset_peak_memory_stats()
+    idx = ISLabelIndex.build(n, src, dst, w, IndexConfig(**overrides),
+                             device=device)
+    build_s = time.perf_counter() - t0 - gen_s
+    codec_kernel = ("label_intersect_packed_kernel"
+                    if idx.engine.codec == "delta16"
+                    else "label_intersect_kernel")
+    stage2 = {"fused": "fused_relax_kernel",
+              "ell_loop": "spmv_relax_kernel"}[route]
+    lane_kernels = {"mu": {codec_kernel}, "full": {codec_kernel, stage2}}
+    t1 = time.perf_counter()
+    with BuildWatcher() as warm:
+        srv = DistanceServer(idx, name=f"versioned-{path}",
+                             buckets=SERVE_BUCKETS, max_wait_ms=SERVE_WAIT_MS,
+                             cache_size=SERVE_CACHE, versioned=True)
+    server_s = time.perf_counter() - t1
+    mgr, fam = srv.versions, srv.versions.family
+    rule = ("fused" if fused_vmem_bytes(fam.vp, fam.ell_width, fam.bq)
+            <= FUSED_VMEM_BUDGET else "ell_loop")
+    if not fam.relax_mode == rule == route:
+        fail(f"versioned {path}: family route {fam.relax_mode}, repro's "
+             f"rule {rule}, expected {route}")
+    trace = make_trace("readwrite", n=n, num_requests=n_req,
+                       rate_qps=SERVE_RATE, seed=0, write_ratio=write_ratio,
+                       write_batch=VERSION_WRITE_BATCH, n_read=n_base,
+                       spares=range(n_base, n), attach_to=idx.core_ids)
+    reads = np.flatnonzero([x is None for x in trace.writes])
+    # the version each read is served under: the writes before it
+    read_vid = np.cumsum([x is not None for x in trace.writes])[reads]
+
+    # audit each version as it retires (its reads are all answered by
+    # then: a swap force-flushes the pending batches), outside the sync
+    # debug mode and in a region of its own
+    want = np.full(len(trace), np.nan, np.float32)
+    applied, retire_s = [], []
+
+    def audit(version):
+        sel = reads[read_vid == version.vid]
+        if not len(sel):
+            return
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            with compile_region("audit"):
+                want[sel] = sync.host_read(version.index.query(
+                    trace.s[sel], trace.t[sel]))
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+
+    apply, retire, build_layout = mgr.apply, mgr.retire, fam.build_layout
+    layout_s = []
+
+    def timed_layout(*args):
+        t2 = time.perf_counter()
+        out = build_layout(*args)
+        layout_s.append(time.perf_counter() - t2)
+        return out
+
+    def audited_apply(ops):
+        audit(mgr.current)
+        v = apply(ops)
+        # a record, not the version: retired versions must drop
+        applied.append({"ops": ops, "swap_s": v.swap_seconds,
+                        "stages": v.stage_seconds,
+                        "touched": len(v.touched_rows)})
+        return v
+
+    def timed_retire(version):
+        t2 = time.perf_counter()
+        retire(version)
+        retire_s.append(time.perf_counter() - t2)
+
+    mgr.apply, mgr.retire = audited_apply, timed_retire
+    fam.build_layout = timed_layout
+    meter = LaneMeter(srv, tables)
+    shapes = srv.compile_cache_sizes()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with BuildWatcher() as watch, sync.sync_span() as span:
+            t1 = time.perf_counter()
+            served, vids = srv.serve_readwrite_trace(trace)
+            replay_s = time.perf_counter() - t1
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    audit(mgr.current)
+    peak = torch.cuda.max_memory_allocated()
+    what = f"versioned {path}"
+    writes = len(applied)
+    if writes != trace.meta["writes"] or not np.array_equal(vids[reads],
+                                                            read_vid):
+        fail(f"{what}: {writes} swaps for {trace.meta['writes']} writes, "
+             f"or reads served under other versions")
+    if not np.array_equal(served[reads], want[reads]):
+        fail(f"{what}: {int((served[reads] != want[reads]).sum())} served "
+             f"reads differ from their version's index.query")
+    if srv.compile_cache_sizes() != shapes:
+        fail(f"{what}: shapes {shapes} -> {srv.compile_cache_sizes()}")
+    builds = watch.snapshot()
+    if builds.get("serve_read") or builds.get("mutation") != writes:
+        fail(f"{what}: first-use builds {builds}, expected none in "
+             f"serve_read and {writes} in mutation")
+    batches = srv.metrics.batches
+    check_lanes(what, meter, batches, lane_kernels)
+    inner = sum(meter.inner_syncs.values())
+    layer = sum(meter.exec_syncs.values()) - inner
+    if layer != len(batches) or (route == "fused" and inner):
+        fail(f"{what}: {layer} serving-layer syncs for {len(batches)} "
+             f"batches ({inner} inside the entry points)")
+
+    # from-scratch rebuilds of the mirrored graph, and a Dijkstra sample
+    t1 = time.perf_counter()
+    cfg = {k: v for k, v in overrides.items() if k != "label_dtype"}
+    m_src, m_dst, m_w = src, dst, w
+    last = int(vids.max())
+    n_oracle = VERSION_ORACLE.get(path, 0)
+    rebuilt, oracle_checked = [], 0
+    for vid in range(last + 1):
+        if vid:
+            m_src, m_dst, m_w = mirror_writes(m_src, m_dst, m_w,
+                                              applied[vid - 1]["ops"])
+        sel = reads[read_vid == vid]
+        if not len(sel):
+            continue
+        if vid % VERSION_REBUILD_EVERY == 0 or vid == last:
+            scratch = ISLabelIndex.build(n, m_src, m_dst, m_w,
+                                         IndexConfig(**cfg), device=device)
+            got = sync.host_read(scratch.query(trace.s[sel], trace.t[sel]))
+            if not np.array_equal(got, served[sel]):
+                fail(f"{what}: version {vid} differs from its rebuild on "
+                     f"{int((got != served[sel]).sum())} reads")
+            rebuilt.append(vid)
+            del scratch
+        sample = sel[np.isin(sel, reads[:n_oracle])]
+        if len(sample):
+            srcs, inv = np.unique(trace.s[sample], return_inverse=True)
+            dist = ref.dijkstra_oracle(n, m_src, m_dst, m_w, srcs)
+            if not np.array_equal(dist[inv, trace.t[sample]].astype(
+                    np.float32), served[sample]):
+                fail(f"{what}: version {vid} differs from Dijkstra")
+            oracle_checked += len(sample)
+    audit_s = time.perf_counter() - t1
+
+    gauges = version_family_gauges(mgr, server=srv.name)
+    srv.drain()
+    if mgr.live_versions() != [mgr.current.vid]:
+        fail(f"{what}: versions {mgr.live_versions()} live after drain")
+    stages = {k: pcts([a["stages"][k] * 1e3 for a in applied])
+              for k in ("cow_apply", "device_update", "publish")}
+    stages["retire"] = pcts([x * 1e3 for x in retire_s])
+    # the route's layout of each new version, inside device_update
+    stages["layout"] = pcts([x * 1e3 for x in layout_s])
+    touched = [a["touched"] for a in applied]
+    snap = srv.metrics.snapshot()
+    launches = {}
+    for tab in meter.launches.values():
+        for k, v in tab.items():
+            launches[k] = launches.get(k, 0) + v
+    return {
+        "graph": spec, "n_base": n_base, "spares": VERSION_SPARES,
+        "route": fam.relax_mode, "codec": fam.codec, "d_dtype": fam.d_dtype,
+        "k": idx.k, "n_core": len(idx.core_ids), "m_core":
+            len(idx.core_src) // 2, "core_cap": fam.core_cap,
+        "edge_cap": fam.edge_cap, "ell_width": fam.ell_width, "vp": fam.vp,
+        "gen_s": gen_s, "build_s": build_s, "server_s": server_s,
+        "warmup_seconds": srv.warmup_seconds,
+        "warmup_builds": warm.snapshot(), "requests": n_req,
+        "write_ratio": write_ratio,
+        "write_ratio_cut": (None if write_ratio == LAUNCHER_WRITE_RATIO
+                            else f"{write_ratio} instead of the launcher's "
+                                 f"{LAUNCHER_WRITE_RATIO}, to keep the "
+                                 f"rebuild audits short"),
+        "trace": trace.meta,
+        "reads": len(reads), "versions": writes + 1,
+        "replay_wall_s": replay_s,
+        "swap_ms": pcts([a["swap_s"] * 1e3 for a in applied]),
+        "stage_ms": stages,
+        "touched_rows": {"mean": float(np.mean(touched)) if touched else 0.0,
+                         "max": max(touched, default=0)},
+        "qps_compute": snap["qps_compute"], "qps_offered": snap["qps_offered"],
+        "latency_ms": snap["latency_ms"], "cache_hit_rate":
+            snap["cache_hit_rate"], "served": snap["served"],
+        "batches": len(batches), "by_lane_bucket": lane_batches(batches),
+        "full_exec_ms_mean": float(np.mean(
+            [b.exec_s for b in batches if b.lane == "full"] or [0.0])) * 1e3,
+        "mu_exec_ms_mean": float(np.mean(
+            [b.exec_s for b in batches if b.lane == "mu"] or [0.0])) * 1e3,
+        "syncs": {"replay": span.count, "serving_layer": layer,
+                  "entry_points": inner,
+                  "per_read_batch": layer / max(1, len(batches))},
+        "compiled_shapes": srv.compile_cache_sizes(),
+        "builds_during_replay": builds,
+        "audited_reads": len(reads),
+        "rebuilt_versions": rebuilt, "dijkstra_checked": oracle_checked,
+        "audit_s": audit_s,
+        "state_bytes": gauges["state_bytes"], "live_before_drain":
+            gauges["live"], "peak_device_bytes": peak,
+        "launches": launches}
+
+
+def phase_directed(device="cuda") -> dict:
+    """Directed IS-LABEL (§8.2) on a random digraph made as
+    ``tests/test_directed.py``'s ``_digraph``: build (doubling ``l_cap``
+    from ``DIRECTED["l_cap"]`` while the labels overflow), then 1,024
+    seeded pairs in calls of 256 (two passes, then 5 timed calls of
+    the first 256): the first 16 sources bitwise against Dijkstra on the
+    directed edges, ``reachable`` equal to ``isfinite`` of the answers,
+    and ``shortest_path`` on 8 pairs (every hop a directed edge, the
+    weight sum the distance). No kernel runs on this path (as in
+    ``repro``): the launch counters must stay 0."""
+    import numpy as np
+    import torch
+    from repro_torch.core import IndexConfig, ref, sync
+    from repro_torch.core.directed import DiISLabelIndex
+    from repro_torch.paths import check_vertex_path, edge_weight_map
+
+    d = DIRECTED
+    rng = np.random.default_rng(d["seed"])
+    src = rng.integers(0, d["n"], d["e"]).astype(np.int32)
+    dst = rng.integers(0, d["n"], d["e"]).astype(np.int32)
+    keep = src != dst
+    w = rng.integers(1, d["maxw"], keep.sum()).astype(np.float32)
+    src, dst, n = src[keep], dst[keep], d["n"]
+    torch.cuda.reset_peak_memory_stats()
+    l_cap, overflows = d["l_cap"], []
+    while True:
+        try:
+            t0 = time.perf_counter()
+            idx = DiISLabelIndex.build(
+                n, src, dst, w, IndexConfig(l_cap=l_cap,
+                                            label_chunk=d["label_chunk"]),
+                device=device)
+            build_s = time.perf_counter() - t0
+            break
+        except RuntimeError as err:
+            if "label capacity overflow" not in str(err) or l_cap >= 4096:
+                raise
+            overflows.append(l_cap)
+            l_cap *= 2
+    build_peak = torch.cuda.max_memory_allocated()
+    qr = np.random.default_rng(1)
+    s = qr.integers(0, n, DIRECTED_QUERIES).astype(np.int32)
+    t = qr.integers(0, n, DIRECTED_QUERIES).astype(np.int32)
+    torch.cuda.reset_peak_memory_stats()
+    calls, rounds = [], []
+    for _ in range(2):
+        got, ms = [], []
+        for i in range(0, DIRECTED_QUERIES, DIRECTED_CALL):
+            t1 = time.perf_counter()
+            got.append(idx.query_host(s[i:i + DIRECTED_CALL],
+                                      t[i:i + DIRECTED_CALL]))
+            ms.append((time.perf_counter() - t1) * 1e3)
+            rounds.append([int(x) for x in sync.host_read(
+                torch.stack(idx._last_rounds))])
+        calls.append(ms)
+    ans = np.concatenate(got)
+    repeats = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        idx.query_host(s[:DIRECTED_CALL], t[:DIRECTED_CALL])
+        repeats.append((time.perf_counter() - t1) * 1e3)
+    query_peak = torch.cuda.max_memory_allocated()
+    k = DIRECTED_DIJKSTRA
+    want = ref.dijkstra_oracle(n, src, dst, w, s[:k])[np.arange(k), t[:k]]
+    if not np.array_equal(ans[:k], want.astype(np.float32)):
+        fail("directed: answers differ from Dijkstra on the first "
+             f"{k} sources")
+    if np.isnan(ans).any() or ans.shape != (DIRECTED_QUERIES,):
+        fail("directed: NaN answers or a wrong shape")
+    if not np.array_equal(idx.reachable(s, t), np.isfinite(ans)):
+        fail("directed: reachable differs from isfinite of the answers")
+    edges = edge_weight_map(src, dst, w)
+    t1 = time.perf_counter()
+    path_lens = []
+    for i in range(DIRECTED_PATHS):
+        dist, p = idx.shortest_path(int(s[i]), int(t[i]))
+        bad = check_vertex_path(edges, int(s[i]), int(t[i]), dist, p)
+        if np.float32(dist) != ans[i] or bad:
+            fail(f"directed: shortest_path({s[i]}, {t[i]}) gave {dist} "
+                 f"(query {ans[i]}) {bad[:2]}")
+        path_lens.append(len(p))
+    paths_s = time.perf_counter() - t1
+    flat = [r for pair in rounds for r in pair]
+    return {"n": n, "m": len(src), "maxw": d["maxw"], "l_cap": l_cap,
+            "l_cap_overflowed": overflows, "label_chunk": d["label_chunk"],
+            "k": idx.k, "n_core": idx.n_core,
+            "m_core": len(idx.core_host[0]), "build_s": build_s,
+            "queries": DIRECTED_QUERIES, "call": DIRECTED_CALL,
+            "query_ms_first_pass": calls[0], "query_ms_second_pass": calls[1],
+            "query_ms": calls[1][0],
+            "query_ms_median": statistics.median(repeats),
+            "query_ms_repeats": repeats,
+            "rounds_fwd_bwd": rounds[len(rounds) // 2:],
+            "rounds_max": max(flat), "reachable_share":
+                float(np.isfinite(ans).mean()),
+            "dijkstra_checked": k, "paths_checked": DIRECTED_PATHS,
+            "path_vertices": path_lens, "paths_s": paths_s,
+            "peak_device_bytes_build": build_peak,
+            "peak_device_bytes_query": query_peak}
 
 
 def label_seeds(idx, s, t):
@@ -1679,6 +2095,21 @@ def main(argv) -> int:
     emit({"phase": "mutation", "seconds": time.perf_counter() - t0, **rec})
     for k, v in rec["launches"].items():
         counters[k] += v
+
+    # versioned mutation under traffic (§8.3 live), then directed graphs
+    for path, *spec in VERSIONED:
+        t0 = time.perf_counter()
+        rec = phase_versioned(path, *spec, tables)
+        emit({"phase": f"versioned_{path}",
+              "seconds": time.perf_counter() - t0, **rec})
+        for k, v in rec["launches"].items():
+            counters[k] += v
+    zero(tables)
+    t0 = time.perf_counter()
+    rec = phase_directed()
+    launches = launches_of(tables)
+    check_launches("directed", launches, set())
+    emit({"phase": "directed", "seconds": time.perf_counter() - t0, **rec})
 
     t0 = time.perf_counter()
     emit({"phase": "builders", **phase_builders(indexes["ell_loop"][0]),

@@ -322,9 +322,11 @@ class ISLabelIndex:
                              hsync.upload(pred_h, dev),
                              host=(ids_h, d_h, pred_h))
 
-    def _install_labels(self, lbl_ids, lbl_d, lbl_pred, host=None):
+    def _install_labels(self, lbl_ids, lbl_d, lbl_pred, host=None,
+                        encoded=None):
         """Install new device label planes and rebuild the core maps and
-        the query engine (which encodes a delta16 index again). ``host``
+        the query engine (which encodes a delta16 index again, unless
+        ``encoded`` gives the delta16 planes of these labels). ``host``
         (matching host copies) seeds the host-label cache; the
         core-adjacency and path-engine caches are always dropped — the
         core edge arrays may have changed alongside the labels."""
@@ -345,7 +347,7 @@ class ISLabelIndex:
              np.asarray(self.core_w, np.float32)),
             n=self.n, n_core=n_core, max_rounds=self.cfg.max_relax_rounds,
             backend=self.cfg.query_backend, query_chunk=self.cfg.query_chunk,
-            label_dtype=self.cfg.label_dtype)
+            label_dtype=self.cfg.label_dtype, encoded=encoded)
 
     # ------------------------------------------------------------------ io
     def save(self, path):

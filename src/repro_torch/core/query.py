@@ -37,12 +37,15 @@ INF = float("inf")
 
 
 def shape_counted(fn):
-    """``fn(s, t)`` that records in ``.shapes`` the distinct (s, t)
+    """``fn(..., s, t)`` that records in ``.shapes`` the distinct (s, t)
     batch shapes it has run: the counterpart of the entries of a jit
-    cache, which the serving layer's zero-new-shapes check reads."""
-    def run(s, t):
+    cache, which the serving layer's zero-new-shapes check reads. The
+    arguments before s and t (a version family's state) are passed
+    through."""
+    def run(*args):
+        s, t = args[-2:]
         run.shapes.add((tuple(np.shape(s)), tuple(np.shape(t))))
-        return fn(s, t)
+        return fn(*args)
     run.shapes = set()
     return run
 
@@ -77,7 +80,9 @@ class QueryEngine:
     storage codec (``core/labels.py``): "compressed" encodes delta16 ids
     (+ int32 distances when integral) and raises
     ``LabelCompressionError`` if the planes don't fit; "auto" compresses
-    when it can and keeps fp32 otherwise. The encoded planes live on the
+    when it can and keeps fp32 otherwise; ``encoded`` (delta16 planes of
+    the same labels, on the engine's device) skips the encode. The
+    encoded planes live on the
     engine's device; stage 1 reads them through the packed kernel and
     the stage-2 seeds decode them. Stage 1 reads label rows in place by
     endpoint id in either codec; only the stage-2 seeds gather rows.
@@ -85,7 +90,8 @@ class QueryEngine:
 
     def __init__(self, lbl_ids, lbl_d, core_pos, core_local_edges, n: int,
                  n_core: int, max_rounds: int = 0, backend: str = "auto",
-                 query_chunk: int = 0, label_dtype: str = "fp32"):
+                 query_chunk: int = 0, label_dtype: str = "fp32",
+                 encoded=None):
         if label_dtype not in ("fp32", "compressed", "auto"):
             raise ValueError(f"unknown label_dtype {label_dtype!r}")
         self.lbl_ids = lbl_ids
@@ -101,7 +107,12 @@ class QueryEngine:
         self.label_dtype = label_dtype
         self.codec = "none"
         self.enc_ids, self.enc_base, self.enc_d = lbl_ids, None, lbl_d
-        if label_dtype != "fp32":
+        if encoded is not None:
+            # planes already encoded from these labels (the versioned
+            # store's copy-on-write rows): no second encode
+            self.codec = "delta16"
+            self.enc_ids, self.enc_base, self.enc_d = encoded
+        elif label_dtype != "fp32":
             encode = (encode_labels if label_dtype == "compressed"
                       else try_encode_labels)
             # the planes come to the host once per engine, for the encode

@@ -1,5 +1,5 @@
 """Serving launcher of the port, the counterpart of ``repro.launch.serve``
-in its two index modes:
+in its three index modes:
 
 * ``--mode distance``: build (or ``--load``) an IS-LABEL index on
   ``--device`` (the card by default), register it, replay a scenario
@@ -26,9 +26,23 @@ in its two index modes:
   PYTHONPATH=src python -m repro_torch.launch.serve --mode path \\
       --graph er --n 512 --queries 512 --audit dijkstra
 
+* ``--mode mutate``: live §8.3 mutation under traffic: a *versioned*
+  server replays a ``readwrite`` trace — reads micro-batch as usual,
+  write rows apply insert/delete batches copy-on-write and hot-swap the
+  published index version between micro-batches. The run fails if the
+  shape counts grew across the replay, if a first-use build is counted
+  in ``serve_read``, or on zero QPS. ``--audit rebuild`` replays the
+  mutation log against from-scratch builds of the port on the same
+  device and demands every served read be bitwise-equal to the rebuilt
+  index's answer for the exact version that served it.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode mutate \\
+      --graph er --n 256 --queries 512 --write-ratio 0.06 \\
+      --spares 12 --audit rebuild
+
 ``--device cpu`` runs the index on the CPU (the kernels' plain
-versions). The LM, mutation and HTTP modes, and sharded indexes, are
-not ported yet.
+versions). The LM and HTTP modes, and sharded indexes, are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -69,12 +83,16 @@ class _ObsSession:
         """Write every requested sink; returns audit failures (a
         first-use build counted in ``serve_read`` or ``serve_path``, or
         trace coverage below 99%)."""
-        from repro_torch.obs import (device_memory_gauges, write_chrome_trace,
-                                     write_metrics)
+        from repro_torch.obs import (device_memory_gauges,
+                                     version_family_gauges,
+                                     write_chrome_trace, write_metrics)
         args = self.args
         failures = 0
         self.watcher.stop()
         device_memory_gauges()
+        if server.versions is not None:
+            print(f"  version family: "
+                  f"{version_family_gauges(server.versions, server=server.name)}")
         print(f"  first-use builds by region: {self.watcher.snapshot()}")
         served = {r: self.watcher.count(r) for r in ("serve_read",
                                                      "serve_path")}
@@ -229,9 +247,133 @@ def serve_distance(args, paths: bool = False) -> int:
     return failures
 
 
+def _audit_rebuild(args, n, src, dst, w, trace, served, vids) -> int:
+    """Differential rebuild audit for ``--mode mutate``: walk the trace
+    in order, mirror every write batch into an edge-list model of the
+    evolving graph, and for each version segment that served reads,
+    rebuild an index from scratch (the port, on ``--device``) on the
+    mirrored graph and demand bitwise equality with the served
+    answers."""
+    from repro_torch.core import ISLabelIndex, IndexConfig
+    from repro_torch.core.sync import host_read
+    cur_src = [int(a) for a in src]
+    cur_dst = [int(b) for b in dst]
+    cur_w = [float(x) for x in w]
+    bad = rebuilds = audited = 0
+    seg: list[int] = []
+
+    def flush(seg):
+        nonlocal bad, rebuilds, audited
+        if not seg:
+            return
+        rebuilds += 1
+        ref_idx = ISLabelIndex.build(
+            n, np.asarray(cur_src, np.int32), np.asarray(cur_dst, np.int32),
+            np.asarray(cur_w, np.float32),
+            IndexConfig(l_cap=args.l_cap, label_chunk=args.label_chunk),
+            device=args.device)
+        s = trace.s[seg]
+        t = trace.t[seg]
+        want = host_read(ref_idx.engine.query(
+            s, t, backend=args.backend or None))
+        got = served[seg]
+        bad += int((~((got == want)
+                      | (np.isinf(got) & np.isinf(want)))).sum())
+        audited += len(seg)
+
+    for i in range(len(trace)):
+        if trace.writes[i] is None:
+            seg.append(i)
+            continue
+        flush(seg)
+        seg = []
+        for op in trace.writes[i]:
+            u = int(op.u)
+            if op.kind == "insert":
+                for v, wv in zip(op.nbrs, op.ws):
+                    cur_src += [u, int(v)]
+                    cur_dst += [int(v), u]
+                    cur_w += [float(wv), float(wv)]
+            else:
+                keep = [j for j in range(len(cur_src))
+                        if cur_src[j] != u and cur_dst[j] != u]
+                cur_src = [cur_src[j] for j in keep]
+                cur_dst = [cur_dst[j] for j in keep]
+                cur_w = [cur_w[j] for j in keep]
+    flush(seg)
+    if bad:
+        print(f"  AUDIT FAIL: {bad}/{audited} served reads differ from "
+              f"the from-scratch rebuild of their version")
+        return 1
+    print(f"  audit[rebuild]: {audited} served reads bitwise-equal to "
+          f"{rebuilds} from-scratch rebuilds across "
+          f"{int(vids.max()) + 1} versions")
+    return 0
+
+
+def serve_mutate(args) -> int:
+    from repro_torch.core import ISLabelIndex, IndexConfig
+    from repro_torch.serve import IndexRegistry, make_trace
+
+    obs = _ObsSession(args, "mutate")
+    n_base, src, dst, w = _build_graph(args)
+    n = n_base + args.spares
+    print(f"[serve-mutate] graph {args.graph} n={n_base} "
+          f"(+{args.spares} spares) m={len(src)}")
+    t0 = time.time()
+    idx = ISLabelIndex.build(
+        n, src, dst, w,
+        IndexConfig(l_cap=args.l_cap, label_chunk=args.label_chunk),
+        device=args.device)
+    print(f"  index built on {idx.device} in {time.time() - t0:.1f}s: "
+          f"{idx.stats.summary()}")
+
+    registry = IndexRegistry()
+    server = registry.register(
+        args.index_name, idx,
+        buckets=tuple(int(b) for b in args.buckets.split(",")),
+        max_wait_ms=args.max_wait_ms, cache_size=args.cache,
+        backend=args.backend or None, versioned=True,
+        tracer=obs.tracer)
+    print(f"  warmed {server.compile_cache_sizes()} shapes "
+          f"in {server.warmup_seconds:.1f}s; route "
+          f"{server.versions.family.relax_mode}")
+
+    trace = make_trace("readwrite", n=n, num_requests=args.queries,
+                       rate_qps=args.rate, seed=args.seed,
+                       write_ratio=args.write_ratio, n_read=n_base,
+                       spares=range(n_base, n), attach_to=idx.core_ids)
+    print(f"  trace: {trace.meta}")
+    shapes_before = server.compile_cache_sizes()
+    with obs.profiled():
+        served, vids = server.serve_readwrite_trace(trace)
+    shapes_after = server.compile_cache_sizes()
+    stats = server.stats()
+    print(json.dumps(stats, indent=2, sort_keys=True))
+
+    failures = 0
+    if shapes_after != shapes_before:
+        print(f"  AUDIT FAIL: batch shapes grew under writes: "
+              f"{shapes_before} -> {shapes_after}")
+        failures += 1
+    else:
+        print(f"  audit[shapes]: no new batch shape across "
+              f"{stats['mutations']} version swaps")
+    if args.audit == "rebuild":
+        failures += _audit_rebuild(args, n, src, dst, w, trace, served,
+                                   vids)
+    if stats["qps_compute"] <= 0:
+        print("  AUDIT FAIL: zero QPS")
+        failures += 1
+    # the build watcher is the exported twin of the shape audit: no
+    # first-use build may be counted in serve_read
+    failures += obs.finish(server)
+    return failures
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", choices=["distance", "path"],
+    ap.add_argument("--mode", choices=["distance", "path", "mutate"],
                     default="distance")
     ap.add_argument("--device", default="cuda",
                     help="where the index lives: cuda (the kernels) or cpu "
@@ -253,8 +395,20 @@ def main(argv=None):
     ap.add_argument("--backend", default="",
                     help="kernel backend override: cuda | reference (auto "
                          "if empty)")
-    ap.add_argument("--audit", choices=["index", "dijkstra", "none"],
-                    default="index")
+    ap.add_argument("--audit", choices=["index", "dijkstra", "rebuild",
+                                        "none"],
+                    default="index",
+                    help="rebuild (--mode mutate): per-version "
+                         "from-scratch rebuild differential audit")
+    ap.add_argument("--write-ratio", type=float, default=0.05,
+                    help="--mode mutate: fraction of requests that are "
+                         "§8.3 write batches")
+    ap.add_argument("--spares", type=int, default=16,
+                    help="--mode mutate: preallocated vertex ids for "
+                         "live inserts")
+    ap.add_argument("--label-chunk", type=int, default=128,
+                    help="--mode mutate: IndexConfig.label_chunk for the "
+                         "served index and the rebuild-audit indexes")
     ap.add_argument("--audit-sample", type=int, default=512)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--index-name", default="default")
@@ -273,6 +427,8 @@ def main(argv=None):
                     help="wrap the replay in torch.profiler, writing a "
                          "Chrome trace into this directory")
     args = ap.parse_args(argv)
+    if args.mode == "mutate":
+        raise SystemExit(serve_mutate(args))
     raise SystemExit(serve_distance(args, paths=args.mode == "path"))
 
 

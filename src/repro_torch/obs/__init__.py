@@ -6,7 +6,8 @@
 from repro_torch.obs.export import EventLog, write_chrome_trace, write_metrics
 from repro_torch.obs.profiler import (BuildWatcher, compile_region,
                                       current_region, device_memory_gauges,
-                                      profiler_session, record_build)
+                                      profiler_session, record_build,
+                                      version_family_gauges)
 from repro_torch.obs.registry import (REGISTRY, Counter, Gauge, Histogram,
                                       MetricRegistry, default_latency_buckets)
 from repro_torch.obs.trace import NULL_TRACER, NullTracer, Span, Tracer
@@ -15,6 +16,7 @@ __all__ = [
     "EventLog", "write_chrome_trace", "write_metrics",
     "BuildWatcher", "compile_region", "current_region",
     "device_memory_gauges", "profiler_session", "record_build",
+    "version_family_gauges",
     "REGISTRY", "Counter", "Gauge", "Histogram", "MetricRegistry",
     "default_latency_buckets",
     "NULL_TRACER", "NullTracer", "Span", "Tracer",

@@ -20,6 +20,8 @@ serving engine tags its windows with ``compile_region``, as in
   warmup       building the server and pre-warming its entry points
   serve_read   the distance hot path          — MUST stay 0 after warmup
   serve_path   the pre-warmed path tiers and the host fallback
+  mutation     a versioned server's copy-on-write apply (the new
+               version's route layout, ``serve/versions.py``)
   other        anything untagged
 
 ``BuildWatcher`` reads the counts since it started, by region;
@@ -36,7 +38,8 @@ import torch
 from repro_torch.obs.registry import REGISTRY
 
 __all__ = ["BuildWatcher", "compile_region", "current_region",
-           "device_memory_gauges", "profiler_session", "record_build"]
+           "device_memory_gauges", "profiler_session", "record_build",
+           "version_family_gauges"]
 
 FIRST_USE_BUILDS = "obs.first_use_builds"
 
@@ -132,6 +135,54 @@ def device_memory_gauges(registry=None) -> dict:
         gauge.set(value, device=str(dev))
         out[f"device{dev}_bytes_in_use"] = value
     return out
+
+
+def _tensors(obj):
+    """The tensors of a (nested) tuple or NamedTuple."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, tuple):
+        for x in obj:
+            yield from _tensors(x)
+
+
+def version_family_gauges(manager, registry=None, server: str = "default"
+                          ) -> dict:
+    """Per-version-family device footprint:
+
+      versions.live{server}         live version count
+      versions.state_bytes{server}  summed bytes of the storages the live
+                                    ``VersionState``s hold (a storage
+                                    shared between versions counted
+                                    once, by its ``data_ptr``)
+      versions.current_vid{server}
+
+    The port's states hold the route's CSR or sliced in-edges where
+    ``repro``'s hold ELL planes, so the byte count is the port's own.
+    """
+    reg = registry if registry is not None else REGISTRY
+    seen: set = set()
+    nbytes = 0
+    for vid in manager.live_versions():
+        state = manager._versions[vid].state
+        if state is None:
+            continue
+        for t in _tensors(state):
+            storage = t.untyped_storage()
+            key = (str(t.device), storage.data_ptr())
+            if key not in seen:
+                seen.add(key)
+                nbytes += int(storage.nbytes())
+    live = len(manager.live_versions())
+    reg.gauge("versions.live", "live index versions").set(live,
+                                                          server=server)
+    reg.gauge("versions.state_bytes",
+              "device bytes pinned by live version states").set(
+        nbytes, server=server)
+    reg.gauge("versions.current_vid", "published version id").set(
+        manager.current.vid, server=server)
+    return {"live": live, "state_bytes": nbytes,
+            "current_vid": manager.current.vid}
 
 
 # ------------------------------------------------------------ profiler

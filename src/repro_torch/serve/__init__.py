@@ -2,18 +2,23 @@
 # port's ISLabelIndex, the counterpart of repro.serve: shape-bucket
 # micro-batching, μ-exact routing, LRU caching, metrics, a multi-graph
 # registry, a scenario load generator and the batched shortest-path
-# lane. Versioned mutation, replica groups and the HTTP front end are
-# not ported yet.
+# lane and versioned copy-on-write mutation under live traffic. Replica
+# groups and the HTTP front end are not ported yet.
 from repro_torch.serve.batcher import Batch, MicroBatcher, PendingRequest
 from repro_torch.serve.cache import LRUCache
 from repro_torch.serve.engine import DistanceServer, PathAnswer, mu_exact_mask
 from repro_torch.serve.loadgen import SCENARIOS, Trace, make_trace
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.registry import IndexRegistry
-from repro_torch.serve.versions import MutationOp
+from repro_torch.serve.versions import (FamilyCapacityError, IndexVersion,
+                                        LabelBlockStore, MutationOp,
+                                        VersionFamily, VersionManager,
+                                        VersionState)
 
 __all__ = [
     "Batch", "MicroBatcher", "PendingRequest", "LRUCache",
     "DistanceServer", "PathAnswer", "mu_exact_mask", "SCENARIOS", "Trace",
-    "make_trace", "ServeMetrics", "IndexRegistry", "MutationOp",
+    "make_trace", "ServeMetrics", "IndexRegistry",
+    "FamilyCapacityError", "IndexVersion", "LabelBlockStore", "MutationOp",
+    "VersionFamily", "VersionManager", "VersionState",
 ]

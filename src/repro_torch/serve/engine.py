@@ -37,7 +37,8 @@ and round count, inside the timed window; the only other syncs are the
 relaxation loop's own exit-flag reads (none on the ``fused`` route and
 on the ``mu`` lane). A path batch reads its ``PathBatch`` once a
 hop_cap tier and decides the escalation from that read. The routing
-mask comes to the host once, at construction and at ``refresh``.
+mask comes to the host once, at construction and at ``refresh`` (in
+versioned mode, once per version, inside ``apply``).
 
 Path lane. Constructing with ``path_hop_caps=(h1, h2, ...)`` opens a
 third lane serving shortest *paths*: ``submit_path``/``serve_path_trace``
@@ -53,10 +54,22 @@ is counted in ``serve_read`` or ``serve_path`` (``obs.profiler``).
 ``compile_cache_sizes`` counts the distinct batch shapes each lane's
 entry point has run, the counterpart of ``repro``'s jit cache sizes.
 
-Not ported yet: ``versioned=True`` (ROADMAP queue 1 item 6) and a
-sharded index (item 7) raise ``NotImplementedError``;
-``submit_mutation`` and ``serve_readwrite_trace`` keep ``repro``'s
-``ValueError`` for a server that is not versioned.
+Mutation lane (versioned mode). Constructing with ``versioned=True``
+routes the entry points through a ``VersionFamily``
+(``serve/versions.py``): they take the index state as an argument
+instead of closing over it, so ``submit_mutation`` applies a §8.3
+insert/delete batch copy-on-write, hot-swaps the published version
+between micro-batches, and the pre-warmed entry points survive — no
+first-use build and no new batch shape under concurrent read/write
+traffic (the new version's route layout is built inside
+``compile_region("mutation")``). Pending read batches are
+force-flushed before the swap (they complete on the version current
+when they were submitted), the LRU cache and routing mask are
+per-version (cleared/replaced on swap), and old versions are
+refcount-drained before release. Versioned mode serves distances of an
+unsharded index only: with ``path_hop_caps`` or a sharded index it
+raises ``ValueError``. Serving a sharded index is not ported yet
+(ROADMAP queue 1) and raises ``NotImplementedError``.
 
 The engine is clock-driven and deterministic: callers pass ``now``
 (simulated or wall time) to ``submit``/``pump``. ``serve_trace`` replays
@@ -120,14 +133,18 @@ class DistanceServer:
                  version_kwargs: dict | None = None,
                  tracer=None, registry=None):
         if versioned:
-            raise NotImplementedError(
-                "versioned serving is not ported yet (ROADMAP queue 1 "
-                "item 6)")
+            if path_hop_caps:
+                raise ValueError(
+                    "versioned serving does not cover the path lane; "
+                    "serve paths from a non-versioned server")
+            if hasattr(index, "num_shards"):
+                raise ValueError(
+                    "versioned serving is unsharded-only; mutate a "
+                    "sharded index and re-register it")
         if hasattr(index, "num_shards"):
             raise NotImplementedError(
                 "serving a sharded index is not ported yet (ROADMAP queue "
-                "1 item 7)")
-        del version_kwargs
+                "1)")
         self.index = index
         self.name = name
         self.buckets = tuple(sorted(int(b) for b in buckets))
@@ -139,6 +156,12 @@ class DistanceServer:
         self.cache = LRUCache(cache_size, symmetric=cache_symmetric)
         self.lanes = {lane: MicroBatcher(self.buckets, self.max_wait_s)
                       for lane in LANES}
+        self.versions = None
+        if versioned:
+            from repro_torch.serve.versions import VersionManager
+            with compile_region("warmup"):
+                self.versions = VersionManager.from_index(
+                    index, **(version_kwargs or {}))
         self.path_hop_caps = (tuple(sorted(int(h) for h in path_hop_caps))
                               if path_hop_caps else ())
         if self.path_hop_caps:
@@ -159,7 +182,15 @@ class DistanceServer:
             self.warmup()
 
     def _bind(self) -> None:
-        """Routing mask and entry points of the index as it is now."""
+        """Routing mask and entry points of the index as it is now (of
+        the version family in versioned mode)."""
+        if self.versions is not None:
+            family = self.versions.family
+            self._no_core_entry = self.versions.current.mu_mask
+            self._fns = {"mu": family.mu_fn(self.backend),
+                         "full": family.full_fn(self.backend)}
+            self._path_fns = {}
+            return
         with compile_region("warmup"):
             self._no_core_entry = mu_exact_mask(self.index)
             self._fns = {"mu": self.index.engine.mu_batch_fn(self.backend),
@@ -176,6 +207,9 @@ class DistanceServer:
         answer, recomputes the routing mask, and rebinds (and by
         default re-warms) the entry points — the mutators install a
         fresh ``QueryEngine``."""
+        if self.versions is not None:
+            raise ValueError("versioned server: mutate through "
+                             "submit_mutation(ops, now) instead")
         self.cache.clear()
         if self.path_hop_caps:
             self.path_cache.clear()
@@ -190,7 +224,11 @@ class DistanceServer:
         a path lane, every (bucket, hop_cap) tier too."""
         t0 = time.perf_counter()
         with compile_region("warmup"):
-            timings = self.index.engine.warmup(self.buckets, self.backend)
+            if self.versions is not None:
+                timings = self.versions.warmup(self.buckets, self.backend)
+            else:
+                timings = self.index.engine.warmup(self.buckets,
+                                                   self.backend)
             if self.path_hop_caps:
                 timings.update(self.index.path_engine().warmup(
                     self.buckets, self.path_hop_caps, self.backend))
@@ -325,9 +363,13 @@ class DistanceServer:
 
     def _execute(self, lane: str, batch) -> int:
         reqs, p, s_pad, t_pad = self._batch_arrays(batch)
+        version = None if self.versions is None else self.versions.acquire()
         with compile_region("serve_read"):
             t0 = time.perf_counter()
-            out = self._fns[lane](s_pad, t_pad)
+            if version is not None:
+                out = self._fns[lane](version.state, s_pad, t_pad)
+            else:
+                out = self._fns[lane](s_pad, t_pad)
             # one blocking read of the batch's results
             if lane == "full":
                 ans, rounds = host_read(out)
@@ -335,6 +377,8 @@ class DistanceServer:
             else:
                 ans, rounds = host_read(out), 0
             exec_s = time.perf_counter() - t0 + self.exec_delay_s
+        if version is not None:
+            self.versions.release(version)
         for i, r in enumerate(reqs):
             val = float(ans[i])
             self._results[r.rid] = val
@@ -345,7 +389,7 @@ class DistanceServer:
             self.metrics.record_latency(wait + exec_s)
         self.metrics.record_batch(lane, batch.bucket, p, exec_s, rounds)
         self._trace_batch(lane, batch, reqs, exec_s, rounds=rounds,
-                          vid=None)
+                          vid=None if version is None else version.vid)
         return p
 
     def _execute_path(self, batch) -> int:
@@ -409,20 +453,98 @@ class DistanceServer:
 
     # ----------------------------------------------------- mutation lane
     def submit_mutation(self, ops, now: float):
-        """The versioned mutation lane (not ported yet): raises, as
-        ``repro`` does for a server that is not versioned."""
-        raise ValueError("server not versioned: pass versioned=True "
-                         "(or use ISLabelIndex.insert_vertex + "
-                         "refresh())")
+        """Apply a §8.3 insert/delete batch between micro-batches.
 
-    def serve_readwrite_trace(self, trace):
-        """Raises, as ``repro`` does for a server that is not
-        versioned."""
-        raise ValueError("serve_readwrite_trace needs versioned=True")
+        Pending read batches are force-flushed first, so every already-
+        submitted request completes on the version that was current at
+        its submit time (hot-swap atomicity). Then the batch applies
+        copy-on-write inside ``compile_region("mutation")``, the new
+        version publishes atomically, the per-version caches (LRU
+        answers, routing mask, the host oracle the audits read via
+        ``self.index``) move to the new version, and the old version is
+        retired — dropped now if no reader pins it, else when the last
+        in-flight ``release`` lands. The entry points are untouched:
+        same family, same shapes. Returns the new ``IndexVersion``."""
+        if self.versions is None:
+            raise ValueError("server not versioned: pass versioned=True "
+                             "(or use ISLabelIndex.insert_vertex + "
+                             "refresh())")
+        tr = self.tracer
+        t0 = time.perf_counter()
+        self.pump(now, force=True)
+        flush_s = time.perf_counter() - t0
+        old = self.versions.current
+        with compile_region("mutation"):
+            version = self.versions.apply(ops)
+        t1 = time.perf_counter()
+        self.index = version.index
+        self._no_core_entry = version.mu_mask
+        self.cache.clear()
+        self.versions.retire(old)
+        retire_s = time.perf_counter() - t1
+        self.metrics.record_mutation(len(ops), version.swap_seconds)
+        if tr.enabled:
+            # mutation-lane spans on the serving clock: wall-clock stage
+            # durations laid out end to end from the submit instant
+            msp = tr.start("mutation", now, cat="mutation",
+                           track="lane:mutation", trace_id=version.vid,
+                           ops=len(ops), vid=version.vid)
+            cursor = now
+            stages = [("flush_pending", flush_s)]
+            stages += [(k, version.stage_seconds.get(k, 0.0))
+                       for k in ("cow_apply", "device_update", "publish")]
+            stages.append(("retire", retire_s))
+            for sname, dur in stages:
+                tr.add(sname, cursor, cursor + dur, cat="mutation",
+                       trace_id=version.vid, parent=msp,
+                       track="lane:mutation")
+                cursor += dur
+            tr.end(msp, cursor)
+        return version
 
     def drain(self, now: float | None = None) -> int:
-        """Flush every pending batch. Returns requests completed."""
-        return self.pump(float("inf") if now is None else now, force=True)
+        """Flush every pending batch and retire all non-current
+        versions. Returns requests completed; raises if a retired
+        version is still pinned (a reader leaked an ``acquire``)."""
+        done = self.pump(float("inf") if now is None else now, force=True)
+        if self.versions is not None:
+            leftover = self.versions.drain()
+            if leftover:
+                raise RuntimeError(
+                    f"versions {leftover} still pinned after drain")
+        return done
+
+    def serve_readwrite_trace(self, trace):
+        """Replay a ``readwrite`` loadgen trace: reads micro-batch as
+        usual, write rows apply through ``submit_mutation`` on the
+        trace clock. Returns ``(answers float32[R], vids int64[R])`` —
+        NaN answers on write rows, and per row the version id the
+        request was served under (write rows report the version they
+        published), so a differential audit can replay every read
+        against the exact snapshot that answered it."""
+        if self.versions is None:
+            raise ValueError("serve_readwrite_trace needs versioned=True")
+        if trace.writes is None:
+            raise ValueError("trace has no writes; use serve_trace")
+        n_req = len(trace)
+        rids = np.full(n_req, -1, np.int64)
+        vids = np.zeros(n_req, np.int64)
+        for i in range(n_req):
+            now = float(trace.arrival_s[i])
+            self.pump(now)
+            if trace.writes[i] is not None:
+                vids[i] = self.submit_mutation(trace.writes[i], now).vid
+            else:
+                vids[i] = self.versions.current.vid
+                rids[i] = self.submit(int(trace.s[i]), int(trace.t[i]), now)
+            self.pump(now)
+        self.pump(trace.span_s, force=True)
+        self.metrics.trace_span_s += trace.span_s
+        answers = np.full(n_req, np.nan, np.float32)
+        for i in range(n_req):
+            if rids[i] >= 0:
+                answers[i] = self._results.pop(int(rids[i]))
+        return answers, vids
 
     # ------------------------------------------------------ trace replay
     def _replay(self, trace, submit_fn) -> np.ndarray:
@@ -483,7 +605,12 @@ class DistanceServer:
             "backend": self.backend or "auto",
             "warmup_seconds": self.warmup_seconds,
             "compiled_shapes": self.compile_cache_sizes(),
-            "versions": None,
+            "versions": (None if self.versions is None else {
+                "current": self.versions.current.vid,
+                "live": self.versions.live_versions(),
+                "core_cap": self.versions.family.core_cap,
+                "edge_cap": self.versions.family.edge_cap,
+            }),
             # process-wide registry sections (fault counters where a
             # component reports them, and the first-use build and
             # allocator gauges of obs.profiler)

@@ -31,6 +31,8 @@ def _modules():
 def test_import_pulls_in_neither_jax_nor_repro():
     mods = _modules()
     assert "repro_torch.kernels.spmv_relax.ops" in mods
+    assert {"repro_torch.serve.versions",
+            "repro_torch.core.directed"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or "
@@ -113,7 +115,7 @@ def test_kernel_bindings_refuse_cpu_tensors():
             call()
 
 
-def test_compressed_labels_not_ported_yet():
+def test_compressed_labels_build_and_serve_delta16():
     """``label_dtype="compressed"`` builds, and its engine serves the
     delta16 codec (the packed kernel's path)."""
     n, src, dst, w = gen.er_graph(64, 2.0, seed=0)

@@ -34,7 +34,8 @@ from repro_torch.kernels.spmv_relax.kernel import (
     SMEM_BLOCK_BYTES, VERTEX_BYTES, RelaxCSR, SlicedEdges, fused_variant,
     fused_vmem_bytes)
 from repro_torch.kernels.spmv_relax.ops import (coo_to_csr, coo_to_sliced,
-                                                fused_relax, spmv_relax)
+                                                fused_relax, spmv_relax,
+                                                stable_argsort)
 from repro_torch.kernels.spmv_relax.ref import tile_any
 
 J_BACKENDS = ("interpret", "reference")
@@ -183,6 +184,19 @@ def _csr(v, src, dst, w):
     indptr, s, ws, order, n_heavy = coo_to_csr(v, src, dst, w)
     return RelaxCSR(*(torch.from_numpy(x) for x in (indptr, s, ws, order)),
                     n_heavy)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_stable_argsort_is_numpys(dtype):
+    """The layouts' torch sort gives numpy's stable permutation: ties
+    in input order, negative keys (``-indeg``), and no keys."""
+    rng = np.random.default_rng(7)
+    for a in (rng.integers(-50, 50, 10_000).astype(dtype),
+              np.zeros(33, dtype), np.arange(40, 0, -1).astype(dtype),
+              np.zeros(0, dtype)):
+        got = stable_argsort(a)
+        np.testing.assert_array_equal(got, np.argsort(a, kind="stable"))
+        assert got.dtype == np.int64
 
 
 @pytest.mark.parametrize("case", sorted(SPMV_CASES))

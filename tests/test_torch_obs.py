@@ -289,6 +289,31 @@ def test_launcher_exits_zero_on_cpu(mode, extra, tmp_path, capsys):
     assert "serve.served" in metrics["metrics"]
 
 
+def test_launcher_mutate_mode_exits_zero_on_cpu(tmp_path, capsys):
+    """``--mode mutate --audit rebuild``: a versioned server replays a
+    readwrite trace; every read equals a from-scratch rebuild of its
+    version, no new batch shape, no first-use build in serve_read, and
+    the traced mutation spans cover the replay."""
+    from repro_torch.launch.serve import main
+    trace_out = tmp_path / "trace.json"
+    argv = ["--device", "cpu", "--mode", "mutate", "--graph", "er", "--n",
+            "256", "--l-cap", "128", "--queries", "384", "--write-ratio",
+            "0.06", "--spares", "12", "--buckets", "16,64", "--audit",
+            "rebuild", "--trace-out", str(trace_out)]
+    with pytest.raises(SystemExit) as stop:
+        main(argv)
+    out = capsys.readouterr().out
+    assert stop.value.code == 0, out
+    assert "AUDIT FAIL" not in out
+    assert "audit[shapes]: no new batch shape" in out
+    assert "served reads bitwise-equal to" in out
+    assert "audit[first-use builds]: 0" in out
+    doc = json.loads(trace_out.read_text())
+    names = {e["name"] for e in doc["traceEvents"]}
+    assert {"mutation", "cow_apply", "device_update", "publish",
+            "retire"} <= names
+
+
 def test_launcher_runs_on_the_card_by_default():
     if torch.cuda.is_available():
         pytest.skip("this check is for a machine without CUDA")

@@ -20,6 +20,7 @@ bitwise.
 from __future__ import annotations
 
 import json
+import types
 
 import numpy as np
 import pytest
@@ -29,6 +30,8 @@ from repro.core import ISLabelIndex as JIndex
 from repro.core import IndexConfig as JConfig
 from repro.graphs import generators as gen
 from repro.serve import DistanceServer as JServer
+from repro.serve import IndexRegistry as JRegistry
+from repro.serve import MutationOp as JOp
 from repro.serve import make_trace as j_make_trace
 from repro.serve import mu_exact_mask as j_mu_exact_mask
 from repro_torch.core import ISLabelIndex, IndexConfig
@@ -360,8 +363,18 @@ def test_wall_clock_pump_never_records_negative_latency(index):
 
 
 def test_not_ported_modes_raise(index):
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        DistanceServer(index, versioned=True, warmup=False)
+    """The versioned guards, as ``repro``'s: no path lane and no sharded
+    index in versioned mode (``ValueError``); a sharded index, not
+    ported yet, raises ``NotImplementedError`` on any server; the
+    mutation lane of a server that is not versioned raises."""
+    with pytest.raises(ValueError, match="path lane"):
+        DistanceServer(index, versioned=True, path_hop_caps=(32,),
+                       warmup=False)
+    sharded = types.SimpleNamespace(num_shards=2)
+    with pytest.raises(ValueError, match="unsharded-only"):
+        DistanceServer(sharded, versioned=True, warmup=False)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        DistanceServer(sharded, warmup=False)
     srv = DistanceServer(index, buckets=(8,), warmup=False)
     with pytest.raises(ValueError, match="not versioned"):
         srv.submit_mutation([MutationOp("delete", 3)], now=0.0)
@@ -505,3 +518,182 @@ def test_query_host_accepts_scalars_and_tensors(pair):
         one = index.query_host(torch.tensor(17), np.int32(5))
     np.testing.assert_array_equal(one, np.asarray(j_idx.query_host(17, 5)))
     assert one.shape == (1,) and span.count >= 1
+
+
+# --------------------------------------- versioned mutation lane (§8.3)
+@pytest.fixture(scope="module")
+def vpair(tmp_path_factory):
+    """Base graph plus 8 preallocated spare ids for live inserts, as in
+    ``tests/test_serving.py``; ``repro`` builds, the port loads."""
+    n, src, dst, w = gen.er_graph(180, 2.4, seed=4)
+    return _load(tmp_path_factory, "er180v", n + 8, src, dst, w, l_cap=128,
+                 label_chunk=64)
+
+
+@pytest.fixture(scope="module")
+def vindex(vpair):
+    return vpair[1]
+
+
+def _vserver(index, **kw):
+    kw.setdefault("buckets", (8, 32))
+    kw.setdefault("max_wait_ms", 1.0)
+    return DistanceServer(index, versioned=True, **kw)
+
+
+def _bridge(index, max_w=9.0):
+    """A spare u plus two core endpoints whose distance a unit-weight
+    bridge through u provably shortens (d > 2)."""
+    core = np.asarray(index.core_ids, np.int32)
+    u = index.n - 1                               # last spare, never core
+    aa, bb = np.meshgrid(core, core, indexing="ij")
+    d = np.asarray(index.query_host(aa.ravel(), bb.ravel()), np.float32)
+    j = np.flatnonzero((d > 2.0) & (d < max_w))
+    return u, int(aa.ravel()[j[0]]), int(bb.ravel()[j[0]]), d[j[0]]
+
+
+@pytest.mark.parametrize("backend", [None, "cuda"])
+def test_versioned_readwrite_parity_with_repro(vpair, backend):
+    """The same ``readwrite`` trace through ``repro``'s versioned server
+    and the port's (reference backend, or the fused route's plain
+    versions): answers and vids bitwise, no new batch shape and no
+    first-use build in ``serve_read`` across the swaps (each swap's
+    layout build counted in ``mutation``)."""
+    j_idx, index = vpair
+    kw = dict(buckets=(8, 32), max_wait_ms=1.0, cache_size=1024)
+    j_srv = JServer(j_idx, versioned=True, **kw)
+    with BuildWatcher() as warm:
+        srv = DistanceServer(index, versioned=True, backend=backend, **kw)
+    assert warm.count("serve_read") == 0 and warm.count("warmup") >= 1
+    pre = srv.compile_cache_sizes()
+    assert pre == {"mu": 2, "full": 2}
+    nb = index.n - 8
+    tr = make_trace("readwrite", n=index.n, num_requests=400,
+                    rate_qps=5e4, seed=1, write_ratio=0.05, n_read=nb,
+                    spares=range(nb, index.n), attach_to=index.core_ids)
+    with BuildWatcher() as watch:
+        ans, vids = srv.serve_readwrite_trace(tr)
+    j_ans, j_vids = j_srv.serve_readwrite_trace(tr)
+    np.testing.assert_array_equal(ans, np.asarray(j_ans, np.float32))
+    np.testing.assert_array_equal(vids, j_vids)
+    assert srv.compile_cache_sizes() == pre
+    writes = tr.meta["writes"]
+    assert writes > 5
+    assert watch.snapshot() == {"mutation": writes}
+    assert _lane_buckets(srv.metrics) == _lane_buckets(j_srv.metrics)
+    reads = np.flatnonzero([w is None for w in tr.writes])
+    seg = reads[vids[reads] == vids.max()]
+    np.testing.assert_array_equal(ans[seg],
+                                  srv.index.query_host(tr.s[seg], tr.t[seg]))
+    snap, j_snap = srv.stats(), j_srv.stats()
+    assert snap["mutations"] == j_snap["mutations"] == writes
+    assert snap["versions"] == j_snap["versions"]
+    assert snap["versions"]["live"] == [writes]
+    srv.drain()
+    j_srv.drain()
+
+
+def test_per_version_cache_isolation_no_stale_hits(vindex):
+    srv = _vserver(vindex, cache_size=256)
+    u, a, b, d_old = _bridge(vindex)
+    r1 = srv.submit(a, b, now=0.0)
+    srv.pump(now=0.0, force=True)
+    assert srv.take_result(r1) == d_old
+    r2 = srv.submit(a, b, now=0.001)             # same version: cache hit
+    assert srv.take_result(r2) == d_old
+    assert srv.metrics.cache_hits == 1
+    srv.submit_mutation([MutationOp("insert", u, (a, b), (1.0, 1.0))],
+                        now=0.002)
+    assert len(srv.cache) == 0                   # swap clears the cache
+    r3 = srv.submit(a, b, now=0.003)
+    srv.pump(now=0.003, force=True)
+    got = srv.take_result(r3)
+    assert got == np.float32(2.0) and got != d_old   # not the stale value
+    assert srv.metrics.cache_hits == 1           # r3 was computed, not hit
+    srv.drain()
+
+
+def test_swap_atomicity_inflight_batch_completes_on_old_version(vindex):
+    srv = _vserver(vindex, cache_size=0, max_wait_ms=1e6)
+    u, a, b, d_old = _bridge(vindex)
+    rid = srv.submit(a, b, now=0.0)              # queued, deadline far off
+    assert srv.take_result(rid) is None
+    v = srv.submit_mutation([MutationOp("insert", u, (a, b), (1.0, 1.0))],
+                            now=0.0)
+    # the swap force-flushed the in-flight read on its submit-time
+    # version: it sees the pre-mutation distance
+    assert srv.take_result(rid) == d_old
+    rid2 = srv.submit(a, b, now=0.1)
+    srv.pump(now=0.1, force=True)
+    assert srv.take_result(rid2) == np.float32(2.0)
+    assert srv.versions.current is v
+    assert srv.versions.live_versions() == [v.vid]   # the old one retired
+    srv.drain()
+
+
+def test_versioned_mode_guards(vindex):
+    srv = _vserver(vindex)
+    with pytest.raises(ValueError, match="submit_mutation"):
+        srv.refresh()
+    with pytest.raises(ValueError):
+        DistanceServer(vindex, versioned=True, path_hop_caps=(32,))
+    with pytest.raises(ValueError, match="no writes"):
+        srv.serve_readwrite_trace(make_trace("uniform", n=vindex.n,
+                                             num_requests=4))
+    srv.drain()
+
+
+def test_drain_raises_on_a_pinned_leftover(vindex):
+    srv = _vserver(vindex, warmup=False)
+    u, a, b, _ = _bridge(vindex)
+    leaked = srv.versions.acquire()              # a reader that never ends
+    srv.submit_mutation([MutationOp("insert", u, (a, b), (1.0, 1.0))],
+                        now=0.0)
+    with pytest.raises(RuntimeError, match="still pinned"):
+        srv.drain()
+    srv.versions.release(leaked)
+    assert srv.drain() == 0
+    assert srv.versions.live_versions() == [1]
+
+
+def test_registry_replacement_goes_through_drain(vpair):
+    """``register`` on a taken name drains the old server: its queued
+    read is answered on its own (mutated) version and its retired
+    versions are released — in both packages."""
+    for reg, idx, op in ((IndexRegistry(), vpair[1], MutationOp),
+                         (JRegistry(), vpair[0], JOp)):
+        old = reg.register("g", idx, buckets=(8,), max_wait_ms=1e6,
+                           warmup=False, versioned=True)
+        u, a, b, d_old = _bridge(vpair[1])
+        old.submit_mutation([op("insert", u, (a, b), (1.0, 1.0))], now=0.0)
+        rid = old.submit(a, b, now=0.0)          # left queued
+        new = reg.register("g", idx, buckets=(8,), warmup=False,
+                           versioned=True)
+        assert reg.get("g") is new and new is not old and len(reg) == 1
+        assert old.take_result(rid) == np.float32(2.0)
+        assert old.versions.live_versions() == [old.versions.current.vid]
+        reg.unregister("g")
+
+
+def test_mutation_lane_trace_spans(vindex):
+    """A traced swap lays its stages end to end under one ``mutation``
+    span, and a read batch records the vid it ran on."""
+    from repro_torch.obs import Tracer
+    tr = Tracer("test")
+    srv = _vserver(vindex, tracer=tr, max_wait_ms=1e6)
+    u, a, b, _ = _bridge(vindex)
+    srv.submit(a, b, now=0.0)
+    v = srv.submit_mutation([MutationOp("insert", u, (a, b), (1.0, 1.0))],
+                            now=0.0)
+    spans = tr.finished()
+    [top] = [sp for sp in spans if sp.name == "mutation"]
+    kids = [sp for sp in spans if sp.parent_id == top.span_id]
+    assert sorted(sp.name for sp in kids) == sorted(
+        ["flush_pending", "cow_apply", "device_update", "publish", "retire"])
+    assert top.args["vid"] == v.vid and top.t0 == 0.0
+    assert abs(sum(sp.duration for sp in kids) - top.duration) < 1e-9
+    execs = [sp for sp in spans if sp.name == "device_exec"]
+    assert execs and execs[0].args["vid"] == 0
+    assert set(v.stage_seconds) == {"cow_apply", "device_update", "publish"}
+    assert v.swap_seconds >= sum(v.stage_seconds.values()) - 1e-9
+    srv.drain()
