@@ -71,10 +71,32 @@ Phases, one JSON line each (with its seconds):
    100,000, e = 400,000, ``tests/test_directed.py``'s generator): 1,024
    pairs in calls of 256, 16 sources against Dijkstra, ``reachable``,
    and 8 host-oracle paths checked edge by edge. No kernel runs there.
-9. builders — ``er:10000:2.2@1`` built with ``builder="host"`` and
+9. sharded_<path> — ``ShardedIndex.from_index(idx, 4, strategy="level")``
+   on each main path's index, all four shards on this card (one
+   relaxer shared): partition seconds, entries and block bytes per
+   shard; 1,024 pairs (256 on ``ell_loop``) whose answers, every
+   shard's rounds and the μ-only lane equal the unsharded index's,
+   with exactly 4× the unsharded query's launches and one cross-shard
+   reduction a call under sync debug mode "error", timed beside the
+   unsharded query; a ``hotspot`` replay of 1,024 requests (256 on
+   ``ell_loop``) through ``DistanceServer`` over the shards, answers
+   equal to ``idx.query``, no first-use build. On ``fused`` also a
+   path-lane replay of 256 requests (paths audited) and
+   ``apply_mutations`` inserting the mutation phase's hold-out vertex,
+   answering as ``insert_vertex`` on the unsharded hold-out index.
+10. http — ``ServiceFrontend`` on localhost over a ``ReplicaSet`` of 2
+   on the ``fused`` index: 2,048 ``uniform`` requests through
+   ``replay_http`` (64 pairs a request) equal to ``idx.query`` with no
+   SLO alert, then a ``straggler`` replay (1,024 requests, replica 0
+   stalled 5 s a batch) that must evict replica 0 and fire the latency
+   SLO; ``/metrics`` parsed; req/s and wire ms. Then
+   ``python -m repro_torch.launch.serve --mode http --graph er --n 10000
+   --l-cap 64 --replicas 2 --scenario straggler --audit index`` must
+   exit 0.
+11. builders — ``er:10000:2.2@1`` built with ``builder="host"`` and
    ``builder="device"`` from one seed must give the same hierarchy and
    labels, bitwise; then whether the 10^6 graph's labels fit delta16.
-10. kernels — each kernel on the card against its plain PyTorch version
+12. kernels — each kernel on the card against its plain PyTorch version
    (``torch.equal``) on the inputs the main path gave it, with
    CUDA-event times and the bound of the same work. The label kernels
    also run at ``repro``'s serving batches (Q = 64, 256, 1024) beside
@@ -201,6 +223,26 @@ LAUNCHER_WRITE_RATIO = 0.05   # launch/serve.py --write-ratio
 VERSION_WRITE_BATCH = 2
 VERSION_REBUILD_EVERY = 8     # rebuild audit: every 8th segment and the last
 VERSION_ORACLE = {"fused": 256}   # Dijkstra sample of the reads
+# sharded indexes (repro_torch.shard) over each main path's index, every
+# shard on this card: tests/test_shard.py's largest P and launch/serve.py's
+# --shard-strategy default
+SHARDS = 4
+SHARD_STRATEGY = "level"
+SHARD_QUERIES = {"ell_loop": 256}          # MAIN_QUERIES elsewhere
+SHARD_REPEATS = 5                          # timed calls after the first two
+SHARD_SERVE_REQUESTS = {"ell_loop": 256}   # 1024 elsewhere
+SHARD_PATH_REQUESTS = 256                  # path lane and batch, fused only
+# the HTTP service (serve/frontend.py) over a ReplicaSet on the fused
+# index, with launch/serve.py's --slo-latency-ms and --stall-s defaults
+HTTP_REPLICAS = 2
+HTTP_REQUESTS = 2048
+HTTP_STRAGGLER_REQUESTS = 1024
+HTTP_BATCH = 64                            # pairs a /query request
+HTTP_SLO_S = 1.0
+HTTP_STALL_S = 5.0
+HTTP_LAUNCHER = ["--mode", "http", "--graph", "er", "--n", "10000",
+                 "--l-cap", "64", "--replicas", "2", "--scenario",
+                 "straggler", "--audit", "index"]
 # directed graphs (§8.2): tests/test_directed.py's _digraph at scale
 DIRECTED = dict(n=100_000, e=400_000, seed=0, maxw=5, l_cap=256,
                 label_chunk=8192)
@@ -547,6 +589,26 @@ def phase_paths(path, idx, s, t, graph, tables) -> dict:
     return rec
 
 
+def holdout():
+    """``MUTATION_GRAPH`` and its held-out vertex u: the last vertex of
+    degree 2–6 in the graph's largest component. Returns (n, src, dst,
+    w, u, keep, nbrs, ws): ``keep`` masks the edges not touching u, and
+    (nbrs, ws) are u's edges."""
+    import numpy as np
+    from scipy.sparse.csgraph import connected_components
+    from repro_torch.core import ref
+    from repro_torch.graphs import generators as gen
+    _, (fn, args, seed), _ = MUTATION_GRAPH
+    n, src, dst, w = getattr(gen, fn)(*args, seed=seed)
+    deg = np.bincount(src, minlength=n)
+    _, comp = connected_components(ref.build_csr(n, src, dst, w))
+    giant = comp == np.bincount(comp).argmax()
+    u = int(np.flatnonzero(giant & (deg >= 2) & (deg <= 6))[-1])
+    keep = (src != u) & (dst != u)
+    return (n, src, dst, w, u, keep, dst[src == u].tolist(),
+            w[src == u].tolist())
+
+
 def phase_mutation(tables, device="cuda") -> dict:
     """§8.3 on a hold-out build of ``MUTATION_GRAPH``: u is the last
     vertex of degree 2–6 in the graph's largest component; the index is
@@ -568,22 +630,15 @@ def phase_mutation(tables, device="cuda") -> dict:
     ``tests/test_paths_updates.py::test_delete_vertex``)."""
     import numpy as np
     import torch
-    from scipy.sparse.csgraph import connected_components
     from repro_torch.core import ISLabelIndex, IndexConfig, ref, sync
-    from repro_torch.graphs import generators as gen
     from repro_torch.paths import check_path_batch, edge_weight_map
 
-    spec, (fn, args, seed), overrides = MUTATION_GRAPH
-    n, src, dst, w = getattr(gen, fn)(*args, seed=seed)
+    spec, _, overrides = MUTATION_GRAPH
+    n, src, dst, w, u, keep, nbrs, ws = holdout()
     deg = np.bincount(src, minlength=n)
-    _, comp = connected_components(ref.build_csr(n, src, dst, w))
-    giant = comp == np.bincount(comp).argmax()
     rng = np.random.default_rng(0)
     s = rng.integers(0, n, MAIN_QUERIES).astype(np.int32)
     t = rng.integers(0, n, MAIN_QUERIES).astype(np.int32)
-    u = int(np.flatnonzero(giant & (deg >= 2) & (deg <= 6))[-1])
-    keep = (src != u) & (dst != u)
-    nbrs, ws = dst[src == u].tolist(), w[src == u].tolist()
     zero(tables)
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1336,6 +1391,364 @@ def phase_directed(device="cuda") -> dict:
             "peak_device_bytes_query": query_peak}
 
 
+def block_bytes(rows) -> int:
+    """Bytes of the label planes in ``rows`` (a ``LabelRows``)."""
+    return sum(x.numel() * x.element_size() for x in rows if x is not None)
+
+
+def timed_calls(fn, repeats: int) -> dict:
+    """Host ms of ``fn()`` (which ends on a blocking read): the first
+    and second calls, then the median of ``repeats`` more."""
+    times = []
+    for _ in range(2 + repeats):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"ms_first": times[0], "ms": times[1],
+            "ms_median": statistics.median(times[2:])}
+
+
+def phase_sharded(path, route, idx, s, t, graph, tables, kernels) -> dict:
+    """``ShardedIndex.from_index(idx, SHARDS, strategy="level")`` on one
+    main path's index, all shards on this card: partition seconds,
+    entries and block bytes per shard beside the unsharded planes'.
+    Then, under sync debug mode "error", ``SHARD_QUERIES`` of the path's
+    pairs: answers, rounds (every shard's) and the μ-only lane bitwise
+    equal to the unsharded index; exactly ``SHARDS`` times the unsharded
+    query's launches of each kernel and one cross-shard reduction a
+    call; query ms (second call, median of ``SHARD_REPEATS``) beside the
+    unsharded query's. A ``hotspot`` replay through ``DistanceServer``
+    over the sharded index at the serving phase's settings: answers
+    equal to ``idx.query``, no first-use build after warmup, and its
+    ``qps_compute`` and latency. On ``fused``, a path-lane replay whose
+    paths pass the launcher's audit and ``check_path_batch``, and
+    ``apply_mutations`` inserting the mutation phase's hold-out vertex
+    into a sharded hold-out index, answering as the unsharded hold-out
+    index after ``insert_vertex``."""
+    import numpy as np
+    import torch
+    from repro_torch.core import sync
+    from repro_torch.launch.serve import _audit_paths
+    from repro_torch.obs import BuildWatcher
+    from repro_torch.serve import DistanceServer, make_trace
+    from repro_torch.shard import ShardedIndex
+
+    n, src, dst, w = graph
+    q = SHARD_QUERIES.get(path, MAIN_QUERIES)
+    sq, tq = s[:q], t[:q]
+    ue = idx.engine
+    t0 = time.perf_counter()
+    sidx = ShardedIndex.from_index(idx, SHARDS, strategy=SHARD_STRATEGY)
+    from_index_s = time.perf_counter() - t0
+    eng = sidx.engine
+    if eng.codec != ue.codec or eng.relaxer.mode != route:
+        fail(f"sharded {path}: codec {eng.codec}, route {eng.relaxer.mode}")
+    if len(eng.relaxers) != 1:
+        fail(f"sharded {path}: {len(eng.relaxers)} relaxers on one card")
+    rec = {"shards": SHARDS, "strategy": SHARD_STRATEGY, "route": route,
+           "codec": eng.codec, "queries": q, "from_index_s": from_index_s,
+           "partition_s": sidx.partition_seconds, "cap": eng.cap,
+           "l_cap": idx.cfg.l_cap,
+           "entries_per_shard": sidx.entries_per_shard.tolist(),
+           "entries_unsharded": int(idx.stats.label_entries),
+           "block_bytes_per_shard": [block_bytes(b) for b in eng.blocks],
+           "plane_bytes_unsharded": block_bytes((ue.enc_ids, ue.enc_base,
+                                                 ue.enc_d))}
+
+    zero(tables)
+    want = sync.host_read(idx.query(sq, tq))
+    one = launches_of(tables)
+    want_rounds = ue._last_rounds
+    want_mu = sync.host_read(ue.query_mu_only(sq, tq))
+    zero(tables)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        red0 = eng.reductions
+        with sync.sync_span() as span:
+            got = sync.host_read(sidx.query(sq, tq))
+        syncs = span.count
+        shard_rounds = sync.host_read(torch.stack(eng.last_shard_rounds))
+        calls = 1 + 2 + SHARD_REPEATS
+        rec["query"] = timed_calls(lambda: sidx.query(sq, tq), SHARD_REPEATS)
+        reductions = eng.reductions - red0
+        launches = launches_of(tables)
+        zero(tables)
+        mu = sync.host_read(eng.query_mu_only(sq, tq))
+        mu_launches = launches_of(tables)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    rec["query_unsharded"] = timed_calls(lambda: idx.query(sq, tq),
+                                         SHARD_REPEATS)
+    if not np.array_equal(got, want) or not np.array_equal(mu, want_mu):
+        fail(f"sharded {path}: answers or μ differ from the unsharded index")
+    if eng._last_rounds != want_rounds or set(shard_rounds) != {want_rounds}:
+        fail(f"sharded {path}: rounds {shard_rounds.tolist()}, unsharded "
+             f"{want_rounds}")
+    expect = {k: calls * SHARDS * v for k, v in one.items()}
+    if launches != expect or reductions != calls:
+        fail(f"sharded {path}: launches {launches} (expected {expect}), "
+             f"{reductions} reductions for {calls} calls")
+    label = {k for k in kernels if k.startswith("label_")}
+    check_launches(f"sharded {path} μ lane", mu_launches, label)
+    rec.update(rounds=want_rounds, query_syncs=syncs, reductions=reductions,
+               launches_per_call={k: v // calls for k, v in launches.items()},
+               speed_vs_unsharded=rec["query_unsharded"]["ms_median"]
+               / rec["query"]["ms_median"])
+
+    # serving over the shards
+    n_req = SHARD_SERVE_REQUESTS.get(path, 1024)
+    kw = dict(buckets=SERVE_BUCKETS, max_wait_ms=SERVE_WAIT_MS,
+              cache_size=SERVE_CACHE)
+    with BuildWatcher() as warm:
+        srv = DistanceServer(sidx, name=f"sharded_{path}", **kw)
+    trace = make_trace("hotspot", n=n, num_requests=n_req,
+                       rate_qps=SERVE_RATE, seed=0)
+    shapes = srv.compile_cache_sizes()
+    zero(tables)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with BuildWatcher() as watch, sync.sync_span() as span:
+            t0 = time.perf_counter()
+            served = srv.serve_trace(trace)
+            wall_s = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    serve_launches = launches_of(tables)
+    if watch.count() or srv.compile_cache_sizes() != shapes:
+        fail(f"sharded {path} serving: builds {watch.snapshot()}, shapes "
+             f"{shapes} -> {srv.compile_cache_sizes()}")
+    if not np.array_equal(served, sync.host_read(idx.query(trace.s,
+                                                           trace.t))):
+        fail(f"sharded {path} serving: answers differ from idx.query")
+    check_launches(f"sharded {path} serving", serve_launches, kernels)
+    snap = srv.metrics.snapshot()
+    rec["serving"] = {
+        "requests": n_req, "scenario": "hotspot", "replay_wall_s": wall_s,
+        "warmup_seconds": srv.warmup_seconds,
+        "warmup_builds": warm.snapshot(), "syncs": span.count,
+        "batches": len(srv.metrics.batches), "launches": serve_launches,
+        **{k: snap[k] for k in ("served", "qps_compute", "latency_ms",
+                                "cache_hit_rate", "batch_fill_ratio")}}
+    total = {k: launches[k] + mu_launches[k] + serve_launches[k]
+             for k in launches}
+    if path != "fused":
+        rec["launches"] = total
+        return rec
+
+    # the path lane over the shards, then §8.3 on a sharded hold-out
+    from repro_torch.core import ISLabelIndex, IndexConfig
+    from repro_torch.paths import check_path_batch, edge_weight_map
+    from repro_torch.serve import MutationOp
+    zero(tables)
+    with BuildWatcher() as warm:
+        psrv = DistanceServer(sidx, name="sharded_fused-paths",
+                              path_hop_caps=SERVE_HOP_CAPS, **kw)
+    trace = make_trace("hotspot", n=n, num_requests=SHARD_PATH_REQUESTS,
+                       rate_qps=SERVE_RATE, seed=0)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with BuildWatcher() as watch:
+            t0 = time.perf_counter()
+            dist, paths, valid = psrv.serve_path_trace(trace)
+            wall_s = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if watch.count():
+        fail(f"sharded path lane: first-use builds {watch.snapshot()}")
+    if _audit_paths(src, dst, w, trace, dist, paths, valid):
+        fail("sharded path lane: a served path failed the audit")
+    if not np.array_equal(dist, sync.host_read(idx.query(trace.s,
+                                                         trace.t))):
+        fail("sharded path lane: distances differ from idx.query")
+    batch = host_batch(sidx.path_engine().path_batch_fn(PATH_HOP_CAP)(
+        sq[:SHARD_PATH_REQUESTS], tq[:SHARD_PATH_REQUESTS]))
+    rep = check_path_batch(edge_weight_map(src, dst, w),
+                           sq[:SHARD_PATH_REQUESTS],
+                           tq[:SHARD_PATH_REQUESTS], batch)
+    if rep["violations"]:
+        fail(f"sharded path batch: {rep['violations'][:3]}")
+    path_launches = launches_of(tables)
+    psnap = psrv.metrics.snapshot()
+    rec["path_lane"] = {"requests": SHARD_PATH_REQUESTS,
+                        "hop_caps": list(SERVE_HOP_CAPS),
+                        "replay_wall_s": wall_s,
+                        "warmup_builds": warm.snapshot(),
+                        "qps_compute": psnap["qps_compute"],
+                        "latency_ms": psnap["latency_ms"],
+                        "checked": rep["checked"],
+                        "not_ok": rep["overflowed"],
+                        "launches": path_launches}
+
+    n, src, dst, w, u, keep, nbrs, ws = holdout()
+    _, _, overrides = MUTATION_GRAPH
+    zero(tables)
+    held = ISLabelIndex.build(n, src[keep], dst[keep], w[keep],
+                              IndexConfig(**overrides), device=idx.device)
+    sheld = ShardedIndex.from_index(held, SHARDS, strategy=SHARD_STRATEGY)
+    with BuildWatcher() as watch:
+        t0 = time.perf_counter()
+        new, info = sheld.apply_mutations([MutationOp("insert", u,
+                                                      tuple(nbrs),
+                                                      tuple(ws))])
+        apply_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    held.insert_vertex(u, nbrs, ws)
+    insert_ms = (time.perf_counter() - t0) * 1e3
+    ends = np.concatenate([tq, np.arange(n, dtype=np.int32)])
+    starts = np.concatenate([sq, np.full(n, u, np.int32)])
+    if not np.array_equal(sync.host_read(new.query(starts, ends)),
+                          sync.host_read(held.query(starts, ends))):
+        fail(f"sharded apply_mutations: answers after inserting {u} differ "
+             f"from the unsharded index after insert_vertex")
+    if watch.count("serve_read") or not watch.count("mutation"):
+        fail(f"sharded apply_mutations: builds {watch.snapshot()}")
+    mut_launches = launches_of(tables)
+    rec["mutation"] = {"u": u, "apply_ms": apply_ms,
+                       "insert_vertex_ms": insert_ms,
+                       "touched_rows": len(info["touched_rows"]),
+                       "touched_shards": info["touched_shards"],
+                       "builds": watch.snapshot(),
+                       "pairs_checked": len(ends)}
+    for tab in (path_launches, mut_launches):
+        for k, v in tab.items():
+            total[k] += v
+    rec["launches"] = total
+    return rec
+
+
+def prom_samples(text: str) -> int:
+    """Samples in a Prometheus text exposition (0.0.4); fails on a line
+    that is neither a comment, blank, nor ``name{labels} value``."""
+    import re
+    line_re = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? (\S+)$')
+    count = 0
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = line_re.match(line)
+        if not m:
+            fail(f"/metrics: malformed line {line!r}")
+        float(m.group(2))
+        count += 1
+    return count
+
+
+def http_run(idx, name, scenario, n_req, tables, **trace_kw) -> dict:
+    """One replay over HTTP: a ``ReplicaSet`` of ``HTTP_REPLICAS`` on
+    ``idx`` (warmed up here, on this thread) behind a
+    ``ServiceFrontend`` on localhost with the launcher's SLOs, the trace
+    sent through ``replay_http`` in ``HTTP_BATCH``-pair requests under
+    sync debug mode "error" (the loop thread serves every batch). Each
+    request's wall time over the wire is kept."""
+    import numpy as np
+    import torch
+    from repro_torch.core import sync
+    from repro_torch.obs import (BuildWatcher, EventLog, SLOEngine,
+                                 compiles_source, default_serving_slos,
+                                 latency_source)
+    from repro_torch.serve import (HttpClient, IndexRegistry, ReplicaSet,
+                                   ServiceFrontend, make_trace, replay_http)
+    kw = dict(buckets=SERVE_BUCKETS, max_wait_ms=SERVE_WAIT_MS,
+              cache_size=SERVE_CACHE)
+    with BuildWatcher() as warm:
+        group = ReplicaSet(idx, HTTP_REPLICAS, name=name, **kw)
+    registry = IndexRegistry()
+    registry.install(name, group)
+    trace = make_trace(scenario, n=idx.n, num_requests=n_req,
+                       rate_qps=SERVE_RATE, seed=0, **trace_kw)
+    group.apply_injection(trace.meta)
+    watcher = BuildWatcher().start()
+    log = EventLog()
+    slo = SLOEngine(default_serving_slos(latency_threshold_s=HTTP_SLO_S),
+                    log=log)
+    slo.attach("latency", latency_source(HTTP_SLO_S,
+                                         servers=group.server_names))
+    slo.attach("read_compiles", compiles_source(watcher))
+    fe = ServiceFrontend(registry, slo=slo, log=log)
+    host, port = fe.start_background()
+    client = HttpClient(host, port, graph=name)
+    wire_ms = []
+    batch_call = client.query_batch
+
+    def timed_batch(pairs):
+        t0 = time.perf_counter()
+        out = batch_call(pairs)
+        wire_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    client.query_batch = timed_batch
+    zero(tables)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        served = replay_http(client, trace, batch=HTTP_BATCH)
+        wall_s = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    launches = launches_of(tables)
+    samples = prom_samples(client.metrics_text())
+    time.sleep(4 * fe.slo_interval_s)      # the pump task steps the SLO
+    stats = client.stats()["graphs"][name]
+    client.close()
+    fe.stop()
+    watcher.stop()
+    if watcher.count("serve_read"):
+        fail(f"http {scenario}: first-use builds {watcher.snapshot()}")
+    if not np.array_equal(served, sync.host_read(idx.query(trace.s,
+                                                           trace.t))):
+        fail(f"http {scenario}: answers over the wire differ from "
+             f"idx.query")
+    return {"scenario": scenario, "requests": n_req, "batch": HTTP_BATCH,
+            "replicas": HTTP_REPLICAS, "wall_s": wall_s,
+            "req_per_s": n_req / wall_s,
+            "wire_ms": pcts(wire_ms), "http_requests": len(wire_ms),
+            "server_latency_ms": stats["latency_ms"],
+            "qps_compute": stats["qps_compute"], "served": stats["served"],
+            "healthy": list(group.healthy),
+            "evictions": group._evictions.total(),
+            "fired": slo.breach_summary()["fired"],
+            "prometheus_samples": samples, "warmup_builds": warm.snapshot(),
+            "launches": launches}
+
+
+def phase_http(idx, tables, kernels) -> dict:
+    """The HTTP service on the ``fused`` index: a clean ``uniform`` replay
+    of ``HTTP_REQUESTS`` (no alert may fire) and a ``straggler`` replay
+    whose stalled replica must be evicted and fire the latency SLO,
+    every answer over the wire equal to ``idx.query``. Then
+    ``launch/serve.py --mode http`` on the card as a subprocess
+    (``HTTP_LAUNCHER``), which must exit 0."""
+    import os
+    clean = http_run(idx, "http", "uniform", HTTP_REQUESTS, tables)
+    check_launches("http uniform", clean["launches"], kernels)
+    if clean["fired"]:
+        fail(f"http uniform: alerts fired on a clean run {clean['fired']}")
+    strag = http_run(idx, "http_straggler", "straggler",
+                     HTTP_STRAGGLER_REQUESTS, tables, stall_replica=0,
+                     stall_s=HTTP_STALL_S)
+    if "latency" not in strag["fired"] or strag["healthy"] != [False, True]:
+        fail(f"http straggler: fired {strag['fired']}, healthy "
+             f"{strag['healthy']}")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                          *HTTP_LAUNCHER], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=600)
+    launcher_s = time.perf_counter() - t0
+    if run.returncode:
+        fail(f"launch/serve.py {' '.join(HTTP_LAUNCHER)} exited "
+             f"{run.returncode}:\n{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+    keep = [ln.strip() for ln in run.stdout.splitlines()
+            if "req/s on the wire" in ln or "audit[" in ln
+            or "p99=" in ln]
+    launches = {k: clean["launches"][k] + strag["launches"][k]
+                for k in clean["launches"]}
+    return {"uniform": clean, "straggler": strag,
+            "launcher": {"args": HTTP_LAUNCHER, "seconds": launcher_s,
+                         "lines": keep},
+            "launches": launches}
+
+
 def label_seeds(idx, s, t):
     """The stage-2 label seeds of one query batch, as ``QueryEngine``
     hands them to ``CoreRelaxer.run``, and the gathered label rows."""
@@ -2084,7 +2497,7 @@ def main(argv) -> int:
             counters[k] += v
     for path, route, _, _, _, kernels in PATHS:
         t0 = time.perf_counter()
-        rec = phase_serving(path, route, indexes[path][0], graphs.pop(path),
+        rec = phase_serving(path, route, indexes[path][0], graphs[path],
                             tables, kernels)
         emit({"phase": f"serving_{path}", "seconds": time.perf_counter() - t0,
               **rec})
@@ -2110,6 +2523,22 @@ def main(argv) -> int:
     launches = launches_of(tables)
     check_launches("directed", launches, set())
     emit({"phase": "directed", "seconds": time.perf_counter() - t0, **rec})
+
+    # sharded indexes over each path's index, then the HTTP service
+    for path, route, _, _, _, kernels in PATHS:
+        t0 = time.perf_counter()
+        rec = phase_sharded(path, route, *indexes[path], graphs.pop(path),
+                            tables, kernels)
+        emit({"phase": f"sharded_{path}", "seconds": time.perf_counter() - t0,
+              **rec})
+        for k, v in rec["launches"].items():
+            counters[k] += v
+    t0 = time.perf_counter()
+    rec = phase_http(indexes["fused"][0], tables,
+                     {k for p, *_, ks in PATHS if p == "fused" for k in ks})
+    emit({"phase": "http", "seconds": time.perf_counter() - t0, **rec})
+    for k, v in rec["launches"].items():
+        counters[k] += v
 
     t0 = time.perf_counter()
     emit({"phase": "builders", **phase_builders(indexes["ell_loop"][0]),

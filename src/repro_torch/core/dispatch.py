@@ -50,7 +50,7 @@ import torch
 
 from repro_torch.core.labels import LabelRows
 from repro_torch.core.sync import host_read, upload
-from repro_torch.kernels.backend import resolve_backend
+from repro_torch.kernels.backend import resolve_backend, resolve_device
 from repro_torch.kernels.label_intersect import ops as li_ops
 from repro_torch.kernels.minplus_matmul.ops import minplus_matmul
 from repro_torch.kernels.spmv_relax.kernel import (ROW_TILE, RelaxCSR,
@@ -282,7 +282,8 @@ class CoreRelaxer:
     the sliced in-edges of the fused kernel or, for dense cores, the
     0-diagonal dense adjacency — padded to a multiple of ``bv``
     vertices. Each layout's build counts one first-use build in the
-    current region (``obs.profiler.record_build``).
+    current region (``obs.profiler.record_build``). ``device`` None means
+    the card (``resolve_device``).
 
     Route selection (``.mode``) is ``repro``'s: density >=
     ``dense_threshold`` (env ``ISLABEL_DENSE_THRESHOLD``) with n_core <=
@@ -298,7 +299,7 @@ class CoreRelaxer:
                  dense_threshold: float | None = None,
                  dense_cap: int = 2048,
                  vmem_budget: int = FUSED_VMEM_BUDGET,
-                 device="cpu"):
+                 device=None):
         self.ce_src = np.asarray(ce_src, np.int32)
         self.ce_dst = np.asarray(ce_dst, np.int32)
         self.ce_w = np.asarray(ce_w, np.float32)
@@ -306,7 +307,7 @@ class CoreRelaxer:
         self.bq = bq
         self.bv = bv
         self.d_width = d_width
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         if fused is None:
             fused = os.environ.get("ISLABEL_FUSED_RELAX", "1") != "0"
         self.fused = fused

@@ -37,6 +37,7 @@ from repro_torch.core import sync as hsync
 from repro_torch.core.config import IndexConfig
 from repro_torch.core.mis import MISState, torch_permutations
 from repro_torch.graphs import csr as gcsr
+from repro_torch.kernels.backend import resolve_device
 
 INF = float("inf")
 
@@ -109,14 +110,16 @@ def peel_level(src, dst, w, via, in_is, n: int, d_cap: int, aug_cap: int):
 
 
 def build_hierarchy_device(n: int, src, dst, w, cfg: IndexConfig,
-                           device="cpu", perms=None) -> Hierarchy:
+                           device=None, perms=None) -> Hierarchy:
     """Device-resident level loop: one blocking host read per level
     (two or more only when the MIS outlasts its guessed round count).
 
     ``perms`` is the permutation source: an iterator yielding one
     permutation of [0, n) per level (numpy or tensor); the default draws
-    ``torch.randperm`` seeded with ``cfg.seed``.
+    ``torch.randperm`` seeded with ``cfg.seed``. ``device`` is resolved
+    by ``resolve_device`` (the card when None).
     """
+    device = resolve_device(device)
     if perms is None:
         perms = torch_permutations(cfg.seed, n)
     m0 = len(src)
@@ -209,12 +212,13 @@ def build_hierarchy_device(n: int, src, dst, w, cfg: IndexConfig,
 
 
 def build_hierarchy_host(n: int, src, dst, w, cfg: IndexConfig,
-                         device="cpu", perms=None) -> Hierarchy:
+                         device=None, perms=None) -> Hierarchy:
     """Host-driven reference loop: per-level scalar reads (IS size,
     deduped edge count, augmentation fill, MIS rounds), the MIS run to
     its fixed point one round per read, and full pulls of the IS mask
     and the neighbour matrices to numpy. ``perms`` as in
     ``build_hierarchy_device``."""
+    device = resolve_device(device)
     if perms is None:
         perms = torch_permutations(cfg.seed, n)
     m0 = len(src)
@@ -287,10 +291,11 @@ def build_hierarchy_host(n: int, src, dst, w, cfg: IndexConfig,
                      host_syncs=loop_syncs, peel_iters=peel_iters)
 
 
-def build_hierarchy(n: int, src, dst, w, cfg: IndexConfig, device="cpu",
+def build_hierarchy(n: int, src, dst, w, cfg: IndexConfig, device=None,
                     perms=None) -> Hierarchy:
     """Peel levels until the size-reduction stop rule (§5.1), with the
-    builder ``cfg.builder`` names: "device" (default) or "host"."""
+    builder ``cfg.builder`` names: "device" (default) or "host"; each
+    resolves ``device`` (the card when None)."""
     builders = {"device": build_hierarchy_device,
                 "host": build_hierarchy_host}
     if cfg.builder not in builders:

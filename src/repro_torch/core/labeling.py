@@ -21,6 +21,7 @@ import torch
 from repro_torch.core import sync as hsync
 from repro_torch.core.config import IndexConfig
 from repro_torch.core.hierarchy import Hierarchy
+from repro_torch.kernels.backend import resolve_device
 
 INF = float("inf")
 
@@ -101,10 +102,12 @@ def _check_overflow(ovf, cfg: IndexConfig):
             f"IndexConfig.l_cap (currently {cfg.l_cap})")
 
 
-def build_labels(hier: Hierarchy, cfg: IndexConfig, device="cpu"):
+def build_labels(hier: Hierarchy, cfg: IndexConfig, device=None):
     """Run Algorithm 4 over the hierarchy. Returns device label arrays
     ``(lbl_ids, lbl_d, lbl_pred)``; blocking syncs are limited to the
-    deferred overflow checks (⌈k / sync_every⌉ + 1 total)."""
+    deferred overflow checks (⌈k / sync_every⌉ + 1 total). ``device``
+    is resolved by ``resolve_device`` (the card when None)."""
+    device = resolve_device(device)
     n, k = hier.n, hier.k
     l_cap, chunk = cfg.l_cap, cfg.label_chunk
     sync_every = max(1, cfg.sync_every)

@@ -31,7 +31,8 @@ from repro_torch.core.labels import (LabelRows, decode_rows, encode_labels,
 from repro_torch.core.sync import host_arrays, host_read, upload
 from repro_torch.kernels.backend import resolve_backend
 
-__all__ = ["QueryEngine", "label_intersect_mu", "shape_counted"]
+__all__ = ["QueryEngine", "label_intersect_mu", "label_seeds",
+           "shape_counted"]
 
 INF = float("inf")
 
@@ -66,6 +67,16 @@ def label_intersect_mu(ids_s, d_s, ids_t, d_t, n: int, l_cap: int = 0):
     mu = tot.gather(1, j)[:, 0]
     meet = torch.where(torch.isfinite(mu), ids_s.gather(1, j)[:, 0], n)
     return mu, meet
+
+
+def label_seeds(core_pos, n: int, ids, d):
+    """Stage-2 label seeds of a [Q, L] label batch: the core position
+    (``core_pos``, int32[n+1] on the batch's device) of each entry's
+    ancestor (non-core ancestors and padding park in the sentinel column
+    n_core) and its distance (+inf for padding), as ``CoreRelaxer.run``
+    takes them."""
+    cpos = core_pos[torch.clamp(ids, max=n).long()].long()
+    return cpos, torch.where(ids < n, d, INF)
 
 
 class QueryEngine:
@@ -155,12 +166,8 @@ class QueryEngine:
                          self.enc_d[idx])
 
     def _label_seeds(self, ids, d):
-        """Stage-2 label seeds of a [Q, L] label batch: the core position
-        of each entry's ancestor (non-core ancestors and padding park in
-        the sentinel column n_core) and its distance (+inf for padding),
-        as ``CoreRelaxer.run`` takes them."""
-        cpos = self.core_pos[torch.clamp(ids, max=self.n).long()].long()
-        return cpos, torch.where(ids < self.n, d, INF)
+        """Stage-2 label seeds of a [Q, L] label batch (``label_seeds``)."""
+        return label_seeds(self.core_pos, self.n, ids, d)
 
     def _query_block(self, s, t, backend: str):
         """One block through both stages. Returns (ans, rounds) with

@@ -41,7 +41,9 @@ def host_read(x):
                 h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                 h.copy_(t.detach(), non_blocking=True)
                 host.append(h)
-            torch.cuda.current_stream().synchronize()
+            # each copy runs on its source device's stream
+            for dev in dict.fromkeys(t.device for t in xs if t.is_cuda):
+                torch.cuda.current_stream(dev).synchronize()
         finally:
             torch.cuda.set_sync_debug_mode(prev)
         out = tuple(h.numpy() for h in host)

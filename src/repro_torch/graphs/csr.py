@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.core.sync import upload
 from repro_torch.graphs import segment_ops as sops
+from repro_torch.kernels.backend import resolve_device
 
 INF = float("inf")
 
@@ -44,8 +45,10 @@ class EdgeList:
 
 
 def from_host_edges(src, dst, weight, n_nodes: int, e_cap: int | None = None,
-                    via=None, device="cpu") -> EdgeList:
-    """Build a padded EdgeList on ``device`` from host numpy arrays."""
+                    via=None, device=None) -> EdgeList:
+    """Build a padded EdgeList on ``device`` (the card when None) from
+    host numpy arrays."""
+    device = resolve_device(device)
     src = np.asarray(src, np.int32)
     dst = np.asarray(dst, np.int32)
     weight = np.asarray(weight, np.float32)

@@ -1,5 +1,5 @@
 """Serving launcher of the port, the counterpart of ``repro.launch.serve``
-in its three index modes:
+in its four index modes:
 
 * ``--mode distance``: build (or ``--load``) an IS-LABEL index on
   ``--device`` (the card by default), register it, replay a scenario
@@ -16,6 +16,12 @@ in its three index modes:
   (``core/ref.py``). The process exits nonzero on any mismatch, on
   zero QPS, or on a first-use build counted on the serving path after
   warmup (``obs.profiler``).
+
+  ``--shards N`` serves a ``repro_torch.shard.ShardedIndex`` instead:
+  the label table is cut into N blocks, all on ``--device`` (one card
+  hosts every shard), and every batch runs the per-shard stages and
+  one cross-shard reduction. The audit then checks the sharded serving
+  path against the *unsharded* index, end to end.
 
 * ``--mode path``: the same replay served through the path lane
   (``--hop-caps`` tiers). Every served path is validated edge by edge
@@ -40,9 +46,24 @@ in its three index modes:
       --graph er --n 256 --queries 512 --write-ratio 0.06 \\
       --spares 12 --audit rebuild
 
+* ``--mode http``: the same workloads served over the wire through
+  the asyncio front end (``repro_torch.serve.frontend``) and audited on
+  the answers that crossed the network. ``--replicas N`` puts a
+  ``ReplicaSet`` behind it; ``--scenario straggler`` charges a
+  synthetic stall to one replica's batches and the run asserts the
+  latency SLO burn-rate alert *fired* (and the replica was evicted),
+  while every clean scenario asserts the alerts stayed *quiet*;
+  ``--scenario readwrite`` serves a versioned index and audits every
+  read against the in-process versioned replay. ``--sse-out`` captures
+  the live ``/events`` stream and ``--prom-out`` the final ``/metrics``
+  exposition.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode http \\
+      --graph er --n 10000 --l-cap 64 --replicas 2 \\
+      --scenario straggler --audit index
+
 ``--device cpu`` runs the index on the CPU (the kernels' plain
-versions). The LM and HTTP modes, and sharded indexes, are not ported
-yet.
+versions). The LM mode is not ported.
 """
 from __future__ import annotations
 
@@ -188,9 +209,19 @@ def serve_distance(args, paths: bool = False) -> int:
         if args.save:
             idx.save(args.save)
 
+    serve_idx = idx
+    if args.shards:
+        from repro_torch.shard import ShardedIndex
+        serve_idx = ShardedIndex.from_index(idx, args.shards,
+                                            strategy=args.shard_strategy)
+        print(f"[serve-distance] {args.shards} shard(s) on "
+              f"{serve_idx.device}, strategy={args.shard_strategy}, "
+              f"entries/shard={serve_idx.shard_entry_counts().tolist()}, "
+              f"partitioned in {serve_idx.partition_seconds:.2f}s")
+
     registry = IndexRegistry()
     server = registry.register(
-        args.index_name, idx,
+        args.index_name, serve_idx,
         buckets=tuple(int(b) for b in args.buckets.split(",")),
         max_wait_ms=args.max_wait_ms, cache_size=args.cache,
         backend=args.backend or None,
@@ -371,9 +402,220 @@ def serve_mutate(args) -> int:
     return failures
 
 
+def serve_http(args) -> int:
+    """Serve over the asyncio HTTP front end and audit the answers that
+    crossed the wire."""
+    import threading
+    from pathlib import Path
+
+    from repro_torch.core import ISLabelIndex, IndexConfig
+    from repro_torch.core.sync import host_read
+    from repro_torch.obs import (SLOEngine, compiles_source,
+                                 default_serving_slos, latency_source)
+    from repro_torch.serve import (DistanceServer, HttpClient, IndexRegistry,
+                                   ReplicaSet, SSEReader, ServiceFrontend,
+                                   make_trace, replay_http)
+
+    obs = _ObsSession(args, "http")
+    readwrite = args.scenario == "readwrite"
+    straggler = args.scenario == "straggler"
+    replicas = args.replicas
+    if straggler and replicas < 2:
+        replicas = 2
+        print("[serve-http] straggler scenario: forcing --replicas 2")
+    n_base, src, dst, w = _build_graph(args)
+    n = n_base + (args.spares if readwrite else 0)
+    print(f"[serve-http] graph {args.graph} n={n_base}"
+          + (f" (+{args.spares} spares)" if readwrite else "")
+          + f" m={len(src)}")
+    t0 = time.time()
+    idx = ISLabelIndex.build(
+        n, src, dst, w,
+        IndexConfig(l_cap=args.l_cap, label_chunk=args.label_chunk),
+        device=args.device)
+    print(f"  index built on {idx.device} in {time.time() - t0:.1f}s: "
+          f"{idx.stats.summary()}")
+
+    # every server warms up here, on this thread, before the front end's
+    # loop thread takes over all index work
+    registry = IndexRegistry()
+    common = dict(buckets=tuple(int(b) for b in args.buckets.split(",")),
+                  max_wait_ms=args.max_wait_ms, cache_size=args.cache,
+                  backend=args.backend or None)
+    if readwrite:
+        holder = registry.register(args.index_name, idx, versioned=True,
+                                   tracer=obs.tracer, **common)
+        server_names = [args.index_name]
+    elif replicas > 1:
+        holder = ReplicaSet(idx, replicas, name=args.index_name, **common)
+        registry.install(args.index_name, holder)
+        server_names = holder.server_names
+    else:
+        holder = registry.register(args.index_name, idx,
+                                   tracer=obs.tracer, **common)
+        server_names = [args.index_name]
+    print(f"  serving {args.index_name!r}"
+          + (f" over {replicas} replicas" if replicas > 1 else ""))
+
+    slo_thresh_s = args.slo_latency_ms * 1e-3
+    slo = SLOEngine(default_serving_slos(latency_threshold_s=slo_thresh_s),
+                    log=obs.log)
+    slo.attach("latency", latency_source(slo_thresh_s, servers=server_names))
+    slo.attach("read_compiles", compiles_source(obs.watcher))
+
+    fe = ServiceFrontend(registry, slo=slo, log=obs.log)
+    host, port = fe.start_background()
+    print(f"  front end listening on http://{host}:{port}")
+
+    # live /events capture
+    sse_records: list = []
+    sse_stop = threading.Event()
+
+    def _pump_sse():
+        reader = SSEReader(host, port, timeout_s=1.0)
+        while not sse_stop.is_set():
+            sse_records.extend(reader.read_events(max_events=256,
+                                                  max_s=0.5))
+        reader.close()
+
+    sse_thread = None
+    if args.sse_out:
+        sse_thread = threading.Thread(target=_pump_sse, daemon=True)
+        sse_thread.start()
+
+    if readwrite:
+        trace = make_trace("readwrite", n=n, num_requests=args.queries,
+                           rate_qps=args.rate, seed=args.seed,
+                           write_ratio=args.write_ratio, n_read=n_base,
+                           spares=range(n_base, n),
+                           attach_to=idx.core_ids)
+    elif straggler:
+        trace = make_trace("straggler", n=n, num_requests=args.queries,
+                           rate_qps=args.rate, seed=args.seed,
+                           stall_replica=args.stall_replica,
+                           stall_s=args.stall_s)
+        holder.apply_injection(trace.meta)
+        print(f"  injected: replica {args.stall_replica} stalls "
+              f"{args.stall_s}s per batch (accounting-only)")
+    else:
+        trace = make_trace(args.scenario, n=n, num_requests=args.queries,
+                           rate_qps=args.rate, seed=args.seed)
+
+    client = HttpClient(host, port, graph=args.index_name)
+    t0 = time.time()
+    with obs.profiled():
+        if readwrite:
+            served, vids = replay_http(client, trace)
+        else:
+            served = replay_http(client, trace, batch=args.http_batch)
+    wire_s = time.time() - t0
+    print(f"  replayed {len(trace)} requests over HTTP in {wire_s:.2f}s "
+          f"({len(trace) / wire_s:.0f} req/s on the wire)")
+
+    failures = 0
+    if readwrite:
+        # the COW lane never mutates the original index, so a second
+        # versioned server over the same idx replays the identical
+        # version sequence in-process for the differential audit (on
+        # this thread, once the wire replay has finished)
+        ref_srv = DistanceServer(idx, versioned=True, **common)
+        want, want_vids = ref_srv.serve_readwrite_trace(trace)
+        ref_srv.drain()
+        reads = ~np.isnan(want)
+        n_bad = int((served[reads] != want[reads]).sum())
+        n_bad += int((vids[reads] != want_vids[reads]).sum())
+        if n_bad:
+            print(f"  AUDIT FAIL: {n_bad} HTTP-served reads differ from "
+                  f"the in-process versioned replay (answers or versions)")
+            failures += 1
+        else:
+            print(f"  audit[http-readwrite]: {int(reads.sum())} reads over "
+                  f"{int(vids.max()) + 1} versions bitwise-equal to the "
+                  f"in-process replay")
+        slo.record("exactness", fe._now(), good=int(reads.sum()) - n_bad,
+                   bad=n_bad)
+    else:
+        want = host_read(idx.query(trace.s, trace.t))
+        n_bad = int((~((served == want)
+                       | (np.isnan(served) & np.isnan(want)))).sum())
+        if n_bad:
+            print(f"  AUDIT FAIL: {n_bad} HTTP-served answers differ from "
+                  f"ISLabelIndex.query")
+            failures += 1
+        else:
+            print(f"  audit[http-index]: {len(trace)}/{len(trace)} answers "
+                  f"that crossed the wire bitwise-equal to "
+                  f"ISLabelIndex.query")
+        slo.record("exactness", fe._now(), good=len(trace) - n_bad,
+                   bad=n_bad)
+
+    time.sleep(4 * fe.slo_interval_s)      # let the pump task step the SLO
+    breaches = slo.breach_summary()
+    fired = set(breaches["fired"])
+    print(f"  slo: fired={sorted(fired)} "
+          f"burns={json.dumps(breaches['slos'], sort_keys=True)}")
+    if straggler:
+        if "latency" not in fired:
+            print("  AUDIT FAIL: straggler injection did not fire the "
+                  "latency burn-rate alert")
+            failures += 1
+        else:
+            print("  audit[slo-fire]: latency burn-rate alert fired under "
+                  "straggler injection")
+        evicted = [name for name, r in holder.stats()["replicas"].items()
+                   if not r["healthy"]]
+        print(f"  evicted replicas: {evicted}")
+    else:
+        noisy = fired & {"latency", "availability", "exactness",
+                         "read_compiles"}
+        if noisy:
+            print(f"  AUDIT FAIL: alerts fired on a clean run: "
+                  f"{sorted(noisy)}")
+            failures += 1
+        else:
+            print("  audit[slo-quiet]: no alert fired on the clean run")
+
+    stats = client.stats()
+    g = stats["graphs"][args.index_name]
+    print(f"  served={g['served']} p50={g['latency_ms']['p50']:.3f}ms "
+          f"p99={g['latency_ms']['p99']:.3f}ms cache_hits={g['cache_hits']}")
+    if args.prom_out:
+        text = client.metrics_text()
+        p = Path(args.prom_out)
+        p.parent.mkdir(parents=True, exist_ok=True)
+        p.write_text(text)
+        print(f"  prometheus exposition ({len(text.splitlines())} lines) "
+              f"written to {p}")
+    client.close()
+    if sse_thread is not None:
+        sse_stop.set()
+        sse_thread.join(timeout=10)
+        p = Path(args.sse_out)
+        p.parent.mkdir(parents=True, exist_ok=True)
+        with open(p, "w", encoding="utf-8") as fh:
+            for event, data in sse_records:
+                fh.write(json.dumps({"event": event, "data": data}) + "\n")
+        n_alerts = sum(1 for e, _ in sse_records if e == "slo_alert")
+        print(f"  sse stream ({len(sse_records)} frames, {n_alerts} "
+              f"alert(s)) written to {p}")
+        if straggler and not n_alerts:
+            print("  AUDIT FAIL: no slo_alert frame crossed the /events "
+                  "stream")
+            failures += 1
+    fe.stop()
+    n_reads = (len(trace) if trace.writes is None
+               else sum(1 for ops in trace.writes if ops is None))
+    if g["served"] < n_reads:
+        print(f"  AUDIT FAIL: front end served {g['served']} < "
+              f"{n_reads} offered reads")
+        failures += 1
+    failures += obs.finish(holder)
+    return failures
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", choices=["distance", "path", "mutate"],
+    ap.add_argument("--mode", choices=["distance", "path", "mutate", "http"],
                     default="distance")
     ap.add_argument("--device", default="cuda",
                     help="where the index lives: cuda (the kernels) or cpu "
@@ -407,11 +649,37 @@ def main(argv=None):
                     help="--mode mutate: preallocated vertex ids for "
                          "live inserts")
     ap.add_argument("--label-chunk", type=int, default=128,
-                    help="--mode mutate: IndexConfig.label_chunk for the "
-                         "served index and the rebuild-audit indexes")
+                    help="--mode mutate and http: IndexConfig.label_chunk "
+                         "for the served index and the rebuild-audit "
+                         "indexes")
     ap.add_argument("--audit-sample", type=int, default=512)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--shards", type=int, default=0,
+                    help=">0: serve a repro_torch.shard.ShardedIndex of "
+                         "this many shards, all on --device")
+    ap.add_argument("--shard-strategy", choices=["level", "hash"],
+                    default="level")
     ap.add_argument("--index-name", default="default")
+    # -- http front end (--mode http) -----------------------------------
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="--mode http: DistanceServer replicas behind the "
+                         "front end (straggler health needs >= 2)")
+    ap.add_argument("--slo-latency-ms", type=float, default=1000.0,
+                    help="--mode http: latency SLO good-event threshold")
+    ap.add_argument("--stall-s", type=float, default=5.0,
+                    help="--scenario straggler: synthetic per-batch stall "
+                         "charged to the injected replica")
+    ap.add_argument("--stall-replica", type=int, default=0)
+    ap.add_argument("--http-batch", type=int, default=16,
+                    help="--mode http: pairs per /query request for "
+                         "read-only replays (readwrite is always "
+                         "sequential single-pair)")
+    ap.add_argument("--sse-out", default="",
+                    help="--mode http: capture the /events SSE stream "
+                         "as JSON lines")
+    ap.add_argument("--prom-out", default="",
+                    help="--mode http: write the final /metrics "
+                         "Prometheus exposition here")
     ap.add_argument("--save", default="")
     ap.add_argument("--load", default="")
     # -- observability sinks ---------------------------------------------
@@ -429,6 +697,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.mode == "mutate":
         raise SystemExit(serve_mutate(args))
+    if args.mode == "http":
+        raise SystemExit(serve_http(args))
     raise SystemExit(serve_distance(args, paths=args.mode == "path"))
 
 

@@ -25,6 +25,14 @@ this, so it feeds the served type-mix metric while the label mask
 (``mu_exact_mask``) decides the lane. Every served answer therefore
 equals ``ISLabelIndex.query`` bitwise, whichever lane it took.
 
+Sharded lane. The server accepts a ``repro_torch.shard.ShardedIndex``
+wherever it accepts an ``ISLabelIndex``: the same pre-warmed per-bucket
+entry points then run the sharded query (per-shard stages, one
+cross-shard reduction a batch), and every guarantee above — bitwise
+equality with the unsharded index, μ-routing soundness, no first-use
+build after warmup — holds unchanged. A registry can host sharded and
+unsharded graphs side by side.
+
 On the card each lane runs the ported kernels: the ``mu`` lane the
 index's label kernel (``label_intersect_kernel``, or the packed kernel
 on a delta16 index), the ``full`` lane the label kernel and the route's
@@ -68,8 +76,8 @@ when they were submitted), the LRU cache and routing mask are
 per-version (cleared/replaced on swap), and old versions are
 refcount-drained before release. Versioned mode serves distances of an
 unsharded index only: with ``path_hop_caps`` or a sharded index it
-raises ``ValueError``. Serving a sharded index is not ported yet
-(ROADMAP queue 1) and raises ``NotImplementedError``.
+raises ``ValueError`` (mutate a sharded index through
+``ShardedIndex.apply_mutations`` and re-register it).
 
 The engine is clock-driven and deterministic: callers pass ``now``
 (simulated or wall time) to ``submit``/``pump``. ``serve_trace`` replays
@@ -112,14 +120,29 @@ def mu_exact_mask(index) -> np.ndarray:
     ``mask[s] or mask[t]`` the core term is +inf and μ alone is the
     exact (bitwise-identical) answer. Computed on the index's device
     from the fp32 label planes (a delta16 index keeps them beside the
-    encoded ones); one ``host_read`` of the mask."""
+    encoded ones); one ``host_read`` of the mask.
+
+    Accepts both label layouts: unsharded ``[n+1, l_cap]`` planes and a
+    ``ShardedIndex``'s ``[P, n+1, cap_s]`` blocks (core entries are
+    replicated into every block, so reducing over the shard axis too
+    gives the same mask). Blocks on several devices are reduced on
+    each and combined on the index's device."""
     n, k = index.n, index.k
-    lev_pad = upload(np.append(index.level, k + 1).astype(np.int32),
-                     index.device)
-    ids = index.lbl_ids
-    entry_core = ((ids < n) & (lev_pad[ids.clamp(max=n).long()] == k)
-                  & torch.isfinite(index.lbl_d))
-    return ~host_read(entry_core.any(1))
+    lev = np.append(index.level, k + 1).astype(np.int32)
+    planes = (list(zip(index.lbl_ids, index.lbl_d))
+              if isinstance(index.lbl_ids, list)
+              else [(index.lbl_ids, index.lbl_d)])
+    has_core = None
+    for ids, d in planes:
+        lev_pad = upload(lev, ids.device)
+        entry_core = ((ids < n) & (lev_pad[ids.clamp(max=n).long()] == k)
+                      & torch.isfinite(d))
+        part = entry_core.any(-1)
+        if part.dim() == 2:                  # [P, n+1] of stacked blocks
+            part = part.any(0)
+        part = part.to(index.device, non_blocking=True)
+        has_core = part if has_core is None else has_core | part
+    return ~host_read(has_core)
 
 
 class DistanceServer:
@@ -140,11 +163,7 @@ class DistanceServer:
             if hasattr(index, "num_shards"):
                 raise ValueError(
                     "versioned serving is unsharded-only; mutate a "
-                    "sharded index and re-register it")
-        if hasattr(index, "num_shards"):
-            raise NotImplementedError(
-                "serving a sharded index is not ported yet (ROADMAP queue "
-                "1)")
+                    "ShardedIndex via apply_mutations and re-register")
         self.index = index
         self.name = name
         self.buckets = tuple(sorted(int(b) for b in buckets))
@@ -175,8 +194,7 @@ class DistanceServer:
         self._next_rid = 0
         self.warmup_seconds = 0.0
         # synthetic stall added to every distance batch's charged
-        # execution time (accounting only); the replica groups that set
-        # it are not ported yet, so it stays 0
+        # execution time (accounting only; ReplicaSet.set_stall)
         self.exec_delay_s = 0.0
         if warmup:
             self.warmup()
@@ -598,7 +616,7 @@ class DistanceServer:
             "name": self.name,
             "graph": {"n": self.index.n, "k": self.index.k,
                       "n_core": int(self.index.stats.n_core),
-                      "shards": 1},
+                      "shards": int(getattr(self.index, "num_shards", 1))},
             "buckets": list(self.buckets),
             "path_hop_caps": list(self.path_hop_caps),
             "max_wait_ms": self.max_wait_s * 1e3,

@@ -1,10 +1,11 @@
 """Index registry: one server process, many named graphs.
 
 Each registered name owns a `DistanceServer` (its own lanes, cache,
-metrics, and pre-warmed compiled shapes) over one `ISLabelIndex`; the
-registry is just the name → server map plus aggregate stats, so a
-multi-tenant front end routes on name and the per-graph engines stay
-independent.
+metrics, and pre-warmed compiled shapes) over one `ISLabelIndex` or
+`ShardedIndex` — sharded and unsharded graphs side by side — or, through
+``install``, a `ReplicaSet`; the registry is just the name → server map
+plus aggregate stats, so a multi-tenant front end routes on name and the
+per-graph engines stay independent.
 
 The port's copy of ``repro.serve.registry``.
 """

@@ -77,7 +77,7 @@ from repro_torch.core.index import (ISLabelIndex, apply_delete_host,
 from repro_torch.core.labels import (LabelCompressionError, LabelRows,
                                      decode_rows, encode_labels, row_index)
 from repro_torch.core.query import QueryEngine, shape_counted
-from repro_torch.kernels.backend import resolve_backend
+from repro_torch.kernels.backend import resolve_backend, resolve_device
 from repro_torch.kernels.spmv_relax.kernel import (RelaxCSR, SlicedEdges,
                                                    fused_vmem_bytes)
 from repro_torch.kernels.spmv_relax.ops import (coo_to_csr, coo_to_sliced,
@@ -138,13 +138,14 @@ class VersionFamily:
     (the same kernels, the same two stages of Algorithm 1) but take the
     ``VersionState`` as an argument instead of closing over it. One
     entry point per (lane, backend) for the lifetime of the family,
-    however many versions flow through.
+    however many versions flow through. ``device`` None means the card
+    (``resolve_device``).
     """
 
     def __init__(self, n: int, core_cap: int, edge_cap: int,
                  ell_width: int, *, bq: int = 8, bv: int = 128,
                  codec: str = "none", d_dtype: str | None = None,
-                 device="cpu"):
+                 device=None):
         if core_cap < 1:
             raise ValueError("core_cap must be >= 1")
         self.n = n
@@ -159,7 +160,7 @@ class VersionFamily:
         # way, so the state dtypes never move
         self.codec = codec
         self.d_dtype = d_dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         # fused single-launch relaxation unless repro's working-set model
         # of the pinned ELL width exceeds the budget (then per-round
         # launches)

@@ -89,7 +89,8 @@ def test_e_cap_overflow_raises_actionable():
                        match=r"edge capacity overflow at level \d+.*"
                              r"e_cap_factor"):
         build_hierarchy(n, src, dst, w,
-                        IndexConfig(e_cap_factor=1.2, aug_cap_factor=8.0))
+                        IndexConfig(e_cap_factor=1.2, aug_cap_factor=8.0),
+                        device="cpu")
 
 
 def test_aug_cap_overflow_raises_actionable():
@@ -98,18 +99,19 @@ def test_aug_cap_overflow_raises_actionable():
                        match=r"augmentation buffer overflow at level \d+"
                              r".*aug_cap_factor"):
         build_hierarchy(n, src, dst, w,
-                        IndexConfig(e_cap_factor=8.0, aug_cap_factor=0.2))
+                        IndexConfig(e_cap_factor=8.0, aug_cap_factor=0.2),
+                        device="cpu")
 
 
 def test_l_cap_overflow_raises_actionable():
     n, src, dst, w = gen.caveman_graph(6, 10, seed=7)
     cfg = IndexConfig(l_cap=2, label_chunk=32, e_cap_factor=8.0,
                       aug_cap_factor=4.0, sync_every=64)
-    h = build_hierarchy(n, src, dst, w, cfg)
+    h = build_hierarchy(n, src, dst, w, cfg, device="cpu")
     with pytest.raises(RuntimeError,
                        match=r"label capacity overflow at level \d+.*"
                              r"l_cap \(currently 2\)"):
-        build_labels(h, cfg)
+        build_labels(h, cfg, device="cpu")
 
 
 HIER_FIELDS = ("level", "up_ids", "up_w", "up_via", "core_src", "core_dst",
@@ -124,10 +126,12 @@ def test_builder_choice(builder, exc):
     n, src, dst, w = gen.er_graph(64, 2.0, seed=0)
     if exc is not None:
         with pytest.raises(exc, match="builder"):
-            build_hierarchy(n, src, dst, w, IndexConfig(builder=builder))
+            build_hierarchy(n, src, dst, w, IndexConfig(builder=builder),
+                            device="cpu")
         return
-    got = build_hierarchy(n, src, dst, w, IndexConfig(builder=builder))
-    want = build_hierarchy(n, src, dst, w, IndexConfig())
+    got = build_hierarchy(n, src, dst, w, IndexConfig(builder=builder),
+                          device="cpu")
+    want = build_hierarchy(n, src, dst, w, IndexConfig(), device="cpu")
     assert got.k == want.k
     for f in HIER_FIELDS:
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f), f)
@@ -141,8 +145,10 @@ def test_host_builder_matches_repro_and_device_builder(name, mk):
     per level; the device builder once per level."""
     n, src, dst, w = mk(gen)
     cfg = IndexConfig(**CFG)
-    host = build_hierarchy_host(n, src, dst, w, cfg, perms=jax_perms(0, n))
-    dev = build_hierarchy_device(n, src, dst, w, cfg, perms=jax_perms(0, n))
+    host = build_hierarchy_host(n, src, dst, w, cfg, "cpu",
+                                perms=jax_perms(0, n))
+    dev = build_hierarchy_device(n, src, dst, w, cfg, "cpu",
+                                 perms=jax_perms(0, n))
     want = j_build_host(n, src, dst, w, JConfig(**CFG))
     for f in HIER_FIELDS:
         a, b = getattr(host, f), np.asarray(getattr(want, f))
@@ -152,8 +158,8 @@ def test_host_builder_matches_repro_and_device_builder(name, mk):
     for f in ("k", "level_sizes", "graph_sizes", "mis_rounds", "peel_iters"):
         assert getattr(host, f) == getattr(want, f) == getattr(dev, f), f
     assert dev.host_syncs == dev.peel_iters < host.host_syncs
-    got = build_labels(host, cfg)
-    for a, b, c in zip(got, build_labels(dev, cfg),
+    got = build_labels(host, cfg, "cpu")
+    for a, b, c in zip(got, build_labels(dev, cfg, "cpu"),
                        j_build_labels(want, JConfig(**CFG))):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
         np.testing.assert_array_equal(a.numpy(), np.asarray(c))

@@ -32,7 +32,10 @@ def test_import_pulls_in_neither_jax_nor_repro():
     mods = _modules()
     assert "repro_torch.kernels.spmv_relax.ops" in mods
     assert {"repro_torch.serve.versions",
-            "repro_torch.core.directed"} <= set(mods)
+            "repro_torch.core.directed", "repro_torch.shard.partition",
+            "repro_torch.shard.query", "repro_torch.shard.sharded_index",
+            "repro_torch.fault.stragglers", "repro_torch.serve.replicas",
+            "repro_torch.serve.frontend", "repro_torch.obs.slo"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or "
@@ -65,6 +68,48 @@ def test_build_without_device_raises_off_cuda():
     idx = ISLabelIndex.build(n, src, dst, w, IndexConfig(l_cap=64),
                              device="cpu")
     assert idx.device.type == "cpu"
+
+
+def _default_device_calls():
+    """Each entry point called without a device (the card by default)."""
+    from repro_torch.core import build_hierarchy
+    from repro_torch.core.dispatch import CoreRelaxer
+    from repro_torch.core.hierarchy import (build_hierarchy_device,
+                                            build_hierarchy_host)
+    from repro_torch.core.labeling import build_labels
+    from repro_torch.graphs.csr import from_host_edges
+    from repro_torch.launch.serve import main
+    from repro_torch.serve.versions import VersionFamily
+    from repro_torch.shard import ShardedIndex
+    n, src, dst, w = gen.er_graph(64, 2.0, seed=0)
+    cfg = IndexConfig(l_cap=64)
+    return {
+        "build_hierarchy": lambda: build_hierarchy(n, src, dst, w, cfg),
+        "build_hierarchy_device":
+            lambda: build_hierarchy_device(n, src, dst, w, cfg),
+        "build_hierarchy_host":
+            lambda: build_hierarchy_host(n, src, dst, w, cfg),
+        "build_labels": lambda: build_labels(
+            build_hierarchy(n, src, dst, w, cfg, device="cpu"), cfg),
+        "CoreRelaxer": lambda: CoreRelaxer(src, dst, w, n),
+        "from_host_edges": lambda: from_host_edges(src, dst, w, n),
+        "VersionFamily": lambda: VersionFamily(n, 8, 64, 4),
+        "ShardedIndex.build":
+            lambda: ShardedIndex.build(n, src, dst, w, cfg, num_shards=2),
+        "launcher --mode http": lambda: main(
+            ["--mode", "http", "--graph", "er", "--n", "64", "--queries",
+             "8"]),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_default_device_calls()))
+def test_entry_points_default_to_the_card(name):
+    """Without a device every entry point means the card, and raises on
+    a machine without CUDA."""
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without CUDA")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _default_device_calls()[name]()
 
 
 def test_backend_resolution():

@@ -341,17 +341,17 @@ def test_default_mode_matches_repro(graph):
     n, src, dst, w = {"er": lambda: jgen.er_graph(260, 3.0, seed=11),
                       "rmat": lambda: jgen.rmat_graph(8, 8.0, seed=2),
                       "grid": lambda: jgen.grid_graph(14, seed=3)}[graph]()
-    base = CoreRelaxer(src, dst, w, n)
+    base = CoreRelaxer(src, dst, w, n, device="cpu")
     vp = base._vp()
     width = np.asarray(j_coo_to_ell(n + 1, src, dst, w)[0]).shape[1]
     need = fused_vmem_bytes(vp, width)
     for kw in (dict(), dict(dense_threshold=2.0, vmem_budget=need),
                dict(dense_threshold=2.0, vmem_budget=need - 1)):
-        got = CoreRelaxer(src, dst, w, n, **kw)
+        got = CoreRelaxer(src, dst, w, n, device="cpu", **kw)
         assert got.mode == JRelaxer(src, dst, w, n, **kw).mode
         assert (got._csr, got._sliced, got._adj) == (None,) * 3  # no layout
     assert CoreRelaxer(src, dst, w, n, dense_threshold=2.0,
-                       vmem_budget=need - 1).mode == "ell_loop"
+                       vmem_budget=need - 1, device="cpu").mode == "ell_loop"
 
 
 def _fused_case(v, q, hub_deg, seed):
@@ -497,7 +497,7 @@ def test_csr_neighbor_matrix_and_dedup_match_repro():
     dst = rng.integers(0, n, e).astype(np.int32)
     w = rng.integers(1, 4, e).astype(np.float32)
     via = rng.integers(-1, n, e).astype(np.int32)
-    tg = tcsr.from_host_edges(src, dst, w, n, e + 37, via=via)
+    tg = tcsr.from_host_edges(src, dst, w, n, e + 37, via=via, device="cpu")
     jg = jcsr.from_host_edges(src, dst, w, n, e + 37, via=via)
     for a, b in zip(tcsr.neighbor_matrix(tg, 6), jcsr.neighbor_matrix(jg, 6)):
         _same(a, b)

@@ -152,7 +152,7 @@ def test_compile_region_attributes_route_layout_builds():
     rng = np.random.default_rng(0)
     src, dst = rng.integers(0, 50, 300), rng.integers(0, 50, 300)
     w = rng.integers(1, 5, 300).astype(np.float32)
-    rel = CoreRelaxer(src, dst, w, 50)
+    rel = CoreRelaxer(src, dst, w, 50, device="cpu")
     assert current_region() == "other"
     with BuildWatcher() as watch:
         with compile_region("zone-a"):
@@ -168,7 +168,7 @@ def test_compile_region_attributes_route_layout_builds():
         rel.sliced()
         assert watch.snapshot() == {"zone-a": 2, "zone-b": 2}
     assert watch.count("zone-a") == 2 and watch.count() == 4
-    rel2 = CoreRelaxer(src, dst, w, 50)
+    rel2 = CoreRelaxer(src, dst, w, 50, device="cpu")
     rel2.csr()                              # after stop: not in the watch
     assert watch.snapshot() == {"zone-a": 2, "zone-b": 2}
 

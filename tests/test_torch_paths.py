@@ -67,7 +67,7 @@ def _engine(t_idx, route):
         return PathEngine.from_index(t_idx), "reference"
     rel = t_idx.engine.relaxer
     pinned = CoreRelaxer(rel.ce_src, rel.ce_dst, rel.ce_w, rel.n_core,
-                         **ROUTES[route])
+                         device="cpu", **ROUTES[route])
     assert pinned.mode == route
     eng = PathEngine.from_index(t_idx)
     eng.relaxer = pinned

@@ -51,7 +51,8 @@ def _pin(j_idx, t_idx, route):
     je.relaxer = JRelaxer(je.ce_src, je.ce_dst, je.ce_w, je.n_core,
                           **ROUTES[route])
     te.relaxer = CoreRelaxer(te.relaxer.ce_src, te.relaxer.ce_dst,
-                             te.relaxer.ce_w, te.n_core, **ROUTES[route])
+                             te.relaxer.ce_w, te.n_core, device="cpu",
+                             **ROUTES[route])
     assert te.relaxer.mode == route
 
 

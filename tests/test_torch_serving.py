@@ -364,17 +364,19 @@ def test_wall_clock_pump_never_records_negative_latency(index):
 
 def test_not_ported_modes_raise(index):
     """The versioned guards, as ``repro``'s: no path lane and no sharded
-    index in versioned mode (``ValueError``); a sharded index, not
-    ported yet, raises ``NotImplementedError`` on any server; the
-    mutation lane of a server that is not versioned raises."""
+    index in versioned mode (``ValueError``), while a sharded index
+    serves on a server that is not versioned; the mutation lane of a
+    server that is not versioned raises."""
+    from repro_torch.shard import ShardedIndex
     with pytest.raises(ValueError, match="path lane"):
         DistanceServer(index, versioned=True, path_hop_caps=(32,),
                        warmup=False)
     sharded = types.SimpleNamespace(num_shards=2)
     with pytest.raises(ValueError, match="unsharded-only"):
         DistanceServer(sharded, versioned=True, warmup=False)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        DistanceServer(sharded, warmup=False)
+    served = DistanceServer(ShardedIndex.from_index(index, 2), buckets=(8,),
+                            warmup=False)
+    assert served.stats()["graph"]["shards"] == 2
     srv = DistanceServer(index, buckets=(8,), warmup=False)
     with pytest.raises(ValueError, match="not versioned"):
         srv.submit_mutation([MutationOp("delete", 3)], now=0.0)
@@ -391,7 +393,7 @@ def test_one_counted_sync_per_distance_batch(index):
     rel = eng.relaxer
     saved = rel
     eng.relaxer = CoreRelaxer(rel.ce_src, rel.ce_dst, rel.ce_w, rel.n_core,
-                              dense_threshold=2.0)
+                              dense_threshold=2.0, device="cpu")
     try:
         assert eng.relaxer.mode == "fused"
         srv = DistanceServer(index, buckets=BUCKETS, max_wait_ms=1.0,
