@@ -93,10 +93,29 @@ Phases, one JSON line each (with its seconds):
    ``python -m repro_torch.launch.serve --mode http --graph er --n 10000
    --l-cap 64 --replicas 2 --scenario straggler --audit index`` must
    exit 0.
-11. builders — ``er:10000:2.2@1`` built with ``builder="host"`` and
+11. train_<arch> — GNN training on the card (no kernel of ``kernels/``
+   lies on its path: each phase must launch none) at the published
+   configs: ``gcn-cora`` and ``graphsage-reddit`` on ``full_graph_sm``
+   (2,708 nodes, 1,433 features, 7 classes; 3,072 rows, 21,504 edges)
+   and ``egnn`` on ``molecule`` (128 graphs of 30 atoms; 4,096 rows,
+   16,384 edges), through ``launch/train.py``'s ``init_state`` and
+   ``make_batch_fn`` and ``FaultTolerantRunner`` with checkpoints every
+   10 steps: 50 timed steps under sync debug mode "error" (first-step
+   and median step ms, steps/s, syncs a step, the loss read's and the
+   checkpoint saves' shares, peak device bytes, loss at steps 1 and 50;
+   ``repro``'s launcher check ``loss[50] < 1.5 loss[1]``), the card
+   against the CPU over 5 steps from one state and batch (rtol 1e-4,
+   atol 1e-5: atomics reorder float sums), a fresh runner restoring
+   step 50 bitwise onto the card, a resume (20, then a new runner to
+   30) and one injected failure after the optimizer at step 25 (rolled
+   back to step 20's checkpoint on the card) against an uninterrupted
+   30, and the device idle share of 10 profiled steps. Then
+   ``train_launcher``: ``python -m repro_torch.launch.train --arch
+   gcn-cora --steps 20`` and again ``--steps 30 --resume``.
+12. builders — ``er:10000:2.2@1`` built with ``builder="host"`` and
    ``builder="device"`` from one seed must give the same hierarchy and
    labels, bitwise; then whether the 10^6 graph's labels fit delta16.
-12. kernels — each kernel on the card against its plain PyTorch version
+13. kernels — each kernel on the card against its plain PyTorch version
    (``torch.equal``) on the inputs the main path gave it, with
    CUDA-event times and the bound of the same work. The label kernels
    also run at ``repro``'s serving batches (Q = 64, 256, 1024) beside
@@ -250,6 +269,20 @@ DIRECTED_QUERIES = 1024
 DIRECTED_CALL = 256           # pairs a call: the dense [q, m_core] gathers
 DIRECTED_DIJKSTRA = 16
 DIRECTED_PATHS = 8
+# GNN training (train_<arch>): published configs on the launcher's shapes
+TRAIN = [("gcn-cora", "full_graph_sm"), ("graphsage-reddit", "full_graph_sm"),
+         ("egnn", "molecule")]
+TRAIN_STEPS = 50
+TRAIN_CKPT_EVERY = 10
+TRAIN_CPU_STEPS = 5           # card against CPU from one state and batch
+TRAIN_RESUME = (20, 30)       # run 20, then a new runner to 30
+TRAIN_FAIL_AT = 25            # one injected failure after the optimizer
+TRAIN_PROFILE_STEPS = 10
+# card against CPU: float index_add/scatter_add atomics and GEMM
+# algorithms reorder sums on the card, so the check is not bitwise
+TRAIN_RTOL, TRAIN_ATOL = 1e-4, 1e-5
+TRAIN_LAUNCHER = ["--arch", "gcn-cora", "--steps", "20"]
+TRAIN_LAUNCHER_RESUME = ["--arch", "gcn-cora", "--steps", "30", "--resume"]
 
 
 def emit(obj) -> None:
@@ -1749,6 +1782,249 @@ def phase_http(idx, tables, kernels) -> dict:
             "launches": launches}
 
 
+def tree_close(what, a, b, rtol, atol) -> float:
+    """Max abs difference between two state trees (any devices), after
+    checking that they hold the same arrays and agree within
+    ``rtol``/``atol``; 0 for bitwise-equal trees at ``rtol = atol = 0``."""
+    import torch
+    from repro_torch.tree import flatten_with_paths
+    fa, fb = dict(flatten_with_paths(a)), dict(flatten_with_paths(b))
+    if fa.keys() != fb.keys():
+        fail(f"{what}: arrays {sorted(fa.keys() ^ fb.keys())} differ")
+    err = 0.0
+    for k in fa:
+        x, y = fa[k].cpu(), fb[k].cpu()
+        if x.dtype != y.dtype or x.shape != y.shape:
+            fail(f"{what}: {k} is {x.dtype}{list(x.shape)} against "
+                 f"{y.dtype}{list(y.shape)}")
+        same = torch.allclose(x, y, rtol=rtol, atol=atol) if rtol or atol \
+            else torch.equal(x, y)
+        if not same:
+            fail(f"{what}: {k} differs by {max_abs_err(x, y)} (rtol {rtol}, "
+                 f"atol {atol})")
+        err = max(err, max_abs_err(x, y))
+    return err
+
+
+def phase_train(arch, shape, tables, device="cuda") -> dict:
+    """GNN training on the card through ``launch/train.py``'s functions
+    and ``FaultTolerantRunner``, checkpoints every ``TRAIN_CKPT_EVERY``
+    steps into a temporary directory: ``TRAIN_STEPS`` timed steps under
+    sync debug mode "error" with the launch counters zeroed around them
+    (no kernel of ``kernels/`` may launch), then the card against the
+    CPU from one state and batch, a restore of the last checkpoint, a
+    resume, one injected failure after the optimizer, and a profiled
+    window of ``TRAIN_PROFILE_STEPS`` steps (device idle share)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import snapshot, state_from_tree
+    from repro_torch.configs import registry
+    from repro_torch.core.sync import host_read, sync_count
+    from repro_torch.fault import FaultTolerantRunner, RunnerConfig
+    from repro_torch.fault import runner as runner_mod
+    from repro_torch.launch.train import init_state, make_batch_fn
+    from repro_torch.train.steps import build_bundle
+    from repro_torch.tree import leaves
+    what = f"train_{arch}"
+    spec = registry.get_spec(arch)
+    base = torch.cuda.memory_allocated()     # held by earlier phases
+    t0 = time.perf_counter()
+    bundle = build_bundle(spec, shape, device)
+    state0 = init_state(spec, bundle)
+    make_batch = make_batch_fn(spec, shape, device=device)
+    batch = make_batch(0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    rec = {"arch": arch, "shape": shape, "cfg": str(
+        bundle.static_meta["cfg"]),
+        "params": sum(int(v.numel()) for v in leaves(state0["params"])),
+        "batch_bytes": sum(int(v.numel() * v.element_size())
+                           for v in batch.values()),
+        "setup_s": setup_s}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def runner(sub, step_fn=bundle.fn, state=state0):
+            return FaultTolerantRunner(
+                step_fn, state, make_batch,
+                RunnerConfig(f"{tmp}/{sub}", ckpt_every=TRAIN_CKPT_EVERY,
+                             handle_sigterm=False))
+
+        # the main run: timed, its loss reads and checkpoint saves timed
+        main = runner("main")
+        reads, saves = [], []
+        plain_read, plain_save = runner_mod.host_read, main.ckpt.maybe_save
+
+        def timed_read(x):
+            t = time.perf_counter()
+            out = plain_read(x)
+            reads.append(time.perf_counter() - t)
+            return out
+
+        def timed_save(step, state, force=False):
+            t = time.perf_counter()
+            saved = plain_save(step, state, force)
+            if saved:
+                saves.append(time.perf_counter() - t)
+            return saved
+
+        losses = []
+        runner_mod.host_read, main.ckpt.maybe_save = timed_read, timed_save
+        zero(tables)
+        torch.cuda.reset_peak_memory_stats()
+        s0 = sync_count()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            main.run(TRAIN_STEPS, on_metrics=lambda s, m: losses.append(
+                m["loss"]))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            runner_mod.host_read = plain_read
+        syncs = sync_count() - s0
+        launches = launches_of(tables)
+        check_launches(what, launches, set())
+        peak = torch.cuda.max_memory_allocated() - base
+        losses = [float(x) for x in host_read(tuple(losses))]
+        if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+            fail(f"{what}: losses {losses}")
+        if not losses[-1] < losses[0] * 1.5:
+            fail(f"{what}: loss diverged {losses[0]} -> {losses[-1]}")
+        if main.events:
+            fail(f"{what}: fault events on a clean run {main.events}")
+        step_ms = [h[0] * 1e3 for h in main.monitor.history]
+        med = statistics.median(step_ms[1:])
+        rec.update({
+            "first_step_ms": step_ms[0], "step_ms_median": med,
+            "step_ms_min": min(step_ms[1:]), "steps_per_s": TRAIN_STEPS / wall,
+            "steps_per_s_after_first":
+                (TRAIN_STEPS - 1) / (wall - step_ms[0] / 1e3),
+            "wall_s": wall, "syncs": syncs,
+            "syncs_per_step": syncs / TRAIN_STEPS,
+            "loss_read_ms_median": statistics.median(reads) * 1e3,
+            "loss_read_share": statistics.median(reads) * 1e3 / med,
+            "ckpt_saves": len(saves),
+            "ckpt_save_ms_mean": statistics.fmean(saves) * 1e3,
+            "ckpt_save_share": sum(saves) / wall,
+            "peak_device_bytes": peak, "loss_step1": losses[0],
+            "loss_step50": losses[-1], "launches": launches})
+
+        # card against CPU: TRAIN_CPU_STEPS steps from state0 and the batch
+        cpu_bundle = build_bundle(spec, shape, "cpu")
+        cpu_batch = make_batch_fn(spec, shape, device="cpu")(0)
+        cs = state_from_tree(snapshot(state0), "cpu")
+        gs, rel = state0, 0.0
+        for i in range(TRAIN_CPU_STEPS):
+            cs, cm = cpu_bundle.fn(cs, cpu_batch)
+            gs, gm = bundle.fn(gs, batch)
+            for k in ("loss", "gnorm"):
+                a, b = float(cm[k]), float(host_read(gm[k]))
+                if not abs(a - b) <= TRAIN_ATOL + TRAIN_RTOL * abs(a):
+                    fail(f"{what}: step {i + 1} {k} {b} on the card, {a} on "
+                         "the CPU")
+                rel = max(rel, abs(a - b) / max(abs(a), 1e-30))
+            if i == 0:
+                # the warm-up multiplier is 0 at step 0: params unchanged
+                tree_close(f"{what} step 1 params", gs["params"],
+                           state0["params"], 0, 0)
+            if i == 1 and tree_close(f"{what} step 2 params", gs["params"],
+                                     state0["params"], 1.0, 1.0) == 0:
+                fail(f"{what}: parameters unchanged after step 2")
+        rec["card_vs_cpu"] = {
+            "steps": TRAIN_CPU_STEPS, "rtol": TRAIN_RTOL, "atol": TRAIN_ATOL,
+            "max_abs_err": tree_close(f"{what} card vs CPU", gs, cs,
+                                      TRAIN_RTOL, TRAIN_ATOL),
+            "metric_max_rel_err": rel}
+
+        # a fresh runner restores the step-50 checkpoint onto the card
+        fresh = runner("main")
+        t0 = time.perf_counter()
+        got = fresh.restore()
+        restore_s = time.perf_counter() - t0
+        if got != TRAIN_STEPS or not all(v.device.type == bundle.device.type
+                                         for v in leaves(fresh.state)):
+            fail(f"{what}: restored step {got}")
+        tree_close(f"{what} restore", fresh.state, main.state, 0, 0)
+
+        # resume: 20 steps, then a new runner from 20 to 30, against an
+        # uninterrupted 30; and one injected failure after the optimizer
+        first, then = TRAIN_RESUME
+        runner("resume").run(first)
+        resumed = runner("resume")
+        if resumed.restore() != first:
+            fail(f"{what}: resume did not restore step {first}")
+        resumed.run(then)
+        straight = runner("straight")
+        straight.run(then)
+        fired = []
+
+        def failing(state, b):
+            new_state, metrics = bundle.fn(state, b)
+            if flaky.step == TRAIN_FAIL_AT and not fired:
+                fired.append(flaky.step)
+                raise RuntimeError(f"injected fault at step {flaky.step}")
+            return new_state, metrics
+
+        flaky = runner("flaky", step_fn=failing)
+        flaky.run(then)
+        kinds = [(s, k) for s, k, _ in flaky.events]
+        want = [(TRAIN_FAIL_AT, "step_failure"),
+                (TRAIN_FAIL_AT // TRAIN_CKPT_EVERY * TRAIN_CKPT_EVERY,
+                 "rollback")]
+        if kinds != want or not all(v.device.type == bundle.device.type
+                                    for v in leaves(flaky.state)):
+            fail(f"{what}: injected failure gave events {kinds}")
+        rec["resume"] = {
+            "max_abs_err": tree_close(f"{what} resume", resumed.state,
+                                      straight.state, TRAIN_RTOL, TRAIN_ATOL),
+            "restore_s": restore_s}
+        rec["injected_failure"] = {
+            "events": kinds,
+            "max_abs_err": tree_close(f"{what} rollback", flaky.state,
+                                      straight.state, TRAIN_RTOL,
+                                      TRAIN_ATOL)}
+
+    def window():
+        st = main.state
+        for _ in range(TRAIN_PROFILE_STEPS):
+            st, m = bundle.fn(st, batch)
+            host_read(m["loss"])
+
+    rec["profile"] = profile_idle(window)
+    check_launches(f"{what} (all runs)", launches_of(tables), set())
+    return rec
+
+
+def phase_train_launcher() -> dict:
+    """``python -m repro_torch.launch.train`` on the card as a subprocess
+    (``TRAIN_LAUNCHER``), then again with ``--resume`` from its
+    checkpoints (``TRAIN_LAUNCHER_RESUME``); both must exit 0."""
+    import os
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, args in (("first", TRAIN_LAUNCHER),
+                           ("resume", TRAIN_LAUNCHER_RESUME)):
+            t0 = time.perf_counter()
+            run = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.train", *args,
+                 "--ckpt-dir", tmp], cwd=ROOT, env=env, capture_output=True,
+                text=True, timeout=600)
+            if run.returncode:
+                fail(f"launch/train.py {' '.join(args)} exited "
+                     f"{run.returncode}:\n{run.stdout[-3000:]}\n"
+                     f"{run.stderr[-3000:]}")
+            out[name] = {"args": args, "seconds": time.perf_counter() - t0,
+                         "lines": run.stdout.strip().splitlines()}
+    if "resumed at step 20" not in out["resume"]["lines"]:
+        fail(f"launch/train.py --resume: {out['resume']['lines']}")
+    return out
+
+
 def label_seeds(idx, s, t):
     """The stage-2 label seeds of one query batch, as ``QueryEngine``
     hands them to ``CoreRelaxer.run``, and the gathered label rows."""
@@ -2539,6 +2815,18 @@ def main(argv) -> int:
     emit({"phase": "http", "seconds": time.perf_counter() - t0, **rec})
     for k, v in rec["launches"].items():
         counters[k] += v
+
+    # GNN training (no kernel of kernels/ lies on its path), then its
+    # launcher as a subprocess
+    for arch, shape in TRAIN:
+        t0 = time.perf_counter()
+        rec = phase_train(arch, shape, tables)
+        emit({"phase": f"train_{arch}", "seconds": time.perf_counter() - t0,
+              **rec})
+    t0 = time.perf_counter()
+    rec = phase_train_launcher()
+    emit({"phase": "train_launcher", "seconds": time.perf_counter() - t0,
+          **rec})
 
     t0 = time.perf_counter()
     emit({"phase": "builders", **phase_builders(indexes["ell_loop"][0]),

@@ -1,0 +1,89 @@
+"""ArchSpec: binds an architecture config to its shape set and input
+specs — the port's copy of ``repro.configs.base``.
+
+``input_specs`` returns ``TensorSpec(shape, dtype)`` pairs (torch
+dtypes) where ``repro`` returns ``jax.ShapeDtypeStruct``s, with the
+same ``r512`` padding. This slice carries the GNN family's specs; the
+LM, recsys and IS-LABEL specs come with their slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from repro_torch.configs import shapes as SH
+
+
+class TensorSpec(NamedTuple):
+    shape: tuple
+    dtype: torch.dtype
+
+
+def sds(shape, dtype) -> TensorSpec:
+    return TensorSpec(tuple(int(x) for x in shape), dtype)
+
+
+def r512(x: int) -> int:
+    """Round up to a multiple of 512 (``repro``'s lcm of every mesh size
+    it shards over), so the port's arrays have ``repro``'s shapes."""
+    return -(-int(x) // 512) * 512
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchSpec:
+    arch_id: str
+    family: str                       # lm | gnn | recsys | graph_index
+    model_cfg: Any
+    shapes: dict
+    optimizer: str = "adamw"          # adamw | adafactor
+    smoke_cfg_fn: Callable | None = None
+    notes: str = ""
+
+    def shape(self, name: str):
+        return self.shapes[name]
+
+    def input_specs(self, shape_name: str) -> dict:
+        shp = self.shapes[shape_name]
+        if self.family == "gnn":
+            return gnn_input_specs(self.model_cfg, shp)
+        raise KeyError(f"input specs of the {self.family!r} family are not "
+                       "ported yet")
+
+
+# ---------------------------------------------------------------- GNN specs
+def gnn_minibatch_dims(shp: SH.GNNShape):
+    """Padded sampled-subgraph dims for minibatch shapes."""
+    b = shp.batch_nodes
+    f1, f2 = shp.fanout
+    n_sub = b * (1 + f1 + f1 * f2) + 1
+    e_sub = 2 * (b * f1 + b * f1 * f2)
+    return n_sub, e_sub
+
+
+def gnn_input_specs(cfg, shp: SH.GNNShape) -> dict:
+    need_coords = type(cfg).__name__ == "EGNNConfig"
+    if shp.kind == "full":
+        n1, e = r512(shp.n_nodes + 1), r512(2 * shp.n_edges)
+    elif shp.kind == "minibatch":
+        n1, e = gnn_minibatch_dims(shp)
+        n1, e = r512(n1), r512(e)
+    elif shp.kind == "molecule":
+        n1 = r512(shp.batch_graphs * shp.n_nodes + 1)
+        e = r512(2 * shp.batch_graphs * shp.n_edges)
+    else:
+        raise KeyError(shp.kind)
+    d = {"feats": sds((n1, shp.d_feat), torch.float32),
+         "edge_src": sds((e,), torch.int32),
+         "edge_dst": sds((e,), torch.int32),
+         "deg": sds((n1,), torch.float32)}
+    if shp.kind == "molecule":
+        d["graph_ids"] = sds((n1,), torch.int32)
+        d["targets"] = sds((shp.batch_graphs,), torch.float32)
+    else:
+        d["labels"] = sds((n1,), torch.int32)
+        d["mask"] = sds((n1,), torch.float32)
+    if need_coords:
+        d["coords"] = sds((n1, 3), torch.float32)
+    return d

@@ -70,7 +70,7 @@ def upload(a, device, dtype: torch.dtype | None = None) -> torch.Tensor:
     copy. Always a fresh tensor: callers update it in place."""
     t = a
     if not isinstance(t, torch.Tensor):
-        arr = np.ascontiguousarray(a)
+        arr = np.ascontiguousarray(a).reshape(np.shape(a))   # keeps 0-d
         t = torch.from_numpy(arr if arr.flags.writeable else arr.copy())
     dtype = t.dtype if dtype is None else dtype
     if torch.device(device).type == "cpu":

@@ -1,6 +1,7 @@
-# repro_torch.fault — straggler detection (the port's copy of
-# repro.fault.stragglers). The fault-tolerant training runner belongs to
-# the training substrate and is not ported.
+# repro_torch.fault — the fault-tolerant training runner and straggler
+# detection (the port's copies of repro.fault).
+from repro_torch.fault.runner import FaultTolerantRunner, RunnerConfig
 from repro_torch.fault.stragglers import HostTimingAggregator, StragglerMonitor
 
-__all__ = ["HostTimingAggregator", "StragglerMonitor"]
+__all__ = ["FaultTolerantRunner", "RunnerConfig", "HostTimingAggregator",
+           "StragglerMonitor"]

@@ -1,9 +1,13 @@
-"""Segment reductions — the scatter/gather substrate of construction.
+"""Segment reductions — the scatter/gather substrate of construction
+and of the GNNs' message passing.
 
 Each reduction scatters into an output pre-filled with the reduction's
 identity (``include_self=True``), so empty segments come out exactly as
 ``jax.ops.segment_*`` leaves them: +inf / -inf for floats, the dtype's
-max / min for integers, 0 for sums.
+max / min for integers, 0 for sums. ``data`` may carry trailing
+dimensions (``[E, d]`` messages): the ids index its first dimension.
+Gradients flow through the sum and mean paths (``scatter_reduce``'s
+backward is a gather).
 """
 from __future__ import annotations
 
@@ -18,10 +22,12 @@ def _fill(dtype: torch.dtype, lowest: bool):
 
 
 def _scatter(data, segment_ids, num_segments: int, reduce: str, fill):
-    out = torch.full((num_segments,), fill, dtype=data.dtype,
-                     device=data.device)
-    return out.scatter_reduce_(0, segment_ids.long(), data, reduce,
-                               include_self=True)
+    out = torch.full((num_segments,) + tuple(data.shape[1:]), fill,
+                     dtype=data.dtype, device=data.device)
+    idx = segment_ids.long()
+    if data.dim() > 1:
+        idx = idx.view((-1,) + (1,) * (data.dim() - 1)).expand_as(data)
+    return out.scatter_reduce_(0, idx, data, reduce, include_self=True)
 
 
 def segment_sum(data, segment_ids, num_segments: int):
@@ -37,6 +43,16 @@ def segment_min(data, segment_ids, num_segments: int):
 def segment_max(data, segment_ids, num_segments: int):
     return _scatter(data, segment_ids, num_segments, "amax",
                     _fill(data.dtype, lowest=True))
+
+
+def segment_mean(data, segment_ids, num_segments: int):
+    """Sum over the segment's count, an empty segment counting 1 (so it
+    comes out 0), as ``repro``'s ``segment_mean``."""
+    tot = segment_sum(data, segment_ids, num_segments)
+    cnt = segment_sum(torch.ones(data.shape[:1], dtype=data.dtype,
+                                 device=data.device), segment_ids,
+                      num_segments)
+    return tot / cnt.clamp(min=1.0).view((-1,) + (1,) * (data.dim() - 1))
 
 
 def segment_argmin_take(data, payload, segment_ids, num_segments: int):

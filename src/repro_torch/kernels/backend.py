@@ -44,6 +44,5 @@ def resolve_device(device=None) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "CUDA is not available: pass device='cpu' to run the index on "
-            "the CPU")
+            "CUDA is not available: pass device='cpu' to run on the CPU")
     return dev

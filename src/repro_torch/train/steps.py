@@ -1,0 +1,143 @@
+"""Step builders: (ArchSpec, shape) -> a train step on one device — the
+port of the GNN part of ``repro.train.steps``.
+
+A ``StepBundle`` holds ``fn = train_step(state, batch) -> (state,
+{"loss", "gnorm"})`` with ``state = {"params", "opt", "step"}``, the
+tree ``repro``'s step carries (``repro_torch.tree``). One card needs no
+mesh and no sharding: the bundle's ``device`` (``device=None`` is the
+card) is where ``launch/train.py`` places the state and the batch.
+
+The step is functional, as ``repro``'s jitted step is: it returns a new
+state and leaves its input alone. The forward runs through
+``torch.func.functional_call`` on detached aliases of the parameters,
+the optimizer (``optim/``) builds new tensors, and nothing is updated in
+place. So a caller that drops a step's result (the fault-tolerant runner
+on a non-finite loss or an exception mid-step, ``fault/runner.py``)
+still holds the state from before that step, with no snapshot. The step
+reads nothing back to the host.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+from torch import nn
+from torch.func import functional_call
+
+from repro_torch.configs.base import ArchSpec
+from repro_torch.graphs import segment_ops as sops
+from repro_torch.kernels.backend import resolve_device
+from repro_torch.models import gnn as G
+from repro_torch.models import layers as L
+from repro_torch.optim import Optimizer, adafactor, adamw, warmup_cosine
+from repro_torch.tree import unflatten_paths
+
+
+@dataclasses.dataclass
+class StepBundle:
+    name: str
+    fn: Callable          # train_step(state, batch) -> (state, metrics)
+    device: torch.device
+    optimizer: Optimizer
+    static_meta: dict = dataclasses.field(default_factory=dict)
+
+
+def make_optimizer(name: str, total_steps: int = 100_000,
+                   warmup: int = 2000):
+    sched = warmup_cosine(warmup, total_steps)
+    if name == "adafactor":
+        return adafactor(lr=1e-2, schedule=sched)
+    return adamw(lr=3e-4, schedule=sched)
+
+
+# =========================================================== GNN family
+def _adapt_gnn_cfg(cfg, shp):
+    t = type(cfg).__name__
+    if t in ("GCNConfig", "SAGEConfig"):
+        return dataclasses.replace(cfg, d_in=shp.d_feat,
+                                   n_classes=max(shp.n_classes, 1))
+    if t == "EGNNConfig":
+        return dataclasses.replace(cfg, d_in=shp.d_feat,
+                                   n_out=max(shp.n_classes, 1))
+    raise KeyError(f"{t} is not ported yet")
+
+
+def _gnn_model(cfg, generator=None) -> nn.Module:
+    t = type(cfg).__name__
+    if t == "GCNConfig":
+        return G.GCN(cfg, generator)
+    if t == "SAGEConfig":
+        return G.SAGE(cfg, generator)
+    if t == "EGNNConfig":
+        return G.EGNN(cfg, generator)
+    raise KeyError(f"{t} is not ported yet")
+
+
+def _gnn_init(cfg, generator: torch.Generator) -> dict:
+    """Initial parameters (``repro``'s tree, on the CPU) drawn from
+    ``generator``."""
+    return L.params_tree(_gnn_model(cfg, generator))
+
+
+def _gnn_node_out(model, params, batch):
+    """``params``: the flat dotted dict ``functional_call`` takes."""
+    if isinstance(model, G.GCN):
+        args = (batch["feats"], batch["edge_src"], batch["edge_dst"],
+                batch["deg"])
+    elif isinstance(model, G.SAGE):
+        args = (batch["feats"], batch["edge_src"], batch["edge_dst"])
+    else:
+        args = (batch["feats"], batch["coords"], batch["edge_src"],
+                batch["edge_dst"])
+    out = functional_call(model, params, args)
+    return out[0] if isinstance(model, G.EGNN) else out
+
+
+def gnn_loss(model, params, batch, kind: str):
+    node_out = _gnn_node_out(model, params, batch)
+    if kind in ("full", "minibatch"):
+        ce = L.softmax_cross_entropy(node_out, batch["labels"])
+        return torch.sum(ce * batch["mask"]) / torch.clamp(
+            torch.sum(batch["mask"]), min=1.0)
+    # molecule: graph-level regression (sum-pool over graph_ids)
+    b = batch["targets"].shape[0]
+    pooled = sops.segment_sum(node_out[..., 0], batch["graph_ids"], b + 1)[:b]
+    return torch.mean(torch.square(pooled - batch["targets"]))
+
+
+def build_gnn_bundle(spec: ArchSpec, shape_name: str,
+                     device=None) -> StepBundle:
+    device = resolve_device(device)
+    shp = spec.shape(shape_name)
+    cfg = _adapt_gnn_cfg(spec.model_cfg, shp)
+    with torch.device("meta"):      # a structure for functional_call
+        model = _gnn_model(cfg)
+    opt = make_optimizer(spec.optimizer)
+
+    def train_step(state, batch):
+        params = {k: v.detach().requires_grad_()
+                  for k, v in L.dotted(state["params"]).items()}
+        loss = gnn_loss(model, params, batch, shp.kind)
+        # a parameter the loss does not reach (EGNN's last phi_x) gets a
+        # zero gradient, as under jax.grad
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True,
+                                    materialize_grads=True)
+        grads = unflatten_paths((k.replace(".", "/"), g)
+                                for k, g in zip(params, grads))
+        new_p, new_opt, gnorm = opt.update(grads, state["opt"],
+                                           state["params"], state["step"])
+        return ({"params": new_p, "opt": new_opt, "step": state["step"] + 1},
+                {"loss": loss.detach(), "gnorm": gnorm})
+
+    return StepBundle(name=f"{spec.arch_id}:{shape_name}:train",
+                      fn=train_step, device=device, optimizer=opt,
+                      static_meta={"cfg": cfg})
+
+
+# ------------------------------------------------------------- dispatcher
+def build_bundle(spec: ArchSpec, shape_name: str, device=None) -> StepBundle:
+    if spec.family == "gnn":
+        return build_gnn_bundle(spec, shape_name, device)
+    raise KeyError(f"the {spec.family!r} family's steps are not ported yet")

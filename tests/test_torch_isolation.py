@@ -11,6 +11,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -35,7 +36,11 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "repro_torch.core.directed", "repro_torch.shard.partition",
             "repro_torch.shard.query", "repro_torch.shard.sharded_index",
             "repro_torch.fault.stragglers", "repro_torch.serve.replicas",
-            "repro_torch.serve.frontend", "repro_torch.obs.slo"} <= set(mods)
+            "repro_torch.serve.frontend", "repro_torch.obs.slo",
+            "repro_torch.train.steps", "repro_torch.optim.adamw",
+            "repro_torch.checkpoint", "repro_torch.fault.runner",
+            "repro_torch.launch.train", "repro_torch.models.gnn",
+            "repro_torch.configs.registry"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or "
@@ -78,7 +83,11 @@ def _default_device_calls():
                                             build_hierarchy_host)
     from repro_torch.core.labeling import build_labels
     from repro_torch.graphs.csr import from_host_edges
+    from repro_torch.checkpoint import state_from_tree
+    from repro_torch.configs import registry
+    from repro_torch.launch import train
     from repro_torch.launch.serve import main
+    from repro_torch.train.steps import build_gnn_bundle
     from repro_torch.serve.versions import VersionFamily
     from repro_torch.shard import ShardedIndex
     n, src, dst, w = gen.er_graph(64, 2.0, seed=0)
@@ -99,6 +108,13 @@ def _default_device_calls():
         "launcher --mode http": lambda: main(
             ["--mode", "http", "--graph", "er", "--n", "64", "--queries",
              "8"]),
+        "build_gnn_bundle": lambda: build_gnn_bundle(
+            registry.get_spec("gcn-cora"), "full_graph_sm"),
+        "train.make_batch_fn": lambda: train.make_batch_fn(
+            registry.get_spec("gcn-cora"), "molecule"),
+        "train.main": lambda: train.main(["--arch", "gcn-cora", "--smoke",
+                                          "--steps", "2"]),
+        "state_from_tree": lambda: state_from_tree({"w": np.zeros(2)}),
     }
 
 
