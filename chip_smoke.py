@@ -93,12 +93,22 @@ Phases, one JSON line each (with its seconds):
    ``python -m repro_torch.launch.serve --mode http --graph er --n 10000
    --l-cap 64 --replicas 2 --scenario straggler --audit index`` must
    exit 0.
-11. train_<arch> — GNN training on the card (no kernel of ``kernels/``
-   lies on its path: each phase must launch none) at the published
-   configs: ``gcn-cora`` and ``graphsage-reddit`` on ``full_graph_sm``
-   (2,708 nodes, 1,433 features, 7 classes; 3,072 rows, 21,504 edges)
-   and ``egnn`` on ``molecule`` (128 graphs of 30 atoms; 4,096 rows,
-   16,384 edges), through ``launch/train.py``'s ``init_state`` and
+11. vc_baseline — Table 8: on ``benchmarks/bench_baselines.py``'s four
+   graphs (``rmat:17:8@1``, ``rmat:15:8@1``, ``er:65536:2.2@2``,
+   ``grid:181@3``) at its ``IndexConfig(l_cap=1024, label_chunk=2048)``,
+   IS-LABEL and the one-level VC index (``core/vc_baseline.py``, k = 2)
+   built on the card and queried on 1,024 seeded pairs under sync debug
+   mode "error": answers bitwise equal, the first 16 sources equal to
+   Dijkstra, each index launching exactly the label kernel and its
+   route's stage-2 kernel; k, core size, route, rounds, build s, query
+   ms and the VC / IS-LABEL query ratio.
+12. train_<arch> — training on the card (no kernel of ``kernels/`` lies
+   on its path: each phase must launch none) at the published configs:
+   ``gcn-cora`` and ``graphsage-reddit`` on ``full_graph_sm`` (2,708
+   nodes, 1,433 features, 7 classes; 3,072 rows, 21,504 edges),
+   ``egnn`` and ``dimenet`` (6 blocks, d_hidden 128; 65,536 triplet
+   slots) on ``molecule`` (128 graphs of 30 atoms; 4,096 rows, 16,384
+   edges), through ``launch/train.py``'s ``init_state`` and
    ``make_batch_fn`` and ``FaultTolerantRunner`` with checkpoints every
    10 steps: 50 timed steps under sync debug mode "error" (first-step
    and median step ms, steps/s, syncs a step, the loss read's and the
@@ -109,13 +119,21 @@ Phases, one JSON line each (with its seconds):
    step 50 bitwise onto the card, a resume (20, then a new runner to
    30) and one injected failure after the optimizer at step 25 (rolled
    back to step 20's checkpoint on the card) against an uninterrupted
-   30, and the device idle share of 10 profiled steps. Then
-   ``train_launcher``: ``python -m repro_torch.launch.train --arch
-   gcn-cora --steps 20`` and again ``--steps 30 --resume``.
-12. builders — ``er:10000:2.2@1`` built with ``builder="host"`` and
+   30, and the device idle share of 10 profiled steps. ``train_dien``:
+   DIEN at the published config (2^26 item rows, seq_len 100) with the
+   state drawn on the card, 20 timed steps at a batch of 32,768 (the
+   published 65,536 does not fit beside the ~15 GB state; no
+   checkpoint), one profiled step, then the ``serve`` bundle at
+   ``serve_p99`` (512) and ``retrieval`` at ``retrieval_cand``
+   (1,000,448 candidates) once each on the trained parameters; then the
+   checks above on the smoke config. Then ``train_launcher``: ``python
+   -m repro_torch.launch.train --arch gcn-cora --steps 20``, again
+   ``--steps 30 --resume``, ``--arch dimenet --shape molecule --steps
+   20`` and ``--arch dien --smoke --steps 20``.
+13. builders — ``er:10000:2.2@1`` built with ``builder="host"`` and
    ``builder="device"`` from one seed must give the same hierarchy and
    labels, bitwise; then whether the 10^6 graph's labels fit delta16.
-13. kernels — each kernel on the card against its plain PyTorch version
+14. kernels — each kernel on the card against its plain PyTorch version
    (``torch.equal``) on the inputs the main path gave it, with
    CUDA-event times and the bound of the same work. The label kernels
    also run at ``repro``'s serving batches (Q = 64, 256, 1024) beside
@@ -271,7 +289,7 @@ DIRECTED_DIJKSTRA = 16
 DIRECTED_PATHS = 8
 # GNN training (train_<arch>): published configs on the launcher's shapes
 TRAIN = [("gcn-cora", "full_graph_sm"), ("graphsage-reddit", "full_graph_sm"),
-         ("egnn", "molecule")]
+         ("egnn", "molecule"), ("dimenet", "molecule")]
 TRAIN_STEPS = 50
 TRAIN_CKPT_EVERY = 10
 TRAIN_CPU_STEPS = 5           # card against CPU from one state and batch
@@ -283,6 +301,27 @@ TRAIN_PROFILE_STEPS = 10
 TRAIN_RTOL, TRAIN_ATOL = 1e-4, 1e-5
 TRAIN_LAUNCHER = ["--arch", "gcn-cora", "--steps", "20"]
 TRAIN_LAUNCHER_RESUME = ["--arch", "gcn-cora", "--steps", "30", "--resume"]
+TRAIN_LAUNCHER_MORE = [["--arch", "dimenet", "--shape", "molecule", "--steps",
+                        "20"], ["--arch", "dien", "--smoke", "--steps", "20"]]
+# the VC-Index baseline (Table 8): benchmarks/bench_baselines.py's graphs
+# (the full preset of benchmarks/common.py:85-88) and its IndexConfig
+# (bench_baselines.py:86-87); each graph built as IS-LABEL and as the
+# one-level VC index, both queried on the same pairs
+VC_GRAPHS = [("rmat:17:8@1", ("rmat_graph", (17, 8.0), 1)),
+             ("rmat:15:8@1", ("rmat_graph", (15, 8.0), 1)),
+             ("er:65536:2.2@2", ("er_graph", (1 << 16, 2.2), 2)),
+             ("grid:181@3", ("grid_graph", (181,), 3))]
+VC_CONFIG = dict(l_cap=1024, label_chunk=2048)
+STAGE2_KERNEL = {"ell_loop": "spmv_relax_kernel",
+                 "fused": "fused_relax_kernel",
+                 "dense": "minplus_matmul_kernel"}
+# DIEN at the published config: AdamW's state over the 2^26- and 2^22-row
+# tables is ~15 GB, so no checkpoint is written; train_batch's 65,536 is
+# cut to 32,768 (PERF.md §4: the saved GRU activations of 65,536 do not
+# fit one 80 GB card beside the state); serve and retrieval once each
+DIEN_TRAIN_BATCH = 32_768
+DIEN_STEPS = 20
+DIEN_SERVE_REPEATS = 5
 
 
 def emit(obj) -> None:
@@ -1806,9 +1845,10 @@ def tree_close(what, a, b, rtol, atol) -> float:
     return err
 
 
-def phase_train(arch, shape, tables, device="cuda") -> dict:
-    """GNN training on the card through ``launch/train.py``'s functions
-    and ``FaultTolerantRunner``, checkpoints every ``TRAIN_CKPT_EVERY``
+def phase_train(arch, shape, tables, device="cuda", smoke=False) -> dict:
+    """Training on the card through ``launch/train.py``'s functions
+    (its smoke spec with ``smoke``) and ``FaultTolerantRunner``,
+    checkpoints every ``TRAIN_CKPT_EVERY``
     steps into a temporary directory: ``TRAIN_STEPS`` timed steps under
     sync debug mode "error" with the launch counters zeroed around them
     (no kernel of ``kernels/`` may launch), then the card against the
@@ -1824,11 +1864,13 @@ def phase_train(arch, shape, tables, device="cuda") -> dict:
     from repro_torch.core.sync import host_read, sync_count
     from repro_torch.fault import FaultTolerantRunner, RunnerConfig
     from repro_torch.fault import runner as runner_mod
-    from repro_torch.launch.train import init_state, make_batch_fn
+    from repro_torch.launch.train import init_state, make_batch_fn, smoke_spec
     from repro_torch.train.steps import build_bundle
     from repro_torch.tree import leaves
     what = f"train_{arch}"
     spec = registry.get_spec(arch)
+    if smoke:
+        spec = smoke_spec(spec)
     base = torch.cuda.memory_allocated()     # held by earlier phases
     t0 = time.perf_counter()
     bundle = build_bundle(spec, shape, device)
@@ -1913,6 +1955,7 @@ def phase_train(arch, shape, tables, device="cuda") -> dict:
             "loss_step50": losses[-1], "launches": launches})
 
         # card against CPU: TRAIN_CPU_STEPS steps from state0 and the batch
+        t_cpu = time.perf_counter()
         cpu_bundle = build_bundle(spec, shape, "cpu")
         cpu_batch = make_batch_fn(spec, shape, device="cpu")(0)
         cs = state_from_tree(snapshot(state0), "cpu")
@@ -1937,7 +1980,8 @@ def phase_train(arch, shape, tables, device="cuda") -> dict:
             "steps": TRAIN_CPU_STEPS, "rtol": TRAIN_RTOL, "atol": TRAIN_ATOL,
             "max_abs_err": tree_close(f"{what} card vs CPU", gs, cs,
                                       TRAIN_RTOL, TRAIN_ATOL),
-            "metric_max_rel_err": rel}
+            "metric_max_rel_err": rel,
+            "seconds": time.perf_counter() - t_cpu}
 
         # a fresh runner restores the step-50 checkpoint onto the card
         fresh = runner("main")
@@ -1998,22 +2042,232 @@ def phase_train(arch, shape, tables, device="cuda") -> dict:
     return rec
 
 
+def phase_vc(tables, device="cuda") -> dict:
+    """Table 8: on each of ``VC_GRAPHS``, IS-LABEL (``ISLabelIndex.build``)
+    and the one-level VC index (``build_vc_index``) built on the card at
+    ``VC_CONFIG`` and queried on the same ``MAIN_QUERIES`` seeded pairs
+    (two calls, then ``QUERY_REPEATS`` timed ones) under sync debug mode
+    "error", launch counters zeroed before each build and read after
+    its queries: each index must launch exactly the label kernel and its
+    route's stage-2 kernel. Both answers must be bitwise equal, and the
+    first 16 sources equal to Dijkstra. Returns the per-graph records
+    and the launches summed over both indexes of every graph."""
+    import numpy as np
+    import torch
+    from repro_torch.core import ISLabelIndex, IndexConfig, ref
+    from repro_torch.core.vc_baseline import build_vc_index
+    from repro_torch.graphs import generators as gen
+    out, total = {}, {}
+    for spec, (fn, args, seed) in VC_GRAPHS:
+        n, src, dst, w = getattr(gen, fn)(*args, seed=seed)
+        rng = np.random.default_rng(0)
+        s = rng.integers(0, n, MAIN_QUERIES).astype(np.int32)
+        t = rng.integers(0, n, MAIN_QUERIES).astype(np.int32)
+        rec, answers = {"n": n, "m": len(src) // 2}, {}
+        for name, build in (("islabel", ISLabelIndex.build),
+                            ("vc", build_vc_index)):
+            zero(tables)
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                idx = build(n, src, dst, w, IndexConfig(**VC_CONFIG),
+                            device=device)
+                times = []
+                for _ in range(2 + QUERY_REPEATS):
+                    t1 = time.perf_counter()
+                    ans = idx.query(s, t)    # ends on a blocking read
+                    times.append((time.perf_counter() - t1) * 1e3)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            mode = idx.engine.relaxer.mode if idx.engine.relaxer else "none"
+            launches = launches_of(tables)
+            check_launches(f"vc_baseline {spec} {name}", launches,
+                           {"label_intersect_kernel", STAGE2_KERNEL[mode]})
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            answers[name] = ans.cpu().numpy()
+            st = idx.stats
+            rec[name] = {
+                "k": st.k, "n_core": st.n_core, "m_core": st.m_core // 2,
+                "route": mode, "rounds": idx.engine._last_rounds,
+                "build_s": st.build_seconds, "peel_s": st.peel_seconds,
+                "label_s": st.label_seconds,
+                "label_entries": st.label_entries,
+                "query_ms_first": times[0], "query_ms": times[1],
+                "query_ms_median": statistics.median(times[2:]),
+                "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                "launches": launches}
+            del idx
+        if not np.array_equal(answers["islabel"], answers["vc"]):
+            fail(f"vc_baseline {spec}: VC and IS-LABEL answers differ")
+        n_check = 16
+        oracle = ref.dijkstra_oracle(n, src, dst, w, s[:n_check])
+        want = oracle[np.arange(n_check), t[:n_check]].astype(np.float32)
+        if not np.array_equal(answers["vc"][:n_check], want):
+            fail(f"vc_baseline {spec}: answers differ from Dijkstra")
+        if np.isnan(answers["vc"]).any():
+            fail(f"vc_baseline {spec}: NaN answers")
+        rec["dijkstra_checked"] = n_check
+        rec["vc_over_islabel_query"] = (rec["vc"]["query_ms_median"]
+                                        / rec["islabel"]["query_ms_median"])
+        out[spec] = rec
+        torch.cuda.empty_cache()
+    return {"graphs": out, "config": VC_CONFIG, "queries": MAIN_QUERIES,
+            "launches": total}
+
+
+def dien_request(cfg, kind: str, batch: int, device):
+    """A seeded serve or retrieval batch for DIEN on ``device``: the
+    launcher's ``dien_batch`` without its label, plus
+    ``r512(n_candidates)`` candidate ids for retrieval."""
+    import numpy as np
+    from repro_torch.configs.base import r512
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.core.sync import upload
+    from repro_torch.data.synthetic import dien_batch
+    b = dien_batch(1, 0, batch, cfg.seq_len, cfg.n_items, cfg.n_cats,
+                   cfg.n_users)
+    del b["label"]
+    if kind == "retrieval":
+        b["cand_items"] = np.random.default_rng(2).integers(
+            0, cfg.n_items, r512(RECSYS_SHAPES["retrieval_cand"]
+                                 .n_candidates)).astype(np.int32)
+    return {k: upload(v, device) for k, v in b.items()}
+
+
+def phase_dien(tables, device="cuda") -> dict:
+    """DIEN at the published config (67M item rows, seq_len 100): the
+    state drawn on the card, ``DIEN_STEPS`` timed steps of the train
+    bundle at ``DIEN_TRAIN_BATCH`` under sync debug mode "error" with
+    the launch counters zeroed around them (no kernel of ``kernels/``
+    may launch; no checkpoint), one profiled step (launches, idle
+    share), then the ``serve`` bundle at ``serve_p99`` and the
+    ``retrieval`` bundle at ``retrieval_cand`` on the trained
+    parameters. The card against the CPU, restore, resume and the
+    injected failure run on the smoke config (``phase_train``)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.configs.shapes import RecShape
+    from repro_torch.core.sync import host_read, sync_count
+    from repro_torch.launch.train import init_state, make_batch_fn
+    from repro_torch.train.steps import build_bundle
+    from repro_torch.tree import leaves
+    spec = registry.get_spec("dien")
+    cfg = spec.model_cfg
+    published = spec.shapes["train_batch"].batch
+    spec = dataclasses.replace(spec, shapes={
+        **spec.shapes,
+        "train_batch": RecShape("train_batch", "train", DIEN_TRAIN_BATCH)})
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    bundle = build_bundle(spec, "train_batch", device)
+    state = init_state(spec, bundle)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    make = make_batch_fn(spec, "train_batch", device=device)
+    batches = [make(i) for i in range(DIEN_STEPS)]
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    state_bytes = sum(int(v.numel() * v.element_size())
+                      for v in leaves(state) if isinstance(v, torch.Tensor))
+    rec = {"cfg": str(cfg), "batch": DIEN_TRAIN_BATCH,
+           "published_batch": published,
+           "params": sum(int(v.numel()) for v in leaves(state["params"])),
+           "state_bytes": state_bytes, "init_s": init_s,
+           "data_s": data_s}
+    zero(tables)
+    torch.cuda.reset_peak_memory_stats()
+    s0 = sync_count()
+    losses, step_ms = [], []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for b in batches:
+            t1 = time.perf_counter()
+            state, m = bundle.fn(state, b)
+            losses.append(float(host_read(m["loss"])))
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = sync_count() - s0
+    peak = torch.cuda.max_memory_allocated() - base
+    check_launches("train_dien", launches_of(tables), set())
+    if not all(np.isfinite(losses)) or int(host_read(state["step"])) \
+            != DIEN_STEPS:
+        fail(f"train_dien: losses {losses}")
+    if not losses[-1] < losses[0] * 1.5:
+        fail(f"train_dien: loss diverged {losses[0]} -> {losses[-1]}")
+    med = statistics.median(step_ms[1:])
+    rec.update({"steps": DIEN_STEPS, "first_step_ms": step_ms[0],
+                "step_ms_median": med, "step_ms_min": min(step_ms[1:]),
+                "samples_per_s": DIEN_TRAIN_BATCH / med * 1e3,
+                "syncs_per_step": syncs / DIEN_STEPS,
+                "peak_device_bytes": peak, "loss_step1": losses[0],
+                "loss_last": losses[-1]})
+
+    def one_step():
+        host_read(bundle.fn(state, batches[0])[1]["loss"])
+    rec["profile"] = profile_idle(one_step)
+    rec["launches_per_step"] = rec["profile"]["device_events"]
+    params = state["params"]
+    del state, batches
+    torch.cuda.empty_cache()
+
+    # serve and retrieval on the trained parameters
+    for shape, kind in (("serve_p99", "serve"),
+                        ("retrieval_cand", "retrieval")):
+        sb = build_bundle(spec, shape, device)
+        req = dien_request(cfg, kind, spec.shapes[shape].batch, device)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = sb.fn(params, req)
+        torch.cuda.synchronize()
+        first = (time.perf_counter() - t1) * 1e3
+        times = []
+        for _ in range(DIEN_SERVE_REPEATS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = sb.fn(params, req)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        got = out.cpu()
+        want = (spec.shapes[shape].batch,) if kind == "serve" else \
+            (1, req["cand_items"].shape[0])
+        finite = bool(torch.isfinite(got).all())
+        if tuple(got.shape) != want or not finite or (
+                kind == "serve" and not bool(((got > 0) & (got < 1)).all())):
+            fail(f"dien {kind}: shape {tuple(got.shape)}, finite {finite}")
+        rec[kind] = {"shape": shape, "batch": spec.shapes[shape].batch,
+                     "out_shape": list(got.shape), "finite": finite,
+                     "ms_first": first, "ms_median": statistics.median(times),
+                     "ms": times}
+    check_launches("train_dien serve/retrieval", launches_of(tables), set())
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase_train_launcher() -> dict:
     """``python -m repro_torch.launch.train`` on the card as a subprocess
     (``TRAIN_LAUNCHER``), then again with ``--resume`` from its
-    checkpoints (``TRAIN_LAUNCHER_RESUME``); both must exit 0."""
+    checkpoints (``TRAIN_LAUNCHER_RESUME``), then each of
+    ``TRAIN_LAUNCHER_MORE`` (DimeNet, DIEN); all must exit 0."""
     import os
     import tempfile
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = {}
+    runs = [("first", TRAIN_LAUNCHER), ("resume", TRAIN_LAUNCHER_RESUME)]
+    runs += [(args[1], args) for args in TRAIN_LAUNCHER_MORE]
     with tempfile.TemporaryDirectory() as tmp:
-        for name, args in (("first", TRAIN_LAUNCHER),
-                           ("resume", TRAIN_LAUNCHER_RESUME)):
+        for name, args in runs:
             t0 = time.perf_counter()
             run = subprocess.run(
                 [sys.executable, "-m", "repro_torch.launch.train", *args,
-                 "--ckpt-dir", tmp], cwd=ROOT, env=env, capture_output=True,
-                text=True, timeout=600)
+                 "--ckpt-dir", f"{tmp}/{args[1]}"], cwd=ROOT, env=env,
+                capture_output=True, text=True, timeout=600)
             if run.returncode:
                 fail(f"launch/train.py {' '.join(args)} exited "
                      f"{run.returncode}:\n{run.stdout[-3000:]}\n"
@@ -2816,13 +3070,24 @@ def main(argv) -> int:
     for k, v in rec["launches"].items():
         counters[k] += v
 
-    # GNN training (no kernel of kernels/ lies on its path), then its
-    # launcher as a subprocess
+    # the VC-Index baseline (Table 8) beside IS-LABEL on four graphs
+    t0 = time.perf_counter()
+    rec = phase_vc(tables)
+    emit({"phase": "vc_baseline", "seconds": time.perf_counter() - t0, **rec})
+    for k, v in rec["launches"].items():
+        counters[k] += v
+
+    # training: the GNNs and DimeNet, then DIEN (no kernel of kernels/
+    # lies on their paths), then the launcher as a subprocess
     for arch, shape in TRAIN:
         t0 = time.perf_counter()
         rec = phase_train(arch, shape, tables)
         emit({"phase": f"train_{arch}", "seconds": time.perf_counter() - t0,
               **rec})
+    t0 = time.perf_counter()
+    rec = {"published": phase_dien(tables),
+           "smoke": phase_train("dien", "train_batch", tables, smoke=True)}
+    emit({"phase": "train_dien", "seconds": time.perf_counter() - t0, **rec})
     t0 = time.perf_counter()
     rec = phase_train_launcher()
     emit({"phase": "train_launcher", "seconds": time.perf_counter() - t0,

@@ -3,8 +3,8 @@ specs — the port's copy of ``repro.configs.base``.
 
 ``input_specs`` returns ``TensorSpec(shape, dtype)`` pairs (torch
 dtypes) where ``repro`` returns ``jax.ShapeDtypeStruct``s, with the
-same ``r512`` padding. This slice carries the GNN family's specs; the
-LM, recsys and IS-LABEL specs come with their slices.
+same ``r512`` padding. The GNN and recsys families' specs are ported;
+the LM and IS-LABEL specs come with their slices.
 """
 from __future__ import annotations
 
@@ -48,6 +48,8 @@ class ArchSpec:
         shp = self.shapes[shape_name]
         if self.family == "gnn":
             return gnn_input_specs(self.model_cfg, shp)
+        if self.family == "recsys":
+            return recsys_input_specs(self.model_cfg, shp)
         raise KeyError(f"input specs of the {self.family!r} family are not "
                        "ported yet")
 
@@ -63,7 +65,7 @@ def gnn_minibatch_dims(shp: SH.GNNShape):
 
 
 def gnn_input_specs(cfg, shp: SH.GNNShape) -> dict:
-    need_coords = type(cfg).__name__ == "EGNNConfig"
+    need_coords = type(cfg).__name__ in ("EGNNConfig", "DimeNetConfig")
     if shp.kind == "full":
         n1, e = r512(shp.n_nodes + 1), r512(2 * shp.n_edges)
     elif shp.kind == "minibatch":
@@ -86,4 +88,27 @@ def gnn_input_specs(cfg, shp: SH.GNNShape) -> dict:
         d["mask"] = sds((n1,), torch.float32)
     if need_coords:
         d["coords"] = sds((n1, 3), torch.float32)
+    if type(cfg).__name__ == "DimeNetConfig":
+        t_cap = min(r512(4 * e), 1 << 28)   # capped triplet list (DESIGN §4)
+        d["trip_kj"] = sds((t_cap,), torch.int32)
+        d["trip_ji"] = sds((t_cap,), torch.int32)
+        d["atom_z"] = sds((n1,), torch.int32)
+    return d
+
+
+# ------------------------------------------------------------- recsys specs
+def recsys_input_specs(cfg, shp: SH.RecShape) -> dict:
+    b, s = shp.batch, cfg.seq_len
+    d = {"user": sds((b,), torch.int32),
+         "hist_items": sds((b, s), torch.int32),
+         "hist_cats": sds((b, s), torch.int32),
+         "hist_mask": sds((b, s), torch.float32),
+         "target_item": sds((b,), torch.int32),
+         "target_cat": sds((b,), torch.int32)}
+    if shp.kind == "train":
+        d["label"] = sds((b,), torch.int32)
+    if shp.kind == "retrieval":
+        # 1M candidates padded with r512 (repro: "to 2^20 for even
+        # sharding"; r512 gives 1,000,448)
+        d["cand_items"] = sds((r512(shp.n_candidates),), torch.int32)
     return d

@@ -8,14 +8,15 @@ import importlib
 
 _MODULES = {
     # GNN family
+    "dimenet": "repro_torch.configs.dimenet",
     "graphsage-reddit": "repro_torch.configs.graphsage_reddit",
     "gcn-cora": "repro_torch.configs.gcn_cora",
     "egnn": "repro_torch.configs.egnn",
+    # recsys
+    "dien": "repro_torch.configs.dien",
 }
 
 _LATER = {
-    "dimenet": "the DimeNet slice",
-    "dien": "the DIEN slice (models/embedding.py)",
     "qwen2-moe-a2.7b": "the LM slice",
     "kimi-k2-1t-a32b": "the LM slice",
     "granite-8b": "the LM slice",

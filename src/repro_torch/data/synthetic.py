@@ -71,9 +71,9 @@ def gnn_full_batch(seed: int, n: int, avg_deg: float, d_feat: int,
 
 
 def molecule_batch(seed: int, n_graphs: int, n_atoms: int, n_edges: int,
-                   d_feat: int, n_pad: int, e_pad: int):
-    """Batched random molecules flattened block-diagonally. (``repro``'s
-    ``t_cap`` triplet lists serve DimeNet, which comes with its slice.)"""
+                   d_feat: int, n_pad: int, e_pad: int, t_cap: int = 0):
+    """Batched random molecules flattened block-diagonally; with
+    ``t_cap``, DimeNet's triplet lists (sentinel ``e_pad``)."""
     rng = np.random.default_rng(seed)
     n_tot = n_graphs * n_atoms
     feats = rng.standard_normal((n_pad, d_feat)).astype(np.float32)
@@ -99,4 +99,10 @@ def molecule_batch(seed: int, n_graphs: int, n_atoms: int, n_edges: int,
     out = {"feats": feats, "edge_src": es, "edge_dst": ed, "deg": deg,
            "graph_ids": graph_ids, "targets": targets, "coords": coords,
            "atom_z": np.minimum(np.abs(feats[:, 0] * 10).astype(np.int32), 94)}
+    if t_cap:
+        from repro_torch.models.dimenet import build_triplets
+        tkj, tji = build_triplets(es[:k], ed[:k], n_tot, t_cap)
+        tkj = np.where(tkj == k, e_pad, tkj)
+        tji = np.where(tji == k, e_pad, tji)
+        out["trip_kj"], out["trip_ji"] = tkj, tji
     return out

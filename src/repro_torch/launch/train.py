@@ -9,9 +9,9 @@ checkpoints, NaN rollback, preemption handling, stragglers).
 
 ``--device`` defaults to ``cuda`` and raises without CUDA; ``--device
 cpu`` runs on the CPU. ``--smoke`` swaps in the reduced config (same
-structure, tiny dims). This slice ports the GNN family (``gcn-cora``,
-``graphsage-reddit``, ``egnn``); DimeNet's, DIEN's and the LMs' branches
-come with their slices.
+structure, tiny dims). The GNN family (``gcn-cora``,
+``graphsage-reddit``, ``egnn``, ``dimenet``) and the recsys family
+(``dien``) are ported; the LMs' branches come with their slice.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ import os
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.configs import registry
@@ -29,6 +30,8 @@ from repro_torch.core.sync import host_read, upload
 from repro_torch.data import synthetic
 from repro_torch.fault import FaultTolerantRunner, RunnerConfig
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.models.dien import init_dien
+from repro_torch.models.dimenet import build_triplets
 from repro_torch.train.steps import StepBundle, _gnn_init, build_bundle
 from repro_torch.tree import tree_map
 
@@ -37,19 +40,31 @@ def smoke_spec(spec: ArchSpec) -> ArchSpec:
     """Reduced-config spec with smoke shapes (CPU-runnable)."""
     from repro_torch.configs import shapes as SH
     cfg = spec.smoke_cfg_fn()
-    shp = {"full_graph_sm": SH.GNNShape("full_graph_sm", "full", 200, 600,
-                                        cfg.d_in, n_classes=4),
-           "molecule": SH.GNNShape("molecule", "molecule", 8, 12, cfg.d_in,
-                                   batch_graphs=4, n_classes=1)}
+    if spec.family == "gnn":
+        d_in = cfg.d_in if hasattr(cfg, "d_in") else 8
+        shp = {"full_graph_sm": SH.GNNShape("full_graph_sm", "full", 200,
+                                            600, d_in, n_classes=4),
+               "molecule": SH.GNNShape("molecule", "molecule", 8, 12, d_in,
+                                       batch_graphs=4, n_classes=1)}
+    elif spec.family == "recsys":
+        shp = {"train_batch": SH.RecShape("train_batch", "train", 32)}
+    else:
+        raise KeyError(spec.family)
     return dataclasses.replace(spec, model_cfg=cfg, shapes=shp)
 
 
 def init_state(spec: ArchSpec, bundle: StepBundle):
     """Real params + optimizer state on the bundle's device. The
     parameters are drawn from a ``torch.Generator`` seeded 0 (other
-    values than ``jax.random``'s, at ``repro``'s scale)."""
+    values than ``jax.random``'s, at ``repro``'s scale): on the CPU for
+    the GNNs, on the bundle's device for DIEN, whose 2^26-row item
+    table would take long to draw on the host."""
     cfg = bundle.static_meta.get("cfg", spec.model_cfg)
-    params = _gnn_init(cfg, torch.Generator().manual_seed(0))
+    if spec.family == "recsys":
+        params = init_dien(
+            cfg, torch.Generator(bundle.device).manual_seed(0))
+    else:
+        params = _gnn_init(cfg, torch.Generator().manual_seed(0))
     state = {"params": params, "opt": bundle.optimizer.init(params),
              "step": torch.zeros((), dtype=torch.int32)}
     return tree_map(lambda x: upload(x, bundle.device), state)
@@ -57,22 +72,43 @@ def init_state(spec: ArchSpec, bundle: StepBundle):
 
 def make_batch_fn(spec: ArchSpec, shape_name: str, seed: int = 0,
                   device=None):
-    """``step -> batch``: ``repro``'s arrays (bitwise), uploaded once to
-    ``device`` (the card unless the caller names the CPU). The graph is
-    static, so every step gets the same batch."""
+    """``step -> batch``: ``repro``'s arrays (bitwise) on ``device`` (the
+    card unless the caller names the CPU). A GNN's graph is static: it
+    is built and uploaded once, and every step gets it. DIEN draws a
+    batch a step (``dien_batch(seed, step, ...)``) and uploads it."""
     device = resolve_device(device)
     shp = spec.shape(shape_name)
+    cfg = spec.model_cfg
     specs = spec.input_specs(shape_name)
+    if spec.family == "recsys":
+        return lambda step: {k: upload(v, device) for k, v in
+                             synthetic.dien_batch(
+                                 seed, step, shp.batch, cfg.seq_len,
+                                 cfg.n_items, cfg.n_cats,
+                                 cfg.n_users).items()}
     n_pad = specs["feats"].shape[0]
     e_pad = specs["edge_src"].shape[0]
     if shp.kind == "molecule":
+        t_cap = specs["trip_kj"].shape[0] if "trip_kj" in specs else 0
         batch = synthetic.molecule_batch(seed, shp.batch_graphs, shp.n_nodes,
                                          shp.n_edges, shp.d_feat, n_pad,
-                                         e_pad)
+                                         e_pad, t_cap)
     else:
         batch = synthetic.gnn_full_batch(seed, shp.n_nodes, 4.0, shp.d_feat,
                                          shp.n_classes, n_pad, e_pad,
                                          "coords" in specs)
+        if "atom_z" in specs:
+            batch["atom_z"] = np.minimum(
+                np.abs(batch["feats"][:, 0] * 10).astype(np.int32), 94)
+        if "trip_kj" in specs:
+            t_cap = specs["trip_kj"].shape[0]
+            valid = batch["edge_src"] < shp.n_nodes
+            tkj, tji = build_triplets(batch["edge_src"][valid],
+                                      batch["edge_dst"][valid],
+                                      shp.n_nodes, t_cap)
+            nv = int(valid.sum())
+            batch["trip_kj"] = np.where(tkj == nv, e_pad, tkj)
+            batch["trip_ji"] = np.where(tji == nv, e_pad, tji)
     batch = {k: upload(v, device) for k, v in batch.items()}
     return lambda step: batch
 

@@ -1,0 +1,61 @@
+"""Embedding tables + EmbeddingBag: the port of ``repro.models.embedding``
+on one card.
+
+``lookup`` reads rows as ``jnp.take(table, ids, axis=0)`` does: an id in
+[-n, 0) counts from the end, and any other id outside [0, n) reads a row
+of NaN (its gradient is dropped). The ids are mapped into [0, n) before
+``index_select`` (which raises on ids past the table, and whose backward
+is an ``index_add_``), and the rows of out-of-range ids are filled
+afterwards. ``repro``'s ``lookup_mod_sharded`` (``shard_map`` over a
+mesh) comes with the multi-card slice.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.graphs import segment_ops as sops
+
+
+def init_table(generator: torch.Generator, n_rows: int, dim: int,
+               scale: float = 0.01) -> dict:
+    """``{"table": N(0, 1) * scale}`` [n_rows, dim], drawn on the
+    generator's device (a 2^26-row table is drawn on the card)."""
+    return {"table": torch.randn((n_rows, dim), generator=generator,
+                                 device=generator.device) * scale}
+
+
+class Table(nn.Module):
+    """One table, parameter ``table``: ``init_table``'s draw, or
+    uninitialised without a generator (a structure for
+    ``functional_call``)."""
+
+    def __init__(self, n_rows: int, dim: int, scale: float = 0.01,
+                 generator=None):
+        super().__init__()
+        self.table = nn.Parameter(
+            torch.empty((n_rows, dim)) if generator is None
+            else init_table(generator, n_rows, dim, scale)["table"])
+
+
+def lookup(table, ids):
+    """[..] int ids -> [.., D] rows, by ``jnp.take``'s rule."""
+    n = table.shape[0]
+    flat = ids.reshape(-1).long()
+    ok = (flat >= -n) & (flat < n)
+    rows = torch.where(flat < 0, flat + n, flat).clamp(0, n - 1)
+    vals = table.index_select(0, rows)
+    vals = torch.where(ok[:, None], vals, float("nan"))
+    return vals.reshape(tuple(ids.shape) + (table.shape[1],))
+
+
+def embedding_bag(table, ids, segment_ids, n_bags: int, mode: str = "sum"):
+    """Multi-hot bag: ids int32[nnz], segment_ids int32[nnz] -> [n_bags, D].
+    Sentinel-padded nnz entries must carry segment_id == n_bags."""
+    vals = lookup(table, ids)
+    if mode == "sum":
+        return sops.segment_sum(vals, segment_ids, n_bags + 1)[:n_bags]
+    if mode == "mean":
+        return sops.segment_mean(vals, segment_ids, n_bags + 1)[:n_bags]
+    out = sops.segment_max(vals, segment_ids, n_bags + 1)[:n_bags]
+    return torch.where(torch.isfinite(out), out, 0.0)

@@ -1,11 +1,13 @@
-"""Step builders: (ArchSpec, shape) -> a train step on one device — the
-port of the GNN part of ``repro.train.steps``.
+"""Step builders: (ArchSpec, shape) -> a step on one device — the port
+of the GNN and recsys parts of ``repro.train.steps``.
 
-A ``StepBundle`` holds ``fn = train_step(state, batch) -> (state,
+A train ``StepBundle`` holds ``fn = train_step(state, batch) -> (state,
 {"loss", "gnorm"})`` with ``state = {"params", "opt", "step"}``, the
-tree ``repro``'s step carries (``repro_torch.tree``). One card needs no
-mesh and no sharding: the bundle's ``device`` (``device=None`` is the
-card) is where ``launch/train.py`` places the state and the batch.
+tree ``repro``'s step carries (``repro_torch.tree``); DIEN's serve and
+retrieval bundles hold ``fn(params, batch)`` (CTR probabilities [B];
+scores [B, C]). One card needs no mesh and no sharding: the bundle's
+``device`` (``device=None`` is the card) is where ``launch/train.py``
+places the state and the batch.
 
 The step is functional, as ``repro``'s jitted step is: it returns a new
 state and leaves its input alone. The forward runs through
@@ -28,6 +30,8 @@ from torch.func import functional_call
 from repro_torch.configs.base import ArchSpec
 from repro_torch.graphs import segment_ops as sops
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.models import dien as D
+from repro_torch.models import dimenet as DN
 from repro_torch.models import gnn as G
 from repro_torch.models import layers as L
 from repro_torch.optim import Optimizer, adafactor, adamw, warmup_cosine
@@ -37,9 +41,10 @@ from repro_torch.tree import unflatten_paths
 @dataclasses.dataclass
 class StepBundle:
     name: str
-    fn: Callable          # train_step(state, batch) -> (state, metrics)
+    fn: Callable          # train: (state, batch) -> (state, metrics);
+                          # serve/retrieval: (params, batch) -> output
     device: torch.device
-    optimizer: Optimizer
+    optimizer: Optimizer | None = None     # None: a serve/retrieval bundle
     static_meta: dict = dataclasses.field(default_factory=dict)
 
 
@@ -60,6 +65,8 @@ def _adapt_gnn_cfg(cfg, shp):
     if t == "EGNNConfig":
         return dataclasses.replace(cfg, d_in=shp.d_feat,
                                    n_out=max(shp.n_classes, 1))
+    if t == "DimeNetConfig":
+        return cfg    # n_out=1 on every shape, as in repro
     raise KeyError(f"{t} is not ported yet")
 
 
@@ -71,6 +78,8 @@ def _gnn_model(cfg, generator=None) -> nn.Module:
         return G.SAGE(cfg, generator)
     if t == "EGNNConfig":
         return G.EGNN(cfg, generator)
+    if t == "DimeNetConfig":
+        return DN.DimeNet(cfg, generator)
     raise KeyError(f"{t} is not ported yet")
 
 
@@ -87,16 +96,25 @@ def _gnn_node_out(model, params, batch):
                 batch["deg"])
     elif isinstance(model, G.SAGE):
         args = (batch["feats"], batch["edge_src"], batch["edge_dst"])
-    else:
+    elif isinstance(model, G.EGNN):
         args = (batch["feats"], batch["coords"], batch["edge_src"],
                 batch["edge_dst"])
+    else:
+        args = (batch["atom_z"], batch["coords"], batch["edge_src"],
+                batch["edge_dst"], batch["trip_kj"], batch["trip_ji"])
     out = functional_call(model, params, args)
-    return out[0] if isinstance(model, G.EGNN) else out
+    return out[0] if isinstance(model, (G.EGNN, DN.DimeNet)) else out
 
 
 def gnn_loss(model, params, batch, kind: str):
     node_out = _gnn_node_out(model, params, batch)
     if kind in ("full", "minibatch"):
+        if isinstance(model, DN.DimeNet):
+            # DimeNet emits n_out=1: repro's regression-on-label proxy
+            pred = node_out[..., 0]
+            per = torch.square(pred - batch["labels"].to(torch.float32))
+            return torch.sum(per * batch["mask"]) / torch.clamp(
+                torch.sum(batch["mask"]), min=1.0)
         ce = L.softmax_cross_entropy(node_out, batch["labels"])
         return torch.sum(ce * batch["mask"]) / torch.clamp(
             torch.sum(batch["mask"]), min=1.0)
@@ -114,11 +132,21 @@ def build_gnn_bundle(spec: ArchSpec, shape_name: str,
     with torch.device("meta"):      # a structure for functional_call
         model = _gnn_model(cfg)
     opt = make_optimizer(spec.optimizer)
+    train_step = _train_step(opt, lambda params, batch: gnn_loss(
+        model, params, batch, shp.kind))
+    return StepBundle(name=f"{spec.arch_id}:{shape_name}:train",
+                      fn=train_step, device=device, optimizer=opt,
+                      static_meta={"cfg": cfg})
+
+
+def _train_step(opt: Optimizer, loss_fn):
+    """``train_step(state, batch)`` over ``loss_fn(params, batch)``
+    (``params``: the flat dotted dict ``functional_call`` takes)."""
 
     def train_step(state, batch):
         params = {k: v.detach().requires_grad_()
                   for k, v in L.dotted(state["params"]).items()}
-        loss = gnn_loss(model, params, batch, shp.kind)
+        loss = loss_fn(params, batch)
         # a parameter the loss does not reach (EGNN's last phi_x) gets a
         # zero gradient, as under jax.grad
         grads = torch.autograd.grad(loss, list(params.values()),
@@ -131,13 +159,49 @@ def build_gnn_bundle(spec: ArchSpec, shape_name: str,
         return ({"params": new_p, "opt": new_opt, "step": state["step"] + 1},
                 {"loss": loss.detach(), "gnorm": gnorm})
 
-    return StepBundle(name=f"{spec.arch_id}:{shape_name}:train",
-                      fn=train_step, device=device, optimizer=opt,
-                      static_meta={"cfg": cfg})
+    return train_step
+
+
+# ======================================================== recsys family
+def build_recsys_bundle(spec: ArchSpec, shape_name: str,
+                        device=None) -> StepBundle:
+    """DIEN on one card: ``train`` (``dien_loss``, AdamW), ``serve``
+    (``sigmoid(logit)``) or ``retrieval`` (``retrieval_scores``)."""
+    device = resolve_device(device)
+    shp = spec.shape(shape_name)
+    cfg = spec.model_cfg
+    with torch.device("meta"):      # a structure for functional_call
+        model = D.DIEN(cfg)
+    name = f"{spec.arch_id}:{shape_name}:{shp.kind}"
+
+    if shp.kind == "train":
+        opt = make_optimizer(spec.optimizer)
+        train_step = _train_step(opt, lambda params, batch: D.dien_loss(
+            model, params, batch))
+        return StepBundle(name=name, fn=train_step, device=device,
+                          optimizer=opt, static_meta={"cfg": cfg})
+
+    if shp.kind == "serve":
+        def serve_step(params, batch):
+            with torch.no_grad():
+                return torch.sigmoid(D.dien_forward(
+                    model, L.dotted(params), batch, kind="serve"))
+        return StepBundle(name=name, fn=serve_step, device=device,
+                          static_meta={"cfg": cfg})
+
+    if shp.kind == "retrieval":
+        def retrieval_step(params, batch):
+            with torch.no_grad():
+                return D.retrieval_scores(model, L.dotted(params), batch)
+        return StepBundle(name=name, fn=retrieval_step, device=device,
+                          static_meta={"cfg": cfg})
+    raise KeyError(shp.kind)
 
 
 # ------------------------------------------------------------- dispatcher
 def build_bundle(spec: ArchSpec, shape_name: str, device=None) -> StepBundle:
     if spec.family == "gnn":
         return build_gnn_bundle(spec, shape_name, device)
+    if spec.family == "recsys":
+        return build_recsys_bundle(spec, shape_name, device)
     raise KeyError(f"the {spec.family!r} family's steps are not ported yet")

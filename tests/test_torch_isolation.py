@@ -40,7 +40,10 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "repro_torch.train.steps", "repro_torch.optim.adamw",
             "repro_torch.checkpoint", "repro_torch.fault.runner",
             "repro_torch.launch.train", "repro_torch.models.gnn",
-            "repro_torch.configs.registry"} <= set(mods)
+            "repro_torch.configs.registry", "repro_torch.core.vc_baseline",
+            "repro_torch.models.dimenet", "repro_torch.models.dien",
+            "repro_torch.models.embedding", "repro_torch.configs.dimenet",
+            "repro_torch.configs.dien"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or "
@@ -87,7 +90,8 @@ def _default_device_calls():
     from repro_torch.configs import registry
     from repro_torch.launch import train
     from repro_torch.launch.serve import main
-    from repro_torch.train.steps import build_gnn_bundle
+    from repro_torch.core.vc_baseline import build_vc_index
+    from repro_torch.train.steps import build_gnn_bundle, build_recsys_bundle
     from repro_torch.serve.versions import VersionFamily
     from repro_torch.shard import ShardedIndex
     n, src, dst, w = gen.er_graph(64, 2.0, seed=0)
@@ -110,6 +114,11 @@ def _default_device_calls():
              "8"]),
         "build_gnn_bundle": lambda: build_gnn_bundle(
             registry.get_spec("gcn-cora"), "full_graph_sm"),
+        "build_vc_index": lambda: build_vc_index(n, src, dst, w, cfg),
+        "build_recsys_bundle": lambda: build_recsys_bundle(
+            registry.get_spec("dien"), "serve_p99"),
+        "train.make_batch_fn (dien)": lambda: train.make_batch_fn(
+            train.smoke_spec(registry.get_spec("dien")), "train_batch"),
         "train.make_batch_fn": lambda: train.make_batch_fn(
             registry.get_spec("gcn-cora"), "molecule"),
         "train.main": lambda: train.main(["--arch", "gcn-cora", "--smoke",

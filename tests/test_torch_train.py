@@ -1,7 +1,8 @@
 """GNN training in the PyTorch port against ``repro`` on the CPU: the
-step bundles of ``gcn-cora``, ``graphsage-reddit`` and ``egnn``
-(``train/steps.py``, ``models/gnn.py``), the sampler, the synthetic
-batches, the segment reductions and ``launch/train.py``.
+step bundles of ``gcn-cora``, ``graphsage-reddit``, ``egnn`` and
+``dimenet`` (``train/steps.py``, ``models/gnn.py``,
+``models/dimenet.py``), the sampler, the synthetic batches and DimeNet's
+triplet lists, the segment reductions and ``launch/train.py``.
 
 Each cell runs at the launcher's smoke sizes (``smoke_spec``): the port's
 bundle starts from ``repro``'s initial state carried across
@@ -31,6 +32,8 @@ from repro.graphs import generators as j_gen
 from repro.graphs import sampler as j_sampler
 from repro.graphs import segment_ops as j_sops
 from repro.launch import train as j_train
+from repro.models import dien as j_dien
+from repro.models import dimenet as j_dimenet
 from repro.models import gnn as j_gnn
 from repro.train.steps import build_bundle as j_build_bundle
 from repro_torch.checkpoint import state_from_tree
@@ -38,6 +41,8 @@ from repro_torch.configs import registry as t_registry
 from repro_torch.graphs import sampler as t_sampler
 from repro_torch.graphs import segment_ops as t_sops
 from repro_torch.launch import train as t_train
+from repro_torch.models import dien as t_dien
+from repro_torch.models import dimenet as t_dimenet
 from repro_torch.models import gnn as t_gnn
 from repro_torch.models.layers import dotted, params_tree
 from repro_torch.train.steps import build_bundle as t_build_bundle
@@ -45,7 +50,7 @@ from repro_torch.train.steps import _gnn_model
 from repro_torch.tree import flatten_with_paths
 
 ROOT = Path(__file__).resolve().parents[1]
-ARCHS = ("gcn-cora", "graphsage-reddit", "egnn")
+ARCHS = ("gcn-cora", "graphsage-reddit", "egnn", "dimenet")
 CELLS = [(a, s) for a in ARCHS for s in ("full_graph_sm", "molecule")]
 STEPS = 3
 RTOL, ATOL, MU_ATOL = 1e-5, 1e-6, 1e-8
@@ -123,10 +128,13 @@ def test_smoke_batches_bitwise(repro_cells, arch, shape):
 
 @pytest.mark.parametrize("arch,shape", [("gcn-cora", "full_graph_sm"),
                                         ("egnn", "full_graph_sm"),
-                                        ("egnn", "molecule")])
+                                        ("egnn", "molecule"),
+                                        ("dimenet", "full_graph_sm"),
+                                        ("dimenet", "molecule")])
 def test_full_size_batches_bitwise(arch, shape):
     """The chip phases' batches (published configs, the launcher's
-    shapes): 3,072 rows and 21,504 edges; 4,096 rows and 16,384 edges."""
+    shapes): 3,072 rows and 21,504 edges; 4,096 rows and 16,384 edges;
+    DimeNet's 86,016 and 65,536 triplet slots."""
     jspec = j_registry.get_spec(arch)
     jbatch = j_train.make_batch_fn(jspec, shape)(0)
     tbatch = t_train.make_batch_fn(t_registry.get_spec(arch), shape,
@@ -135,6 +143,20 @@ def test_full_size_batches_bitwise(arch, shape):
     for k in jbatch:
         np.testing.assert_array_equal(tbatch[k].numpy(), jbatch[k],
                                       err_msg=k)
+
+
+@pytest.mark.parametrize("t_cap", [0, 64, 4096])
+def test_build_triplets_bitwise(t_cap):
+    """DimeNet's host helper on a random multigraph (repeated edges,
+    both directions): cut below the triplet count, padded above it."""
+    r = np.random.default_rng(t_cap)
+    src = r.integers(0, 40, 300).astype(np.int32)
+    dst = r.integers(0, 40, 300).astype(np.int32)
+    a = j_dimenet.build_triplets(src, dst, 40, t_cap)
+    b = t_dimenet.build_triplets(src, dst, 40, t_cap)
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype == np.int32 and x.shape == (t_cap,)
+        np.testing.assert_array_equal(y, x)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -168,7 +190,8 @@ def test_parameter_names_are_repro_tree_paths(arch):
     cfg = t_registry.get_spec(arch).model_cfg
     jcfg = j_registry.get_spec(arch).model_cfg
     init = {"gcn-cora": j_gnn.init_gcn, "graphsage-reddit": j_gnn.init_sage,
-            "egnn": j_gnn.init_egnn}[arch]
+            "egnn": j_gnn.init_egnn,
+            "dimenet": j_dimenet.init_dimenet}[arch]
     jtree = jax.eval_shape(lambda k: init(k, jcfg)[0], jax.random.PRNGKey(0))
     model = _gnn_model(cfg, torch.Generator().manual_seed(0))
     ttree = params_tree(model)
@@ -178,19 +201,43 @@ def test_parameter_names_are_repro_tree_paths(arch):
         assert tuple(a[k].shape) == tuple(b[k].shape), k
         if k.endswith("/b"):
             assert not b[k].any(), k
+        elif k.endswith("/bilinear"):       # N(0, 1) / d_hidden
+            std = float(b[k].std() * b[k].shape[-1])
+            assert 0.9 < std < 1.1, (k, std)
         elif b[k].numel() > 1000:
             std = float(b[k].std() * np.sqrt(b[k].shape[0]))
             assert 0.9 < std < 1.1, (k, std)
     assert set(dotted(ttree)) == {n for n, _ in model.named_parameters()}
 
 
+def _repro_tree_paths(arch):
+    """``repro``'s parameter tree at the published config: path ->
+    shape (abstract: DIEN's 2^26-row table is never drawn)."""
+    cfg = j_registry.get_spec(arch).model_cfg
+    init = {"dimenet": j_dimenet.init_dimenet, "dien": j_dien.init_dien}[arch]
+    tree = jax.eval_shape(lambda k: init(k, cfg)[0], jax.random.PRNGKey(0))
+    return {k: tuple(v.shape) for k, v in flatten_with_paths(tree)}
+
+
 def test_unported_archs_raise_naming_their_slice():
-    for arch, slice_ in (("dimenet", "DimeNet"), ("dien", "DIEN"),
-                         ("granite-8b", "LM"), ("islabel", "launcher")):
+    """An arch of a later slice raises naming it; ``dimenet`` and
+    ``dien`` (ported with the DimeNet and DIEN slice) resolve, and their
+    models' parameters are ``repro``'s tree, path for path and shape for
+    shape, at the published configs."""
+    for arch, slice_ in (("granite-8b", "LM"), ("islabel", "launcher")):
         with pytest.raises(KeyError, match=slice_):
             t_registry.get_spec(arch)
         j_registry.get_spec(arch)          # repro has every one
-    assert t_registry.PORTED == ["graphsage-reddit", "gcn-cora", "egnn"]
+    for arch, model in (("dimenet", t_dimenet.DimeNet),
+                        ("dien", t_dien.DIEN)):
+        spec = t_registry.get_spec(arch)
+        with torch.device("meta"):
+            m = model(spec.model_cfg)
+        got = {n.replace(".", "/"): tuple(p.shape)
+               for n, p in m.named_parameters()}
+        assert got == _repro_tree_paths(arch), arch
+    assert t_registry.PORTED == ["dimenet", "graphsage-reddit", "gcn-cora",
+                                 "egnn", "dien"]
 
 
 # ------------------------------------------------------ segment reductions
