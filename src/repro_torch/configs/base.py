@@ -3,8 +3,8 @@ specs — the port's copy of ``repro.configs.base``.
 
 ``input_specs`` returns ``TensorSpec(shape, dtype)`` pairs (torch
 dtypes) where ``repro`` returns ``jax.ShapeDtypeStruct``s, with the
-same ``r512`` padding. The GNN and recsys families' specs are ported;
-the LM and IS-LABEL specs come with their slices.
+same ``r512`` padding. The LM, GNN and recsys families' specs are
+ported; the IS-LABEL specs come with their slice.
 """
 from __future__ import annotations
 
@@ -40,18 +40,46 @@ class ArchSpec:
     optimizer: str = "adamw"          # adamw | adafactor
     smoke_cfg_fn: Callable | None = None
     notes: str = ""
+    param_dtype: str = "float32"
 
     def shape(self, name: str):
         return self.shapes[name]
 
     def input_specs(self, shape_name: str) -> dict:
         shp = self.shapes[shape_name]
+        if self.family == "lm":
+            return lm_input_specs(self.model_cfg, shp)
         if self.family == "gnn":
             return gnn_input_specs(self.model_cfg, shp)
         if self.family == "recsys":
             return recsys_input_specs(self.model_cfg, shp)
         raise KeyError(f"input specs of the {self.family!r} family are not "
                        "ported yet")
+
+    def runnable_cells(self):
+        """Shape names that apply to this arch (assignment skip rules)."""
+        out = []
+        for name, shp in self.shapes.items():
+            if getattr(shp, "subquadratic_required", False) \
+                    and self.family == "lm":
+                continue   # pure full-attention archs skip long_500k
+            out.append(name)
+        return out
+
+
+# ----------------------------------------------------------------- LM specs
+def lm_input_specs(cfg, shp: SH.LMShape) -> dict:
+    b, s = shp.global_batch, shp.seq_len
+    if shp.kind == "train":
+        return {"tokens": sds((b, s), torch.int32),
+                "targets": sds((b, s), torch.int32)}
+    if shp.kind == "prefill":
+        return {"tokens": sds((b, s), torch.int32)}
+    if shp.kind == "decode":
+        kv = sds((cfg.n_layers, b, s, cfg.n_kv_heads, cfg.hd), torch.bfloat16)
+        return {"cache": {"k": kv, "v": kv, "len": sds((), torch.int32)},
+                "last_tokens": sds((b, 1), torch.int32)}
+    raise KeyError(shp.kind)
 
 
 # ---------------------------------------------------------------- GNN specs

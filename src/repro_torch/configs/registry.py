@@ -7,6 +7,12 @@ from __future__ import annotations
 import importlib
 
 _MODULES = {
+    # LM family
+    "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2_7b",
+    "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
+    "granite-8b": "repro_torch.configs.granite_8b",
+    "yi-34b": "repro_torch.configs.yi_34b",
+    "qwen2-72b": "repro_torch.configs.qwen2_72b",
     # GNN family
     "dimenet": "repro_torch.configs.dimenet",
     "graphsage-reddit": "repro_torch.configs.graphsage_reddit",
@@ -17,11 +23,6 @@ _MODULES = {
 }
 
 _LATER = {
-    "qwen2-moe-a2.7b": "the LM slice",
-    "kimi-k2-1t-a32b": "the LM slice",
-    "granite-8b": "the LM slice",
-    "yi-34b": "the LM slice",
-    "qwen2-72b": "the LM slice",
     "islabel": "the data, distributed and launcher slice",
 }
 

@@ -1,5 +1,13 @@
 """Serving launcher of the port, the counterpart of ``repro.launch.serve``
-in its four index modes:
+in its five modes:
+
+* ``--mode lm``: prefill + greedy decode loop for an LM's smoke config
+  (``repro``'s ``serve_lm``): ``--batch`` random prompts of 16 tokens,
+  ``--gen-len`` tokens each by argmax, one tokens/s line. ``--arch`` is
+  any of the five LM ids. The run exits nonzero on a non-finite logit.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \\
+      --arch qwen2-moe-a2.7b --batch 256 --gen-len 32
 
 * ``--mode distance``: build (or ``--load``) an IS-LABEL index on
   ``--device`` (the card by default), register it, replay a scenario
@@ -62,8 +70,8 @@ in its four index modes:
       --graph er --n 10000 --l-cap 64 --replicas 2 \\
       --scenario straggler --audit index
 
-``--device cpu`` runs the index on the CPU (the kernels' plain
-versions). The LM mode is not ported.
+``--device cpu`` runs the index (or the LM) on the CPU (the kernels'
+plain versions).
 """
 from __future__ import annotations
 
@@ -144,6 +152,55 @@ class _ObsSession:
         self.log.log("finish", mode=self.mode, failures=failures)
         self.log.close()
         return failures
+
+
+def lm_generate(spec, batch: int, gen_len: int, device, prompt_len: int = 16,
+                seed: int = 0) -> dict:
+    """``repro``'s ``serve_lm`` loop on ``spec``'s config: parameters from
+    ``init_lm(cfg, seed)`` in ``spec.param_dtype``, ``batch`` prompts of
+    ``prompt_len`` tokens from ``np.random.default_rng(seed)``, a prefill
+    into a cache of ``prompt_len + gen_len``, then greedy decode steps.
+    The tokens are read to the host once, at the end. Returns the
+    ``params``, the ``prompt``, the greedy ``tokens`` [batch, gen_len],
+    whether every logit was ``finite``, and the wall ``seconds``."""
+    import torch
+
+    from repro_torch.core.sync import host_read, upload
+    from repro_torch.models.transformer import decode_step, init_lm, prefill
+    cfg = spec.model_cfg
+    params = init_lm(cfg, seed, device, getattr(torch, spec.param_dtype))
+    prompt = np.random.default_rng(seed).integers(
+        0, cfg.vocab, (batch, prompt_len)).astype(np.int32)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = prefill(params, cfg, upload(prompt, device),
+                                prompt_len + gen_len)
+        finite = torch.isfinite(logits).all()
+        out = [torch.argmax(logits[:, -1:], -1).to(torch.int32)]
+        for _ in range(gen_len - 1):
+            logits, cache = decode_step(params, cfg, cache, out[-1])
+            finite = finite & torch.isfinite(logits).all()
+            out.append(torch.argmax(logits, -1).to(torch.int32))
+    tokens, finite = host_read((torch.cat(out, 1), finite))
+    return {"params": params, "prompt": prompt, "tokens": tokens,
+            "finite": bool(finite), "seconds": time.perf_counter() - t0}
+
+
+def serve_lm(args) -> int:
+    from repro_torch.configs import registry
+    from repro_torch.kernels.backend import resolve_device
+    from repro_torch.launch.train import smoke_spec
+    device = resolve_device(args.device)
+    spec = smoke_spec(registry.get_spec(args.arch))
+    res = lm_generate(spec, args.batch, args.gen_len, device, seed=args.seed)
+    total = args.batch * args.gen_len
+    dt = res["seconds"]
+    print(f"[serve-lm {spec.arch_id}] {total} tokens in {dt:.2f}s "
+          f"({total / dt:.1f} tok/s incl. first calls) on {device}")
+    if not res["finite"]:
+        print("  FAIL: non-finite logits")
+        return 1
+    return 0
 
 
 def _build_graph(args):
@@ -615,11 +672,16 @@ def serve_http(args) -> int:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", choices=["distance", "path", "mutate", "http"],
+    ap.add_argument("--mode", choices=["lm", "distance", "path", "mutate",
+                                       "http"],
                     default="distance")
     ap.add_argument("--device", default="cuda",
-                    help="where the index lives: cuda (the kernels) or cpu "
-                         "(their plain versions)")
+                    help="where the index (or the LM) lives: cuda (the "
+                         "kernels) or cpu (their plain versions)")
+    # -- LM serving (--mode lm) -------------------------------------------
+    ap.add_argument("--arch", default="granite-8b")
+    ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--gen-len", type=int, default=32)
     ap.add_argument("--graph", choices=["rmat", "er", "grid"], default="rmat")
     ap.add_argument("--n", type=int, default=4096)
     ap.add_argument("--l-cap", type=int, default=512)
@@ -695,6 +757,8 @@ def main(argv=None):
                     help="wrap the replay in torch.profiler, writing a "
                          "Chrome trace into this directory")
     args = ap.parse_args(argv)
+    if args.mode == "lm":
+        raise SystemExit(serve_lm(args))
     if args.mode == "mutate":
         raise SystemExit(serve_mutate(args))
     if args.mode == "http":

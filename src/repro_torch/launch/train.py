@@ -11,7 +11,9 @@ checkpoints, NaN rollback, preemption handling, stragglers).
 cpu`` runs on the CPU. ``--smoke`` swaps in the reduced config (same
 structure, tiny dims). The GNN family (``gcn-cora``,
 ``graphsage-reddit``, ``egnn``, ``dimenet``) and the recsys family
-(``dien``) are ported; the LMs' branches come with their slice.
+(``dien``) train here. The LMs serve (``launch/serve.py --mode lm``):
+their ``smoke_spec`` and ``init_state`` branches are here, their train
+step is not ported yet.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from repro_torch.fault import FaultTolerantRunner, RunnerConfig
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models.dien import init_dien
 from repro_torch.models.dimenet import build_triplets
+from repro_torch.models.transformer import init_lm
 from repro_torch.train.steps import StepBundle, _gnn_init, build_bundle
 from repro_torch.tree import tree_map
 
@@ -40,7 +43,9 @@ def smoke_spec(spec: ArchSpec) -> ArchSpec:
     """Reduced-config spec with smoke shapes (CPU-runnable)."""
     from repro_torch.configs import shapes as SH
     cfg = spec.smoke_cfg_fn()
-    if spec.family == "gnn":
+    if spec.family == "lm":
+        shp = {"train_4k": SH.LMShape("train_4k", "train", 64, 4)}
+    elif spec.family == "gnn":
         d_in = cfg.d_in if hasattr(cfg, "d_in") else 8
         shp = {"full_graph_sm": SH.GNNShape("full_graph_sm", "full", 200,
                                             600, d_in, n_classes=4),
@@ -54,13 +59,20 @@ def smoke_spec(spec: ArchSpec) -> ArchSpec:
 
 
 def init_state(spec: ArchSpec, bundle: StepBundle):
-    """Real params + optimizer state on the bundle's device. The
-    parameters are drawn from a ``torch.Generator`` seeded 0 (other
-    values than ``jax.random``'s, at ``repro``'s scale): on the CPU for
-    the GNNs, on the bundle's device for DIEN, whose 2^26-row item
-    table would take long to draw on the host."""
+    """Real params + optimizer state on the bundle's device (the
+    parameters alone for a bundle without an optimizer: an LM's prefill
+    and decode). The parameters are drawn from a ``torch.Generator``
+    seeded 0 (other values than ``jax.random``'s, at ``repro``'s scale):
+    on the CPU for the GNNs, on the bundle's device for DIEN, whose
+    2^26-row item table would take long to draw on the host, and for
+    the LMs, in ``spec.param_dtype``."""
     cfg = bundle.static_meta.get("cfg", spec.model_cfg)
-    if spec.family == "recsys":
+    if spec.family == "lm":
+        params = init_lm(cfg, 0, bundle.device,
+                         getattr(torch, spec.param_dtype))
+        if bundle.optimizer is None:
+            return {"params": params}
+    elif spec.family == "recsys":
         params = init_dien(
             cfg, torch.Generator(bundle.device).manual_seed(0))
     else:

@@ -5,8 +5,14 @@ A module's parameter names are the paths of ``repro``'s parameter tree
 joined by dots (``Linear``: ``w``, ``b``; ``MLP``: ``l0.w``, ``l0.b``,
 ...), so carrying weights between the packages is a rename of ``/`` to
 ``.`` (``params_tree``, ``dotted``), not a table. ``repro``'s logical
-sharding axes have no counterpart on one card. The norms, SwiGLU and
-RoPE come with the LM slice.
+sharding axes have no counterpart on one card.
+
+The LM layers (RMSNorm, LayerNorm, SwiGLU, RoPE) keep ``repro``'s casts:
+``rmsnorm`` takes the mean square in fp32 and multiplies in ``x``'s
+dtype, ``apply_rope`` rotates in fp32 by promotion and casts back once,
+``swiglu`` runs in ``dtype``. Their modules take a leading ``lead``
+shape: the LM stacks its layers' parameters on a leading axis, as
+``repro`` does (``blocks.ln1.scale`` is ``[L, E]``).
 """
 from __future__ import annotations
 
@@ -18,14 +24,32 @@ from torch import nn
 from repro_torch.tree import flatten_with_paths, unflatten_paths
 
 
-def _dense_init(shape, generator=None, in_axis=-2) -> nn.Parameter:
+def _dense_init(shape, generator=None, in_axis=-2, dtype=None) -> nn.Parameter:
     """N(0, 1) / sqrt(fan_in), drawn from ``generator``; without one the
     parameter is left uninitialised (a structure to be loaded into, or
-    to pass to ``torch.func.functional_call``)."""
+    to pass to ``torch.func.functional_call``).
+
+    With a ``dtype`` (the LM's stacked weights) the parameter is
+    allocated in that dtype on the generator's device and drawn into in
+    row blocks of at most ``_DRAW_BLOCK`` fp32 values, so a full-size
+    ``[36, 4096, 14336]`` bf16 tensor never exists in fp32 whole."""
     if generator is None:
-        return nn.Parameter(torch.empty(shape))
-    return nn.Parameter(torch.randn(shape, generator=generator)
-                        / math.sqrt(shape[in_axis]))
+        return nn.Parameter(torch.empty(shape, dtype=dtype))
+    if dtype is None:
+        return nn.Parameter(torch.randn(shape, generator=generator)
+                            / math.sqrt(shape[in_axis]))
+    out = torch.empty(shape, dtype=dtype, device=generator.device)
+    rows = out.view(-1, shape[-1])
+    step = max(1, _DRAW_BLOCK // shape[-1])
+    scale = math.sqrt(shape[in_axis])
+    for r in range(0, rows.shape[0], step):
+        blk = rows[r:r + step]
+        blk.copy_(torch.randn(blk.shape, generator=generator,
+                              device=generator.device) / scale)
+    return nn.Parameter(out)
+
+
+_DRAW_BLOCK = 1 << 27        # fp32 values drawn at once (512 MB)
 
 
 class Linear(nn.Module):
@@ -61,15 +85,93 @@ class MLP(nn.Module):
         return x
 
 
-def softmax_cross_entropy(logits, labels):
-    """logits [..., V]; labels int [...]. Returns the per-token loss
-    (``repro``'s ``impl="gather"`` without ``z_loss``: the GNNs use
-    neither the z-loss nor the ``"iota"`` form for vocabulary
-    sharding)."""
+def _fill(shape, value: float, generator=None, dtype=None):
+    """A constant parameter (norm scales, biases) on the generator's
+    device, or uninitialised without a generator."""
+    if generator is None:
+        return nn.Parameter(torch.empty(shape, dtype=dtype))
+    return nn.Parameter(torch.full(shape, value, dtype=dtype or torch.float32,
+                                   device=generator.device))
+
+
+class RMSNorm(nn.Module):
+    """``repro``'s ``init_rmsnorm``: ``scale`` ones [*lead, d]."""
+
+    def __init__(self, d, lead=(), generator=None, dtype=None):
+        super().__init__()
+        self.scale = _fill((*lead, d), 1.0, generator, dtype)
+
+
+def rmsnorm(p, x, eps=1e-6):
+    var = torch.mean(torch.square(x.to(torch.float32)), dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps).to(x.dtype)
+    return y * p["scale"].to(x.dtype)
+
+
+def layernorm(p, x, eps=1e-5):
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"] + p["bias"]).to(x.dtype)
+
+
+class SwiGLU(nn.Module):
+    """``repro``'s ``init_swiglu``: ``w_gate``, ``w_up`` [*lead, d_model,
+    d_ff] and ``w_down`` [*lead, d_ff, d_model]."""
+
+    def __init__(self, d_model, d_ff, lead=(), generator=None, dtype=None):
+        super().__init__()
+        self.w_gate = _dense_init((*lead, d_model, d_ff), generator,
+                                  dtype=dtype)
+        self.w_up = _dense_init((*lead, d_model, d_ff), generator, dtype=dtype)
+        self.w_down = _dense_init((*lead, d_ff, d_model), generator,
+                                  dtype=dtype)
+
+
+def swiglu(p, x, dtype=torch.bfloat16):
+    g = x @ p["w_gate"].to(dtype)
+    u = x @ p["w_up"].to(dtype)
+    return (torch.nn.functional.silu(g) * u) @ p["w_down"].to(dtype)
+
+
+def rope_freqs(head_dim: int, theta: float = 10000.0, device=None):
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """x: [..., S, H, Dh]; positions: broadcastable [..., S] (a device
+    tensor at decode: the cache length)."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)               # [Dh/2]
+    ang = positions[..., None].to(torch.float32) * freqs  # [..., S, Dh/2]
+    cos = torch.cos(ang)[..., None, :]                    # [..., S, 1, Dh/2]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., : dh // 2], x[..., dh // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    return out.to(x.dtype)
+
+
+def softmax_cross_entropy(logits, labels, z_loss: float = 0.0,
+                          impl: str = "gather"):
+    """logits [..., V]; labels int [...]. Returns the per-token loss.
+
+    ``impl="gather"`` reads the label logit with ``torch.gather``;
+    ``impl="iota"`` selects it with an iota compare and a sum (``repro``'s
+    vocabulary-sharding-safe form; the same arithmetic on one card)."""
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    return lse - ll
+    if impl == "iota":
+        iota = torch.arange(logits.shape[-1], device=logits.device)
+        onehot = labels[..., None].long() == iota
+        ll = torch.sum(torch.where(onehot, logits, 0.0), dim=-1)
+    else:
+        ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * torch.square(lse)
+    return loss
 
 
 def params_tree(module: nn.Module) -> dict:

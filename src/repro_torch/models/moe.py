@@ -1,0 +1,160 @@
+"""Mixture-of-Experts FFN: top-k routing with sort-based capacity
+dispatch and optional shared experts — the port of ``repro.models.moe``
+on one card.
+
+Dispatch is fixed-shape, as in ``repro``: token-expert assignments are
+sorted by expert (stable), ranked within their expert (the rank is the
+position less the segment minimum), and scattered into an
+``[n_total * capacity + 1, E]`` buffer whose last row takes every
+assignment past the capacity. The capacity
+``int(capacity_factor * k * t / n_experts + 1)`` is computed in Python
+from the shapes.
+
+Top-k keeps ``jax.lax.top_k``'s rule that the lower expert wins a tie
+(``torch.topk`` does not): the probabilities are sorted descending with
+a stable sort and the first k taken, the same on the CPU and the card.
+
+``dispatch_shard`` and ``set_dispatch_mesh`` are ``repro``'s sharding
+hints for expert parallelism over a mesh. One card has no mesh: the
+field is accepted and ignored, and ``set_dispatch_mesh`` does nothing.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from repro_torch.models import layers as L
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_expert_ff: int
+    n_shared: int = 0
+    d_shared_ff: int = 0          # 0 -> n_shared * d_expert_ff
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.001
+    dispatch_shard: bool = False  # a mesh hint in repro; ignored here
+    ep_pad: int = 0               # pad the expert count (60 -> 64); padded
+                                  # experts get no routed tokens
+    combine_impl: str = "gather"  # "scatter": segment-sum combine
+
+    @property
+    def n_total(self) -> int:
+        return max(self.ep_pad, self.n_experts)
+
+
+def set_dispatch_mesh(mesh):
+    """``repro``'s dispatch-buffer sharding hint: nothing to do on one
+    card."""
+    del mesh
+
+
+class MoE(nn.Module):
+    """``repro``'s ``init_moe``: ``router`` [*lead, E, n_experts],
+    ``w_gate``/``w_up`` [*lead, n_total, E, F], ``w_down`` [*lead,
+    n_total, F, E], and a ``shared`` SwiGLU when ``n_shared``."""
+
+    def __init__(self, d_model: int, cfg: MoEConfig, lead=(), generator=None,
+                 dtype=None):
+        super().__init__()
+        n, f = cfg.n_total, cfg.d_expert_ff
+        self.router = L._dense_init((*lead, d_model, cfg.n_experts),
+                                    generator, dtype=dtype)
+        self.w_gate = L._dense_init((*lead, n, d_model, f), generator,
+                                    dtype=dtype)
+        self.w_up = L._dense_init((*lead, n, d_model, f), generator,
+                                  dtype=dtype)
+        self.w_down = L._dense_init((*lead, n, f, d_model), generator,
+                                    dtype=dtype)
+        if cfg.n_shared:
+            dsf = cfg.d_shared_ff or cfg.n_shared * cfg.d_expert_ff
+            self.shared = L.SwiGLU(d_model, dsf, lead, generator, dtype)
+
+
+class Routing(NamedTuple):
+    probs: torch.Tensor       # f32 [T, n_experts]
+    gate_v: torch.Tensor      # f32 [T, K], renormalised
+    top_i: torch.Tensor       # int64 [T, K], lower expert first on ties
+    order: torch.Tensor       # int64 [T*K], stable sort of top_i by expert
+    slot: torch.Tensor        # int64 [T*K] buffer row, n_total*cap if dropped
+    keep: torch.Tensor        # bool [T*K], rank < cap (in sorted order)
+    cap: int
+
+
+def route(p, cfg: MoEConfig, xf, dtype=torch.bfloat16) -> Routing:
+    """Router softmax, top-k and the capacity dispatch of ``xf`` [T, E]."""
+    t = xf.shape[0]
+    logits = (xf @ p["router"].to(dtype)).to(torch.float32)       # [T, N]
+    probs = torch.softmax(logits, dim=-1)
+    srt, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_v, top_i = srt[:, :cfg.top_k], idx[:, :cfg.top_k]         # [T, K]
+    gate_v = gate_v / torch.clamp(gate_v.sum(-1, keepdim=True), min=1e-9)
+
+    n, k = cfg.n_total, cfg.top_k
+    cap = int(cfg.capacity_factor * k * t / cfg.n_experts + 1)
+    flat_e = top_i.reshape(-1)                                     # [T*K]
+    sorted_e, order = torch.sort(flat_e, stable=True)
+    pos = torch.arange(t * k, device=xf.device)
+    first = torch.full((n,), t * k, dtype=pos.dtype, device=xf.device)
+    first = first.scatter_reduce(0, sorted_e, pos, "amin")        # segment min
+    rank = pos - first[sorted_e]
+    keep = rank < cap
+    slot = torch.where(keep, sorted_e * cap + rank,
+                       torch.full_like(rank, n * cap))            # drop row
+    return Routing(probs, gate_v, top_i, order, slot, keep, cap)
+
+
+def moe_ffn(p, cfg: MoEConfig, x, *, dtype=torch.bfloat16):
+    """x: [B, S, E] -> ([B, S, E], aux_loss)."""
+    b, s, e = x.shape
+    t = b * s
+    xf = x.reshape(t, e)
+    r = route(p, cfg, xf, dtype)
+    n, k, cap = cfg.n_total, cfg.top_k, r.cap
+    token_of = r.order // k
+
+    buf = xf.new_zeros((n * cap + 1, e), dtype=dtype)
+    buf[r.slot] = xf[token_of].to(dtype)
+    xe = buf[:-1].view(n, cap, e)
+
+    g = torch.bmm(xe, p["w_gate"].to(dtype))
+    u = torch.bmm(xe, p["w_up"].to(dtype))
+    # cast before the activations: with bf16 weights and an fp32 dtype the
+    # cast then reuses the block w_up's cast freed (21 GB on kimi-k2)
+    w_down = p["w_down"].to(dtype)
+    he = torch.bmm(F.silu(g) * u, w_down)
+    he_flat = torch.cat([he.reshape(n * cap, e), he.new_zeros((1, e))], 0)
+
+    if cfg.combine_impl == "scatter":
+        # each buffer row scatters back to its token with its gate weight
+        gate_sorted = r.gate_v.reshape(-1)[r.order]                # [T*K]
+        tok_slot = torch.full((n * cap + 1,), t, dtype=torch.int64,
+                              device=x.device)
+        tok_slot[r.slot] = token_of
+        gate_slot = xf.new_zeros((n * cap + 1,), dtype=torch.float32)
+        gate_slot[r.slot] = gate_sorted
+        weighted = he_flat * gate_slot[:, None].to(dtype)
+        y = he_flat.new_zeros((t + 1, e)).index_add_(0, tok_slot, weighted)[:t]
+    else:
+        # gather back: assignment (t, k)'s contribution lives at its slot
+        slot_by_assign = torch.empty_like(r.slot)
+        slot_by_assign[r.order] = r.slot
+        contrib = he_flat[slot_by_assign].view(t, k, e)
+        y = torch.sum(contrib * r.gate_v[..., None].to(dtype), dim=1)
+
+    if cfg.n_shared:
+        y = y + L.swiglu(p["shared"], xf.to(dtype), dtype)
+
+    # Switch-style load-balance auxiliary loss (over the real experts)
+    me = torch.mean(r.probs, dim=0)                                # [N]
+    ce = torch.mean(F.one_hot(r.top_i[:, 0], cfg.n_experts).to(torch.float32),
+                    dim=0)
+    aux = cfg.router_aux_weight * cfg.n_experts * torch.sum(me * ce)
+    return y.reshape(b, s, e), aux
+

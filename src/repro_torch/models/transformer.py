@@ -1,0 +1,298 @@
+"""Decoder-only LM (dense or MoE) — the port of ``repro.models.transformer``
+on one card: ``forward``, ``lm_loss`` and the serving path (``prefill``
+and KV-cache ``decode_step``).
+
+The parameter tree is ``repro``'s: the layers' parameters are stacked
+on a leading axis (``blocks/attn/wq`` is ``[L, E, H·Dh]``), so carrying
+weights between the packages is a rename of ``/`` to ``.``
+(``state_from_tree``, ``tree_from_state``) and checkpoints keep
+``repro``'s format. ``repro``'s ``lax.scan`` over the stack is a Python
+loop that indexes layer ``i``. Token ids read embedding rows by jnp's gather rule
+(``token_rows``).
+
+Serving writes the cache in place: ``prefill`` allocates it and writes
+each layer's K and V straight into it, and ``decode_step`` writes one
+slot a layer and bumps ``cache["len"]`` on the device, then returns the
+same dict (``repro`` returns a new cache and its bundle donates the old
+one). A decode step reads nothing back to the host.
+
+``repro``'s ``lm_axes`` (logical sharding axes) and
+``set_act_shard_mesh`` (activation sharding constraints) have no
+counterpart on one card; ``abstract_params`` is the parameter tree on
+the ``meta`` device.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.kernels.backend import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.attention import (AttnConfig, Attention,
+                                          causal_attention, decode_attention)
+from repro_torch.models.moe import MoE, MoEConfig, moe_ffn
+from repro_torch.tree import tree_map, unflatten_paths
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0                  # 0 -> d_model // n_heads
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    moe: MoEConfig | None = None
+    q_chunk: int = 512
+    dtype: str = "bfloat16"
+    tie_embeddings: bool = False
+    ce_impl: str = "gather"            # "iota": repro's vocab-sharding form
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    def attn_cfg(self) -> AttnConfig:
+        return AttnConfig(self.d_model, self.n_heads, self.n_kv_heads,
+                          self.hd, self.rope_theta, self.qkv_bias)
+
+    def _attn_params(self) -> int:
+        e = self.d_model
+        return e * (self.n_heads * self.hd) * 2 + \
+            e * (self.n_kv_heads * self.hd) * 2
+
+    def param_count(self) -> int:
+        e, f, v, nl = self.d_model, self.d_ff, self.vocab, self.n_layers
+        if self.moe:
+            m = self.moe
+            ff = m.n_experts * 3 * e * m.d_expert_ff + e * m.n_experts
+            if m.n_shared:
+                ff += 3 * e * (m.d_shared_ff or m.n_shared * m.d_expert_ff)
+        else:
+            ff = 3 * e * f
+        return nl * (self._attn_params() + ff + 2 * e) + v * e * (
+            1 if self.tie_embeddings else 2)
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top-k + shared only)."""
+        if not self.moe:
+            return self.param_count()
+        e, nl = self.d_model, self.n_layers
+        m = self.moe
+        ff = m.top_k * 3 * e * m.d_expert_ff + e * m.n_experts
+        if m.n_shared:
+            ff += 3 * e * (m.d_shared_ff or m.n_shared * m.d_expert_ff)
+        return nl * (self._attn_params() + ff + 2 * e) + self.vocab * e * 2
+
+
+def tiny_like(cfg: LMConfig) -> LMConfig:
+    """Structurally identical config with tiny dims (smoke tests: the
+    parameter tree's structure depends only on the flags)."""
+    moe = None
+    if cfg.moe:
+        moe = dataclasses.replace(
+            cfg.moe, n_experts=4, top_k=2, d_expert_ff=16,
+            d_shared_ff=16 if (cfg.moe.n_shared or cfg.moe.d_shared_ff) else 0)
+    return dataclasses.replace(
+        cfg, n_layers=2, d_model=16, n_heads=2, n_kv_heads=2, d_ff=32,
+        vocab=64, head_dim=8, moe=moe, q_chunk=8)
+
+
+def compute_dtype(cfg: LMConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+# --------------------------------------------------------------------- init
+class Block(nn.Module):
+    """The ``n_layers`` stacked layers (``repro``'s ``init_layer`` under
+    ``vmap``): ``attn``, ``ffn`` (SwiGLU or MoE), ``ln1``, ``ln2``."""
+
+    def __init__(self, cfg: LMConfig, generator=None, dtype=None):
+        super().__init__()
+        lead = (cfg.n_layers,)
+        self.attn = Attention(cfg.attn_cfg(), lead, generator, dtype)
+        self.ffn = (MoE(cfg.d_model, cfg.moe, lead, generator, dtype)
+                    if cfg.moe else
+                    L.SwiGLU(cfg.d_model, cfg.d_ff, lead, generator, dtype))
+        self.ln1 = L.RMSNorm(cfg.d_model, lead, generator, dtype)
+        self.ln2 = L.RMSNorm(cfg.d_model, lead, generator, dtype)
+
+
+class LM(nn.Module):
+    """``repro``'s ``init_lm`` tree as a module: ``embed`` [V, E],
+    ``blocks`` (stacked), ``ln_f``, and ``unembed`` [E, V] unless the
+    embeddings are tied. With a generator every parameter is drawn on
+    its device in ``dtype`` (other values than ``jax.random``'s, at
+    ``repro``'s scale); without one it is a structure to load into."""
+
+    def __init__(self, cfg: LMConfig, generator=None, dtype=None):
+        super().__init__()
+        self.embed = L._dense_init((cfg.vocab, cfg.d_model), generator,
+                                   dtype=dtype)
+        self.blocks = Block(cfg, generator, dtype)
+        self.ln_f = L.RMSNorm(cfg.d_model, (), generator, dtype)
+        if not cfg.tie_embeddings:
+            self.unembed = L._dense_init((cfg.d_model, cfg.vocab), generator,
+                                         dtype=dtype)
+
+
+
+def init_lm(cfg: LMConfig, seed: int = 0, device=None,
+            dtype: torch.dtype = torch.float32) -> dict:
+    """The parameter tree drawn on ``device`` (the card unless the caller
+    names the CPU) from a ``torch.Generator`` seeded ``seed``, stored in
+    ``dtype`` (bf16 at full size: 16.5 GB for granite-8b)."""
+    device = resolve_device(device)
+    gen = torch.Generator(device).manual_seed(seed)
+    with torch.no_grad():
+        return L.params_tree(LM(cfg, gen, dtype))
+
+
+def abstract_params(cfg: LMConfig):
+    """The parameter tree on the ``meta`` device: shapes without
+    storage."""
+    with torch.device("meta"):
+        return L.params_tree(LM(cfg))
+
+
+def state_from_tree(tree, device=None) -> dict:
+    """``repro``'s LM parameter tree (numpy arrays, stacked blocks) as the
+    port's module state: the flat dotted dict ``LM.load_state_dict``
+    takes, every tensor on ``device`` (the card unless the caller names
+    the CPU)."""
+    from repro_torch.core.sync import upload
+    device = resolve_device(device)
+    return {k: upload(np.asarray(v), device)
+            for k, v in L.dotted(tree).items()}
+
+
+def tree_from_state(state: dict) -> dict:
+    """The inverse of ``state_from_tree``: the module state as
+    ``repro``'s nested tree of numpy arrays."""
+    from repro_torch.core.sync import host_arrays
+    names = list(state)
+    arrays = host_arrays(*(state[k] for k in names))
+    return unflatten_paths((k.replace(".", "/"), np.asarray(a))
+                           for k, a in zip(names, arrays))
+
+
+# ------------------------------------------------------------------ forward
+def token_rows(tokens, vocab: int) -> torch.Tensor:
+    """Embedding rows of ``tokens`` as jnp's gather reads them: a negative
+    id counts from the end, then ids are clamped to [0, V - 1] (ids past
+    the end read row V - 1, ids below -V read row 0)."""
+    t = tokens.long().clamp(-vocab, vocab - 1)
+    return torch.where(t < 0, t + vocab, t)
+
+
+def _embed(params, cfg: LMConfig, tokens, dtype):
+    """``params["embed"].astype(dtype)[tokens]``: the rows are gathered
+    first, then cast (the same values, without a cast of the table)."""
+    rows = token_rows(tokens, cfg.vocab)
+    return params["embed"].index_select(0, rows.reshape(-1)).to(dtype).view(
+        *tokens.shape, cfg.d_model)
+
+
+def _unembed(params, cfg: LMConfig, x, dtype):
+    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    return (x @ w.to(dtype)).to(torch.float32)
+
+
+def _layer(params, i: int) -> dict:
+    return tree_map(lambda a: a[i], params["blocks"])
+
+
+def _ffn(cfg: LMConfig, lp, x, dtype):
+    h = L.rmsnorm(lp["ln2"], x)
+    if cfg.moe:
+        return moe_ffn(lp["ffn"], cfg.moe, h, dtype=dtype)
+    return L.swiglu(lp["ffn"], h, dtype), None
+
+
+def forward(params, cfg: LMConfig, tokens):
+    """tokens int[B, S] -> (logits f32[B, S, V], aux loss f32[])."""
+    dtype = compute_dtype(cfg)
+    x = _embed(params, cfg, tokens, dtype)
+    aux = x.new_zeros((), dtype=torch.float32)
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        h, _ = causal_attention(lp["attn"], cfg.attn_cfg(),
+                                L.rmsnorm(lp["ln1"], x), q_chunk=cfg.q_chunk,
+                                dtype=dtype)
+        x = x + h
+        f, a = _ffn(cfg, lp, x, dtype)
+        x = x + f
+        if a is not None:
+            aux = aux + a
+    x = L.rmsnorm(params["ln_f"], x)
+    return _unembed(params, cfg, x, dtype), aux
+
+
+def lm_loss(params, cfg: LMConfig, tokens, targets, mask=None):
+    logits, aux = forward(params, cfg, tokens)
+    loss = L.softmax_cross_entropy(logits, targets, impl=cfg.ce_impl)
+    if mask is not None:
+        loss = torch.sum(loss * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    else:
+        loss = torch.mean(loss)
+    return loss + aux
+
+
+# ------------------------------------------------------------------ serving
+def init_cache(cfg: LMConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None) -> dict:
+    """``{"k", "v"}`` zeros [L, B, max_len, KV, Dh] and ``"len"`` int32[]
+    on ``device`` (the card unless the caller names the CPU)."""
+    device = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "len": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def prefill(params, cfg: LMConfig, tokens, max_len: int):
+    """Full-sequence forward that also fills the KV cache. tokens int[B,
+    S], S <= max_len. Returns (logits f32[B, 1, V] at the last position,
+    cache)."""
+    dtype = compute_dtype(cfg)
+    b, s = tokens.shape
+    if s > max_len:
+        raise ValueError(f"prefill of {s} tokens into a cache of {max_len}")
+    x = _embed(params, cfg, tokens, dtype)
+    cache = init_cache(cfg, b, max_len, dtype, tokens.device)
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        h, (k, v) = causal_attention(lp["attn"], cfg.attn_cfg(),
+                                     L.rmsnorm(lp["ln1"], x),
+                                     q_chunk=cfg.q_chunk, dtype=dtype)
+        cache["k"][i, :, :s] = k
+        cache["v"][i, :, :s] = v
+        x = x + h
+        x = x + _ffn(cfg, lp, x, dtype)[0]
+    cache["len"].fill_(s)
+    x = L.rmsnorm(params["ln_f"], x[:, -1:])
+    return _unembed(params, cfg, x, dtype), cache
+
+
+def decode_step(params, cfg: LMConfig, cache, last_tokens):
+    """One-token decode. last_tokens int[B, 1]. Writes the cache in place;
+    returns (logits f32[B, 1, V], cache)."""
+    dtype = compute_dtype(cfg)
+    x = _embed(params, cfg, last_tokens, dtype)
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        h, _, _ = decode_attention(lp["attn"], cfg.attn_cfg(),
+                                   L.rmsnorm(lp["ln1"], x), cache["k"][i],
+                                   cache["v"][i], cache["len"], dtype=dtype)
+        x = x + h
+        x = x + _ffn(cfg, lp, x, dtype)[0]
+    cache["len"].add_(1)
+    x = L.rmsnorm(params["ln_f"], x)
+    return _unembed(params, cfg, x, dtype), cache

@@ -1,15 +1,18 @@
 """Step builders: (ArchSpec, shape) -> a step on one device — the port
-of the GNN and recsys parts of ``repro.train.steps``.
+of the LM serving, GNN and recsys parts of ``repro.train.steps``.
 
 A train ``StepBundle`` holds ``fn = train_step(state, batch) -> (state,
 {"loss", "gnorm"})`` with ``state = {"params", "opt", "step"}``, the
 tree ``repro``'s step carries (``repro_torch.tree``); DIEN's serve and
 retrieval bundles hold ``fn(params, batch)`` (CTR probabilities [B];
-scores [B, C]). One card needs no mesh and no sharding: the bundle's
-``device`` (``device=None`` is the card) is where ``launch/train.py``
-places the state and the batch.
+scores [B, C]). An LM's prefill bundle holds ``fn(params, batch) ->
+(logits [B, 1, V], cache)`` and its decode bundle ``fn(params, cache,
+last_tokens) -> (logits [B, 1, V], cache)``, writing the cache in place
+(``repro``'s bundle donates it). One card needs no mesh and no
+sharding: the bundle's ``device`` (``device=None`` is the card) is
+where ``launch/train.py`` places the state and the batch.
 
-The step is functional, as ``repro``'s jitted step is: it returns a new
+The train step is functional, as ``repro``'s jitted step is: it returns a new
 state and leaves its input alone. The forward runs through
 ``torch.func.functional_call`` on detached aliases of the parameters,
 the optimizer (``optim/``) builds new tensors, and nothing is updated in
@@ -34,6 +37,7 @@ from repro_torch.models import dien as D
 from repro_torch.models import dimenet as DN
 from repro_torch.models import gnn as G
 from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
 from repro_torch.optim import Optimizer, adafactor, adamw, warmup_cosine
 from repro_torch.tree import unflatten_paths
 
@@ -54,6 +58,36 @@ def make_optimizer(name: str, total_steps: int = 100_000,
     if name == "adafactor":
         return adafactor(lr=1e-2, schedule=sched)
     return adamw(lr=3e-4, schedule=sched)
+
+
+# ============================================================ LM family
+def build_lm_bundle(spec: ArchSpec, shape_name: str,
+                    device=None) -> StepBundle:
+    """An LM's ``prefill`` or ``decode`` step on ``device`` (the card
+    unless the caller names the CPU); ``static_meta["cfg"]`` is the
+    config. The ``train`` kind comes with the LM training slice."""
+    device = resolve_device(device)
+    shp = spec.shape(shape_name)
+    cfg = spec.model_cfg
+    name = f"{spec.arch_id}:{shape_name}:{shp.kind}"
+
+    if shp.kind == "prefill":
+        def prefill_step(params, batch):
+            with torch.no_grad():
+                return T.prefill(params, cfg, batch["tokens"], shp.seq_len)
+        return StepBundle(name=name, fn=prefill_step, device=device,
+                          static_meta={"cfg": cfg})
+
+    if shp.kind == "decode":
+        def decode_step(params, cache, last_tokens):
+            with torch.no_grad():
+                return T.decode_step(params, cfg, cache, last_tokens)
+        return StepBundle(name=name, fn=decode_step, device=device,
+                          static_meta={"cfg": cfg})
+    if shp.kind == "train":
+        raise KeyError(f"{name}: the LM train step is not ported yet: it "
+                       "comes with the LM training slice")
+    raise KeyError(shp.kind)
 
 
 # =========================================================== GNN family
@@ -200,6 +234,8 @@ def build_recsys_bundle(spec: ArchSpec, shape_name: str,
 
 # ------------------------------------------------------------- dispatcher
 def build_bundle(spec: ArchSpec, shape_name: str, device=None) -> StepBundle:
+    if spec.family == "lm":
+        return build_lm_bundle(spec, shape_name, device)
     if spec.family == "gnn":
         return build_gnn_bundle(spec, shape_name, device)
     if spec.family == "recsys":

@@ -43,7 +43,13 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "repro_torch.configs.registry", "repro_torch.core.vc_baseline",
             "repro_torch.models.dimenet", "repro_torch.models.dien",
             "repro_torch.models.embedding", "repro_torch.configs.dimenet",
-            "repro_torch.configs.dien"} <= set(mods)
+            "repro_torch.configs.dien", "repro_torch.models.attention",
+            "repro_torch.models.moe", "repro_torch.models.transformer",
+            "repro_torch.configs.granite_8b",
+            "repro_torch.configs.qwen2_moe_a2_7b",
+            "repro_torch.configs.kimi_k2_1t_a32b",
+            "repro_torch.configs.yi_34b",
+            "repro_torch.configs.qwen2_72b"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or "
@@ -91,11 +97,15 @@ def _default_device_calls():
     from repro_torch.launch import train
     from repro_torch.launch.serve import main
     from repro_torch.core.vc_baseline import build_vc_index
-    from repro_torch.train.steps import build_gnn_bundle, build_recsys_bundle
+    from repro_torch.models.transformer import init_cache, init_lm
+    from repro_torch.train.steps import (StepBundle, build_gnn_bundle,
+                                         build_lm_bundle, build_recsys_bundle)
     from repro_torch.serve.versions import VersionFamily
     from repro_torch.shard import ShardedIndex
     n, src, dst, w = gen.er_graph(64, 2.0, seed=0)
     cfg = IndexConfig(l_cap=64)
+    lm = train.smoke_spec(registry.get_spec("granite-8b"))
+    lm_cfg = lm.model_cfg
     return {
         "build_hierarchy": lambda: build_hierarchy(n, src, dst, w, cfg),
         "build_hierarchy_device":
@@ -124,6 +134,16 @@ def _default_device_calls():
         "train.main": lambda: train.main(["--arch", "gcn-cora", "--smoke",
                                           "--steps", "2"]),
         "state_from_tree": lambda: state_from_tree({"w": np.zeros(2)}),
+        "build_lm_bundle": lambda: build_lm_bundle(
+            registry.get_spec("qwen2-moe-a2.7b"), "decode_32k"),
+        "train.init_state (lm)": lambda: train.init_state(
+            lm, StepBundle("lm", None, torch.device("cuda"),
+                           static_meta={"cfg": lm_cfg})),
+        "init_lm": lambda: init_lm(lm_cfg),
+        "init_cache": lambda: init_cache(lm_cfg, 2, 8),
+        "launcher --mode lm": lambda: main(
+            ["--mode", "lm", "--arch", "granite-8b", "--batch", "2",
+             "--gen-len", "2"]),
     }
 
 

@@ -35,6 +35,7 @@ from repro.launch import train as j_train
 from repro.models import dien as j_dien
 from repro.models import dimenet as j_dimenet
 from repro.models import gnn as j_gnn
+from repro.models import transformer as j_transformer
 from repro.train.steps import build_bundle as j_build_bundle
 from repro_torch.checkpoint import state_from_tree
 from repro_torch.configs import registry as t_registry
@@ -44,6 +45,7 @@ from repro_torch.launch import train as t_train
 from repro_torch.models import dien as t_dien
 from repro_torch.models import dimenet as t_dimenet
 from repro_torch.models import gnn as t_gnn
+from repro_torch.models import transformer as t_transformer
 from repro_torch.models.layers import dotted, params_tree
 from repro_torch.train.steps import build_bundle as t_build_bundle
 from repro_torch.train.steps import _gnn_model
@@ -220,11 +222,11 @@ def _repro_tree_paths(arch):
 
 
 def test_unported_archs_raise_naming_their_slice():
-    """An arch of a later slice raises naming it; ``dimenet`` and
-    ``dien`` (ported with the DimeNet and DIEN slice) resolve, and their
+    """An arch of a later slice raises naming it; ``dimenet``, ``dien``
+    and the five LMs (ported with their slices) resolve, and their
     models' parameters are ``repro``'s tree, path for path and shape for
     shape, at the published configs."""
-    for arch, slice_ in (("granite-8b", "LM"), ("islabel", "launcher")):
+    for arch, slice_ in (("islabel", "launcher"),):
         with pytest.raises(KeyError, match=slice_):
             t_registry.get_spec(arch)
         j_registry.get_spec(arch)          # repro has every one
@@ -236,7 +238,19 @@ def test_unported_archs_raise_naming_their_slice():
         got = {n.replace(".", "/"): tuple(p.shape)
                for n, p in m.named_parameters()}
         assert got == _repro_tree_paths(arch), arch
-    assert t_registry.PORTED == ["dimenet", "graphsage-reddit", "gcn-cora",
+    for arch in ("qwen2-moe-a2.7b", "kimi-k2-1t-a32b", "granite-8b",
+                 "yi-34b", "qwen2-72b"):
+        cfg = t_registry.get_spec(arch).model_cfg
+        got = {k: tuple(v.shape) for k, v in
+               flatten_with_paths(t_transformer.abstract_params(cfg))}
+        want = jax.eval_shape(lambda k: j_transformer.init_lm(
+            k, j_registry.get_spec(arch).model_cfg)[0],
+            jax.random.PRNGKey(0))
+        assert got == {k: tuple(v.shape)
+                       for k, v in flatten_with_paths(want)}, arch
+    assert t_registry.PORTED == ["qwen2-moe-a2.7b", "kimi-k2-1t-a32b",
+                                 "granite-8b", "yi-34b", "qwen2-72b",
+                                 "dimenet", "graphsage-reddit", "gcn-cora",
                                  "egnn", "dien"]
 
 
