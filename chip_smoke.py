@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --label-sweep SRC   # stage-1 sweep of SRC's port
+    python3 chip_smoke.py --lm | --lm-train   # the LM phases alone
 
 Phases, one JSON line each (with its seconds):
 
@@ -178,17 +179,45 @@ Phases, one JSON line each (with its seconds):
    ``lm_launcher``: ``python -m repro_torch.launch.serve --mode lm
    --arch granite-8b`` and ``--arch qwen2-moe-a2.7b`` at the launcher's
    defaults.
+16. train_lm_<arch> — LM training (no kernel of ``kernels/`` lies on its
+   path: each phase must launch none), in a child process of its own
+   (``--lm-train``) right after the LM serving child, with the same
+   allocator: ``train_4k`` at 4,096 tokens and full width through
+   ``build_bundle(spec, "train_4k", device, {"grad_accum": 4})``,
+   ``init_state`` (fp32 parameters drawn on the card, AdamW) and
+   ``FaultTolerantRunner`` with no checkpoint, 6 steps under sync debug
+   mode "error": ``granite-8b`` cut to 4 layers and 8 sequences,
+   ``qwen2-moe-a2.7b`` to 2 layers and 4. Step ms (first, median),
+   tokens/s, ``train_mfu`` (3 x the forward's model FLOPs over 989
+   TFLOP/s bf16), peak device bytes, loss first and last, the MoE's
+   dropped-assignment share; 2 profiled steps (launches a step, idle
+   share, device ms by kind) and one profiled optimizer update.
+   ``train_lm_checks``: granite at 2 layers and qwen2-moe at
+   1, in fp32 (the MoE with a capacity no call exceeds): (a) the
+   bundle's loss bitwise equal to ``lm_loss`` under ``no_grad``; (b)
+   the gradient along a seeded direction against a central difference
+   (within 1e-2 at eps 3e-3); (c) the remat policies' gradients against
+   each other and their peak backward bytes (none <= dots <= off, none <
+   off) at 4,096 tokens; (d) ``grad_accum`` 4 against 1 on 4 sequences
+   of 512 (the MoE without its load-balance loss). ``train_lm_smoke``:
+   the five smoke configs in fp32 (kimi-k2's parameters bf16 with
+   Adafactor, under deterministic algorithms: its resume and rollback
+   bitwise) through ``phase_train``'s checks (card against
+   CPU, each with a lost step as its control; restore, resume, one
+   injected failure), then ``launch/train.py --arch
+   granite-8b --smoke`` and ``--arch kimi-k2-1t-a32b --smoke``.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script
 exits nonzero and prints no result. It needs one CUDA card and the
 repository's ``src/`` beside it.
 
-``--lm`` runs the LM phases alone (the whole script runs them so, in a
-child process). ``--label-sweep SRC`` builds the four paths' indexes
-with the port under ``SRC`` (for instance an older commit unpacked with
-``git archive``) and prints ``label_sweep``'s line with each path's query
-times, so two trees' stage 1 and queries can be timed in turns in one
+``--lm`` and ``--lm-train`` run the LM serving and LM training phases
+alone (the whole script runs each so, in a child process).
+``--label-sweep SRC`` builds the four paths' indexes with the port under
+``SRC`` (for instance an older commit unpacked with ``git archive``) and
+prints ``label_sweep``'s line with each path's query times, so two
+trees' stage 1 and queries can be timed in turns in one
 call.
 """
 from __future__ import annotations
@@ -386,6 +415,42 @@ LM_CPU_STEPS = 4                 # lm_cpu: prefill + 4 decode steps, fp32
 LM_CPU_RTOL, LM_CPU_ATOL = 1e-4, 1e-5
 LM_LAUNCHER = [["--mode", "lm", "--arch", "granite-8b"],
                ["--mode", "lm", "--arch", "qwen2-moe-a2.7b"]]
+# LM training (train_lm_<arch>): train_4k at its 4,096 tokens and full
+# width with depth and batch cut to fit one 80 GB card (PERF.md §4):
+# (arch, layers, global batch, grad_accum); fp32 parameters and AdamW
+LM_TRAIN = [("granite-8b", 4, 8, 4), ("qwen2-moe-a2.7b", 2, 4, 4)]
+LM_TRAIN_STEPS = 6               # through the runner, no checkpoint
+LM_TRAIN_PROFILE_STEPS = 2
+# train_lm_checks: the cells cut to (arch, layers) in fp32; one sequence
+# of 512 tokens for (a) and (b), four for (d), and one of 4,096 for the
+# remat policies (c), where activations and not the gradient buffers set
+# the backward's peak
+LM_CHECKS = [("granite-8b", 2), ("qwen2-moe-a2.7b", 1)]
+LM_CHECK_SEQ = 512
+LM_REMAT_SEQ = 4096
+LM_ACCUM_CHECK = 4
+# (b): a direction of N(0, 1) entries times each leaf's RMS, zero on the
+# MoE's routing inputs (embed, attention, ln1, ln2, router: top-k is
+# piecewise constant there and a flip makes the loss jump). eps = 3e-3
+# balances the central difference's truncation (~eps^2) against the fp32
+# rounding of a ~10.8 loss over a change of ~1e-3 (~1/eps): 5e-4 of
+# <g, d> on a CPU sweep of a narrow dense and MoE config
+LM_FD_EPS = (3e-3, 1e-2, 1e-3)   # the first is gated, the others reported
+LM_FD_RTOL = 1e-2
+LM_GRAD_RTOL = 1e-5              # remat policies: max|d| / max|g|
+LM_ACCUM_RTOL = 1e-5             # grad_accum 4 against 1: loss, gnorm, mu
+# train_lm_smoke: the five smoke configs in fp32 (kimi-k2's parameters in
+# bf16, Adafactor) through phase_train, then the launcher. kimi-k2's
+# gradients are bf16, and the embedding's index_add sums them in bf16 in
+# the atomics' order unless torch.use_deterministic_algorithms is on
+# (then one sorted pass): kimi runs under it, its resume and rollback
+# held bitwise and its card against the CPU at TRAIN_RTOL / TRAIN_ATOL
+# phase_train's runs, shortened (the script's time): 12 steps; resume 10
+# then 12; a failure at step 11, rolled back to step 10's checkpoint; 2
+# profiled steps
+LM_SMOKE_RUNS = (12, (10, 12), 11, 2)
+LM_TRAIN_LAUNCHER = [["--arch", "granite-8b", "--smoke"],
+                     ["--arch", "kimi-k2-1t-a32b", "--smoke"]]
 
 
 def emit(obj) -> None:
@@ -1934,16 +1999,44 @@ def tree_close(what, a, b, rtol, atol) -> float:
     return err
 
 
-def phase_train(arch, shape, tables, device="cuda", smoke=False) -> dict:
+def need_rtol(a, b, atol) -> float:
+    """The least rtol at which every array of tree ``a`` but ``step`` is
+    within (rtol, ``atol``) of ``b``'s, elementwise (inf where ``b`` is 0
+    and the difference exceeds ``atol``)."""
+    import torch
+    from repro_torch.tree import flatten_with_paths
+    fb, need = dict(flatten_with_paths(b)), 0.0
+    for k, x in flatten_with_paths(a):
+        if k == "step":
+            continue
+        x, y = x.cpu().double(), fb[k].cpu().double()
+        over = (x - y).abs() - atol
+        hit = over > 0
+        if bool(hit.any()):
+            need = max(need, float(torch.where(
+                hit, over / y.abs(), torch.zeros_like(over)).max()))
+    return need
+
+
+def phase_train(arch, shape, tables, device="cuda", smoke=False,
+                spec=None, tol=(TRAIN_RTOL, TRAIN_ATOL), rerun_tol=None,
+                runs=(TRAIN_STEPS, TRAIN_RESUME, TRAIN_FAIL_AT,
+                      TRAIN_PROFILE_STEPS)) -> dict:
     """Training on the card through ``launch/train.py``'s functions
-    (its smoke spec with ``smoke``) and ``FaultTolerantRunner``,
+    (its smoke spec with ``smoke``; ``spec`` in place of the registry's)
+    and ``FaultTolerantRunner``, the card against the CPU within ``tol``
+    (rtol, atol), the resume and the rollback against a straight run
+    within ``rerun_tol`` (``tol`` if None), and the runs' lengths
+    ``runs`` (the main run's steps, the resume's two legs, the step that
+    fails, the profiled steps),
     checkpoints every ``TRAIN_CKPT_EVERY``
-    steps into a temporary directory: ``TRAIN_STEPS`` timed steps under
+    steps into a temporary directory: ``n_steps`` timed steps under
     sync debug mode "error" with the launch counters zeroed around them
     (no kernel of ``kernels/`` may launch), then the card against the
-    CPU from one state and batch, a restore of the last checkpoint, a
-    resume, one injected failure after the optimizer, and a profiled
-    window of ``TRAIN_PROFILE_STEPS`` steps (device idle share)."""
+    CPU from one state and batch (its control, the card against the CPU
+    one step short, must fall outside ``tol``), a restore of the last
+    checkpoint, a resume, one injected failure after the optimizer, and
+    a profiled window of the profiled steps (device idle share)."""
     import tempfile
 
     import numpy as np
@@ -1957,9 +2050,13 @@ def phase_train(arch, shape, tables, device="cuda", smoke=False) -> dict:
     from repro_torch.train.steps import build_bundle
     from repro_torch.tree import leaves
     what = f"train_{arch}"
-    spec = registry.get_spec(arch)
-    if smoke:
-        spec = smoke_spec(spec)
+    rtol, atol = tol
+    rerun_tol = tol if rerun_tol is None else rerun_tol
+    n_steps, (first, then), fail_at, n_profile = runs
+    if spec is None:
+        spec = registry.get_spec(arch)
+        if smoke:
+            spec = smoke_spec(spec)
     base = torch.cuda.memory_allocated()     # held by earlier phases
     t0 = time.perf_counter()
     bundle = build_bundle(spec, shape, device)
@@ -2008,7 +2105,7 @@ def phase_train(arch, shape, tables, device="cuda", smoke=False) -> dict:
         torch.cuda.set_sync_debug_mode("error")
         try:
             t0 = time.perf_counter()
-            main.run(TRAIN_STEPS, on_metrics=lambda s, m: losses.append(
+            main.run(n_steps, on_metrics=lambda s, m: losses.append(
                 m["loss"]))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
@@ -2020,7 +2117,7 @@ def phase_train(arch, shape, tables, device="cuda", smoke=False) -> dict:
         check_launches(what, launches, set())
         peak = torch.cuda.max_memory_allocated() - base
         losses = [float(x) for x in host_read(tuple(losses))]
-        if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        if len(losses) != n_steps or not all(np.isfinite(losses)):
             fail(f"{what}: losses {losses}")
         if not losses[-1] < losses[0] * 1.5:
             fail(f"{what}: loss diverged {losses[0]} -> {losses[-1]}")
@@ -2030,18 +2127,18 @@ def phase_train(arch, shape, tables, device="cuda", smoke=False) -> dict:
         med = statistics.median(step_ms[1:])
         rec.update({
             "first_step_ms": step_ms[0], "step_ms_median": med,
-            "step_ms_min": min(step_ms[1:]), "steps_per_s": TRAIN_STEPS / wall,
+            "step_ms_min": min(step_ms[1:]), "steps_per_s": n_steps / wall,
             "steps_per_s_after_first":
-                (TRAIN_STEPS - 1) / (wall - step_ms[0] / 1e3),
+                (n_steps - 1) / (wall - step_ms[0] / 1e3),
             "wall_s": wall, "syncs": syncs,
-            "syncs_per_step": syncs / TRAIN_STEPS,
+            "syncs_per_step": syncs / n_steps,
             "loss_read_ms_median": statistics.median(reads) * 1e3,
             "loss_read_share": statistics.median(reads) * 1e3 / med,
             "ckpt_saves": len(saves),
             "ckpt_save_ms_mean": statistics.fmean(saves) * 1e3,
             "ckpt_save_share": sum(saves) / wall,
             "peak_device_bytes": peak, "loss_step1": losses[0],
-            "loss_step50": losses[-1], "launches": launches})
+            f"loss_step{n_steps}": losses[-1], "launches": launches})
 
         # card against CPU: TRAIN_CPU_STEPS steps from state0 and the batch
         t_cpu = time.perf_counter()
@@ -2050,11 +2147,12 @@ def phase_train(arch, shape, tables, device="cuda", smoke=False) -> dict:
         cs = state_from_tree(snapshot(state0), "cpu")
         gs, rel = state0, 0.0
         for i in range(TRAIN_CPU_STEPS):
+            short = cs                  # the control: one step short
             cs, cm = cpu_bundle.fn(cs, cpu_batch)
             gs, gm = bundle.fn(gs, batch)
             for k in ("loss", "gnorm"):
                 a, b = float(cm[k]), float(host_read(gm[k]))
-                if not abs(a - b) <= TRAIN_ATOL + TRAIN_RTOL * abs(a):
+                if not abs(a - b) <= atol + rtol * abs(a):
                     fail(f"{what}: step {i + 1} {k} {b} on the card, {a} on "
                          "the CPU")
                 rel = max(rel, abs(a - b) / max(abs(a), 1e-30))
@@ -2065,10 +2163,15 @@ def phase_train(arch, shape, tables, device="cuda", smoke=False) -> dict:
             if i == 1 and tree_close(f"{what} step 2 params", gs["params"],
                                      state0["params"], 1.0, 1.0) == 0:
                 fail(f"{what}: parameters unchanged after step 2")
+        need = (need_rtol(gs, cs, atol), need_rtol(gs, short, atol))
+        if not need[1] > rtol:
+            fail(f"{what}: a CPU state one step short is within rtol {rtol} "
+                 f"of the card's (it needs {need[1]})")
         rec["card_vs_cpu"] = {
-            "steps": TRAIN_CPU_STEPS, "rtol": TRAIN_RTOL, "atol": TRAIN_ATOL,
+            "steps": TRAIN_CPU_STEPS, "rtol": rtol, "atol": atol,
             "max_abs_err": tree_close(f"{what} card vs CPU", gs, cs,
-                                      TRAIN_RTOL, TRAIN_ATOL),
+                                      rtol, atol),
+            "need_rtol": need[0], "control_need_rtol": need[1],
             "metric_max_rel_err": rel,
             "seconds": time.perf_counter() - t_cpu}
 
@@ -2077,14 +2180,13 @@ def phase_train(arch, shape, tables, device="cuda", smoke=False) -> dict:
         t0 = time.perf_counter()
         got = fresh.restore()
         restore_s = time.perf_counter() - t0
-        if got != TRAIN_STEPS or not all(v.device.type == bundle.device.type
+        if got != n_steps or not all(v.device.type == bundle.device.type
                                          for v in leaves(fresh.state)):
             fail(f"{what}: restored step {got}")
         tree_close(f"{what} restore", fresh.state, main.state, 0, 0)
 
         # resume: 20 steps, then a new runner from 20 to 30, against an
         # uninterrupted 30; and one injected failure after the optimizer
-        first, then = TRAIN_RESUME
         runner("resume").run(first)
         resumed = runner("resume")
         if resumed.restore() != first:
@@ -2096,7 +2198,7 @@ def phase_train(arch, shape, tables, device="cuda", smoke=False) -> dict:
 
         def failing(state, b):
             new_state, metrics = bundle.fn(state, b)
-            if flaky.step == TRAIN_FAIL_AT and not fired:
+            if flaky.step == fail_at and not fired:
                 fired.append(flaky.step)
                 raise RuntimeError(f"injected fault at step {flaky.step}")
             return new_state, metrics
@@ -2104,25 +2206,25 @@ def phase_train(arch, shape, tables, device="cuda", smoke=False) -> dict:
         flaky = runner("flaky", step_fn=failing)
         flaky.run(then)
         kinds = [(s, k) for s, k, _ in flaky.events]
-        want = [(TRAIN_FAIL_AT, "step_failure"),
-                (TRAIN_FAIL_AT // TRAIN_CKPT_EVERY * TRAIN_CKPT_EVERY,
+        want = [(fail_at, "step_failure"),
+                (fail_at // TRAIN_CKPT_EVERY * TRAIN_CKPT_EVERY,
                  "rollback")]
         if kinds != want or not all(v.device.type == bundle.device.type
                                     for v in leaves(flaky.state)):
             fail(f"{what}: injected failure gave events {kinds}")
         rec["resume"] = {
+            "rtol": rerun_tol[0], "atol": rerun_tol[1],
             "max_abs_err": tree_close(f"{what} resume", resumed.state,
-                                      straight.state, TRAIN_RTOL, TRAIN_ATOL),
+                                      straight.state, *rerun_tol),
             "restore_s": restore_s}
         rec["injected_failure"] = {
             "events": kinds,
             "max_abs_err": tree_close(f"{what} rollback", flaky.state,
-                                      straight.state, TRAIN_RTOL,
-                                      TRAIN_ATOL)}
+                                      straight.state, *rerun_tol)}
 
     def window():
         st = main.state
-        for _ in range(TRAIN_PROFILE_STEPS):
+        for _ in range(n_profile):
             st, m = bundle.fn(st, batch)
             host_read(m["loss"])
 
@@ -2891,6 +2993,364 @@ def phase_lm_launcher() -> dict:
                          "lines": run.stdout.strip().splitlines()}
     return out
 
+
+# ------------------------------------------------------------ LM training
+def lm_train_spec(arch, layers: int, batch: int, seq: int = 4096,
+                  dtype: str | None = None, no_drop: bool = False):
+    """``arch``'s spec at full width cut to ``layers``, its ``train_4k``
+    cell at ``batch`` sequences of ``seq``; ``dtype`` the compute dtype,
+    ``no_drop`` a capacity no MoE call exceeds (cap = T + 1)."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.configs.shapes import LMShape
+    spec = registry.get_spec(arch)
+    cfg = dataclasses.replace(spec.model_cfg, n_layers=layers)
+    if dtype:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    if no_drop and cfg.moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    return dataclasses.replace(spec, model_cfg=cfg, shapes={
+        "train_4k": LMShape("train_4k", "train", seq, batch)})
+
+
+def lm_train_flops(cfg, b: int, s: int) -> float:
+    """A train step's model FLOPs: 3 x the forward's, which is 2 x the
+    active per-layer parameters x tokens, the attention products at full
+    S x S a chunk as ``repro`` computes them (4 B H S^2 Dh a layer), and
+    the unembedding at every position. Remat's recompute is not
+    counted."""
+    per_layer = (cfg.active_param_count() - 2 * cfg.vocab * cfg.d_model) \
+        // cfg.n_layers
+    attn = 4 * b * cfg.n_heads * s * s * cfg.hd
+    return 3.0 * (cfg.n_layers * (2 * per_layer * b * s + attn)
+                  + 2 * b * s * cfg.d_model * cfg.vocab)
+
+
+def phase_lm_train(arch, layers, batch, accum, tables,
+                   device="cuda") -> dict:
+    """The ``train_4k`` cell of ``arch`` at full width cut to ``layers``
+    and ``batch`` sequences with ``grad_accum`` ``accum``: the state drawn
+    on the card through ``build_bundle`` and ``init_state``,
+    ``LM_TRAIN_STEPS`` steps through ``FaultTolerantRunner`` with no
+    checkpoint under sync debug mode "error" (no kernel of ``kernels/``
+    may launch), then ``LM_TRAIN_PROFILE_STEPS`` profiled steps
+    (launches, idle share, device ms by kind), one profiled optimizer
+    update."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.core.sync import host_read, sync_count
+    from repro_torch.fault import FaultTolerantRunner, RunnerConfig
+    from repro_torch.launch.train import init_state, make_batch_fn
+    from repro_torch.train.steps import build_bundle
+    from repro_torch.tree import leaves, tree_map
+    what = f"train_lm_{arch}"
+    spec = lm_train_spec(arch, layers, batch)
+    cfg, seq = spec.model_cfg, spec.shape("train_4k").seq_len
+    published = registry.get_spec(arch)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    bundle = build_bundle(spec, "train_4k", device, {"grad_accum": accum})
+    state = init_state(spec, bundle)
+    make_batch = make_batch_fn(spec, "train_4k", device=device)
+    torch.cuda.synchronize()
+    flops = lm_train_flops(cfg, batch, seq)
+    rec = {"arch": arch, "cfg": str(cfg), "layers": layers,
+           "published_layers": published.model_cfg.n_layers,
+           "seq_len": seq, "global_batch": batch,
+           "published_global_batch":
+               published.shape("train_4k").global_batch,
+           "grad_accum": accum, "micro_batch": batch // accum,
+           "tokens_per_step": batch * seq, "remat_policy": cfg.remat_policy,
+           "param_dtype": spec.param_dtype, "compute_dtype": cfg.dtype,
+           "optimizer": spec.optimizer,
+           "params": sum(int(v.numel()) for v in leaves(state["params"])),
+           "state_bytes": sum(int(v.numel() * v.element_size())
+                              for v in leaves(state)),
+           "flops_per_step": flops, "setup_s": time.perf_counter() - t0}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        runner = FaultTolerantRunner(bundle.fn, state, make_batch,
+                                     RunnerConfig(tmp, ckpt_every=0,
+                                                  handle_sigterm=False))
+        # no checkpoint, the run's closing save included (~20 GB a save)
+        runner.ckpt.maybe_save = lambda step, st, force=False: False
+        del state
+        losses = []
+        zero(tables)
+        torch.cuda.reset_peak_memory_stats()
+        s0 = sync_count()
+        with DropMeter() as drops, sync_errors():
+            t0 = time.perf_counter()
+            runner.run(LM_TRAIN_STEPS, on_metrics=lambda s, m: losses.append(
+                m["loss"]))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        syncs = sync_count() - s0
+        peak = torch.cuda.max_memory_allocated() - base
+        check_launches(what, launches_of(tables), set())
+        if runner.events:
+            fail(f"{what}: fault events on a clean run {runner.events}")
+        step_ms = [h[0] * 1e3 for h in runner.monitor.history]
+        state = runner.state
+        del runner
+    losses = [float(x) for x in host_read(tuple(losses))]
+    if len(losses) != LM_TRAIN_STEPS or not all(np.isfinite(losses)) \
+            or not losses[-1] < losses[0] * 1.5:
+        fail(f"{what}: losses {losses}")
+    med = statistics.median(step_ms[1:])
+    rec.update({
+        "steps": LM_TRAIN_STEPS, "first_step_ms": step_ms[0],
+        "step_ms_median": med, "step_ms_min": min(step_ms[1:]),
+        "step_ms": step_ms, "wall_s": wall,
+        "tokens_per_s": batch * seq / med * 1e3,
+        "train_mfu": flops / (med / 1e3) / BF16_OPS_PER_S,
+        "syncs_per_step": syncs / LM_TRAIN_STEPS,
+        "peak_device_bytes": peak, "loss_first": losses[0],
+        "loss_last": losses[-1], "losses": losses,
+        "dropped_share": drops.share()})
+
+    def window():
+        nonlocal state
+        for i in range(LM_TRAIN_PROFILE_STEPS):
+            state, m = bundle.fn(state, make_batch(LM_TRAIN_STEPS + i))
+            host_read(m["loss"])
+
+    prof = profile_idle(window)
+    rec["profile"] = prof
+    rec["launches_per_step"] = prof["device_events"] / LM_TRAIN_PROFILE_STEPS
+    rec["device_ms_per_step_by_kind"] = {
+        k: v["device_ms"] / LM_TRAIN_PROFILE_STEPS
+        for k, v in prof["by_kind"].items()}
+
+    # the optimizer alone: one update on gradients of the state's shapes
+    grads = tree_map(lambda p: torch.full(p.shape, 1e-3, dtype=torch.float32,
+                                          device=p.device), state["params"])
+    opt_prof = profile_idle(lambda: bundle.optimizer.update(
+        grads, state["opt"], state["params"], state["step"]))
+    del grads
+    rec["optimizer"] = {"device_ms": opt_prof["device_busy_ms"],
+                        "launches": opt_prof["device_events"],
+                        "wall_ms": opt_prof["wall_ms"],
+                        "share_of_step_busy_ms": opt_prof["device_busy_ms"]
+                        / (prof["device_busy_ms"] / LM_TRAIN_PROFILE_STEPS)}
+    torch.cuda.empty_cache()
+
+    check_launches(f"{what} (all runs)", launches_of(tables), set())
+    del state, bundle
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_grads(cfg, params, tokens, targets):
+    """(loss, gradient leaves) of ``lm_loss`` through autograd."""
+    import torch
+    from repro_torch.models.transformer import lm_loss
+    from repro_torch.tree import leaves, tree_map
+    p = tree_map(lambda a: a.detach().requires_grad_(), params)
+    loss = lm_loss(p, cfg, tokens, targets)
+    return loss.detach(), torch.autograd.grad(loss, leaves(p))
+
+
+def lm_check_cell(arch, layers, device="cuda") -> dict:
+    """(a)-(d) of ``train_lm_checks`` on ``arch`` cut to ``layers`` in
+    fp32 (an MoE with a capacity no call exceeds)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core.sync import host_read
+    from repro_torch.launch.train import init_state, make_batch_fn
+    from repro_torch.models.transformer import lm_loss
+    from repro_torch.train.steps import build_bundle
+    from repro_torch.tree import (flatten_with_paths, leaves, tree_map,
+                                  unflatten_paths)
+    what = f"train_lm_checks {arch}"
+    rec = {"layers": layers}
+    spec = lm_train_spec(arch, layers, 1, LM_CHECK_SEQ, "float32", True)
+    cfg = spec.model_cfg
+    bundle = build_bundle(spec, "train_4k", device)
+    state = init_state(spec, bundle)
+    batch = make_batch_fn(spec, "train_4k", device=device)(0)
+    tok, tgt = batch["tokens"], batch["targets"]
+
+    # (a) the bundle's step-0 loss against lm_loss under no_grad, bitwise
+    new, m = bundle.fn(state, batch)
+    del new
+    with torch.no_grad():
+        ref = lm_loss(state["params"], cfg, tok, tgt)
+    a_loss, a_ref = (float(x) for x in host_read((m["loss"], ref)))
+    rec["a_loss"] = {"bundle": a_loss, "no_grad": a_ref,
+                     "bitwise": torch.equal(m["loss"], ref)}
+    if not rec["a_loss"]["bitwise"]:
+        fail(f"{what} (a): bundle loss {a_loss} != lm_loss {a_ref}")
+
+    # (b) <g, d> against a central difference along a seeded direction
+    params = state["params"]
+    loss, grads = lm_grads(cfg, params, tok, tgt)
+    gen = torch.Generator(device).manual_seed(5)
+    routed = ("embed", "blocks/attn/", "blocks/ln1/", "blocks/ln2/",
+              "blocks/ffn/router")
+    d = unflatten_paths(
+        (path, torch.zeros_like(a) if cfg.moe and path.startswith(routed)
+         else torch.randn(a.shape, generator=gen, device=a.device,
+                          dtype=a.dtype) * a.square().mean().sqrt())
+        for path, a in flatten_with_paths(params))
+    gd = float(host_read(sum(torch.sum(g.double() * v.double())
+                             for g, v in zip(grads, leaves(d)))))
+    del grads
+    fd = {}
+    with torch.no_grad():
+        for eps in LM_FD_EPS:
+            lp, lm_ = (lm_loss(tree_map(lambda a, v, s=sign: a + s * eps * v,
+                                        params, d), cfg, tok, tgt)
+                       for sign in (1.0, -1.0))
+            lp, lm_ = (float(x) for x in host_read((lp, lm_)))
+            f = (lp - lm_) / (2 * eps)
+            fd[str(eps)] = {"fd": f, "rel_err": abs(f - gd) / abs(gd),
+                            "loss_plus": lp, "loss_minus": lm_}
+    del d
+    rec["b_grad"] = {"directional": gd, "eps_gated": LM_FD_EPS[0],
+                     "rtol": LM_FD_RTOL, "fd": fd,
+                     "zero_on": list(routed) if cfg.moe else []}
+    if not fd[str(LM_FD_EPS[0])]["rel_err"] <= LM_FD_RTOL:
+        fail(f"{what} (b): central difference {fd} against <g, d> {gd}")
+
+    # (d) grad_accum 4 against 1 on the same 4 sequences; an MoE without
+    # its load-balance loss, a product of batch means (so not a mean over
+    # micro-batches, in repro as here)
+    spec4 = lm_train_spec(arch, layers, LM_ACCUM_CHECK, LM_CHECK_SEQ,
+                          "float32", True)
+    if cfg.moe:
+        spec4 = dataclasses.replace(spec4, model_cfg=dataclasses.replace(
+            spec4.model_cfg, moe=dataclasses.replace(
+                spec4.model_cfg.moe, router_aux_weight=0.0)))
+    batch4 = make_batch_fn(spec4, "train_4k", device=device)(0)
+    outs = {}
+    for accum in (1, LM_ACCUM_CHECK):
+        b = build_bundle(spec4, "train_4k", device, {"grad_accum": accum})
+        new, m = b.fn(state, batch4)
+        outs[accum] = (m["loss"], m["gnorm"], new["opt"]["mu"])
+        del new
+    (l1, g1, mu1), (l4, g4, mu4) = outs[1], outs[LM_ACCUM_CHECK]
+    mu_err = max(max_abs_err(x, y) for x, y in zip(leaves(mu1), leaves(mu4)))
+    mu_max = max(float(x.abs().max()) for x in leaves(mu1))
+    l1, l4, g1, g4 = (float(x) for x in host_read((l1, l4, g1, g4)))
+    rec["d_accum"] = {"grad_accum": LM_ACCUM_CHECK, "loss": [l1, l4],
+                      "gnorm": [g1, g4], "mu_max_abs_err": mu_err,
+                      "mu_max": mu_max, "rtol": LM_ACCUM_RTOL}
+    if not (abs(l1 - l4) <= LM_ACCUM_RTOL * abs(l1)
+            and abs(g1 - g4) <= LM_ACCUM_RTOL * abs(g1)
+            and mu_err <= LM_ACCUM_RTOL * mu_max):
+        fail(f"{what} (d): {rec['d_accum']}")
+    del outs, mu1, mu4
+
+    # (c) the remat policies at one sequence of LM_REMAT_SEQ tokens
+    spec_c = lm_train_spec(arch, layers, 1, LM_REMAT_SEQ, "float32", True)
+    batch_c = make_batch_fn(spec_c, "train_4k", device=device)(0)
+    got, peaks = {}, {}
+    for policy in ("none", "dots", "off"):
+        c = dataclasses.replace(spec_c.model_cfg, remat_policy=policy)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got[policy] = lm_grads(c, params, batch_c["tokens"],
+                               batch_c["targets"])[1]
+        torch.cuda.synchronize()
+        peaks[policy] = torch.cuda.max_memory_allocated() - start
+    g_max = max(float(g.abs().max()) for g in got["none"])
+    errs = {p: max(max_abs_err(x, y) for x, y in zip(got[p], got["none"]))
+            for p in ("dots", "off")}
+    rec["c_remat"] = {"seq_len": LM_REMAT_SEQ,
+                      "peak_backward_bytes": peaks,
+                      "gradient_bytes": sum(int(g.numel() * g.element_size())
+                                            for g in got["none"]),
+                      "max_abs_err_vs_none": errs, "grad_max": g_max,
+                      "rtol": LM_GRAD_RTOL}
+    if not all(e <= LM_GRAD_RTOL * g_max for e in errs.values()):
+        fail(f"{what} (c): gradients differ across policies {errs}")
+    # with one layer "none" recomputes every activation the backward then
+    # holds at once, which "dots" also reaches: only none < off is strict
+    if not (peaks["none"] <= peaks["dots"] <= peaks["off"]
+            and peaks["none"] < peaks["off"]):
+        fail(f"{what} (c): peak bytes not none <= dots <= off: {peaks}")
+    del got, state, params, bundle
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_lm_train_checks(tables, device="cuda") -> dict:
+    """(a)-(d) on each of ``LM_CHECKS`` (``lm_check_cell``); no kernel of
+    ``kernels/`` may launch."""
+    zero(tables)
+    out = {}
+    for arch, layers in LM_CHECKS:
+        t0 = time.perf_counter()
+        out[arch] = {**lm_check_cell(arch, layers, device),
+                     "seconds": time.perf_counter() - t0}
+    check_launches("train_lm_checks", launches_of(tables), set())
+    return out
+
+
+def phase_lm_train_smoke(tables, device="cuda") -> dict:
+    """The five smoke configs in fp32 (kimi-k2's parameters bf16 with
+    Adafactor) through ``phase_train``: steps, the card against the CPU,
+    restore, resume, one injected failure (kimi-k2 under deterministic
+    algorithms: its resume and rollback bitwise); then ``LM_TRAIN_LAUNCHER`` as
+    subprocesses, each exiting 0."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.launch.train import smoke_spec
+    out = {}
+    for arch in ("granite-8b", "qwen2-moe-a2.7b", "kimi-k2-1t-a32b",
+                 "yi-34b", "qwen2-72b"):
+        spec = smoke_spec(registry.get_spec(arch))
+        spec = dataclasses.replace(spec, model_cfg=dataclasses.replace(
+            spec.model_cfg, dtype="float32"))
+        bf16 = spec.param_dtype == "bfloat16"
+        t0 = time.perf_counter()
+        torch.use_deterministic_algorithms(bf16)
+        try:
+            rec = phase_train(arch, "train_4k", tables, device, smoke=True,
+                              spec=spec, runs=LM_SMOKE_RUNS,
+                              rerun_tol=(0, 0) if bf16 else None)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        out[arch] = {"param_dtype": spec.param_dtype,
+                     "optimizer": spec.optimizer,
+                     "deterministic_algorithms": bf16,
+                     "seconds": time.perf_counter() - t0,
+                     **{k: rec[k] for k in (
+                         "first_step_ms", "step_ms_median", "loss_step1",
+                         f"loss_step{LM_SMOKE_RUNS[0]}", "card_vs_cpu",
+                         "resume",
+                         "injected_failure", "launches")}}
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        for args in LM_TRAIN_LAUNCHER:
+            t0 = time.perf_counter()
+            run = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.train", *args,
+                 "--ckpt-dir", f"{tmp}/{args[1]}"], cwd=ROOT, env=env,
+                capture_output=True, text=True, timeout=600)
+            if run.returncode:
+                fail(f"launch/train.py {' '.join(args)} exited "
+                     f"{run.returncode}:\n{run.stdout[-3000:]}\n"
+                     f"{run.stderr[-3000:]}")
+            out[f"launcher {args[1]}"] = {
+                "args": args, "seconds": time.perf_counter() - t0,
+                "lines": run.stdout.strip().splitlines()}
+    return out
+
+
 def label_seeds(idx, s, t):
     """The stage-2 label seeds of one query batch, as ``QueryEngine``
     hands them to ``CoreRelaxer.run``, and the gathered label rows."""
@@ -3596,32 +4056,60 @@ def main_lm(tables) -> None:
         emit({"phase": name, "seconds": time.perf_counter() - t0, **rec})
 
 
-def phase_lm_child() -> None:
-    """The LM phases in a child process (``chip_smoke.py --lm``) with a
-    fresh caching allocator of expandable segments: the earlier phases'
-    freed segments fragment the card, and kimi-k2's fp32 check casts
-    22.5 GB at once. Its lines are relayed; it must exit 0."""
+def main_lm_train(tables) -> None:
+    """The LM training phases: ``train_lm_<arch>`` for ``LM_TRAIN``,
+    ``train_lm_checks`` and ``train_lm_smoke``. cuBLAS gets a fixed
+    workspace before its first product (deterministic algorithms need
+    one: ``train_lm_smoke``)."""
+    import os
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    for arch, layers, batch, accum in LM_TRAIN:
+        t0 = time.perf_counter()
+        rec = phase_lm_train(arch, layers, batch, accum, tables)
+        emit({"phase": f"train_lm_{arch}",
+              "seconds": time.perf_counter() - t0, **rec})
+    for name, fn in (("train_lm_checks", phase_lm_train_checks),
+                     ("train_lm_smoke", phase_lm_train_smoke)):
+        t0 = time.perf_counter()
+        rec = fn(tables)
+        emit({"phase": name, "seconds": time.perf_counter() - t0, **rec})
+
+
+CHILDREN = {"--lm": ("LM serving", main_lm),
+            "--lm-train": ("LM training", main_lm_train)}
+
+
+def phase_child(flag: str) -> None:
+    """The phases of ``flag`` (``CHILDREN``) in a child process
+    (``chip_smoke.py <flag>``) with a fresh caching allocator of
+    expandable segments: the earlier phases' freed segments fragment the
+    card (kimi-k2's fp32 check casts 22.5 GB at once; a training step
+    holds two states of up to 28 GB). Its lines are relayed; it must exit
+    0."""
     import os
     env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    t0 = time.perf_counter()
     run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                          "--lm"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                          flag], cwd=ROOT, env=env, stdout=subprocess.PIPE,
                          text=True, timeout=900)
     sys.stdout.write(run.stdout)
     sys.stdout.flush()
     if run.returncode:
-        fail(f"the LM phases exited {run.returncode}")
+        fail(f"the {CHILDREN[flag][0]} phases exited {run.returncode}")
+    emit({"phase": f"child {flag}", "seconds": time.perf_counter() - t0})
 
 
-def lm_main() -> int:
-    """``--lm``: the LM phases alone, each line emitted."""
+def child_main(flag: str) -> int:
+    """``chip_smoke.py <flag>``: the phases of ``flag`` alone, each line
+    emitted."""
     import torch
     from repro_torch.kernels.label_intersect import ops as li_ops
     from repro_torch.kernels.minplus_matmul import ops as mp_ops
     from repro_torch.kernels.spmv_relax import ops as sp_ops
     free, total = torch.cuda.mem_get_info()
-    emit({"phase": "lm_process", "device_free_bytes": free,
+    emit({"phase": f"process {flag}", "device_free_bytes": free,
           "device_total_bytes": total})
-    main_lm((li_ops.LAUNCHES, sp_ops.LAUNCHES, mp_ops.LAUNCHES))
+    CHILDREN[flag][1]((li_ops.LAUNCHES, sp_ops.LAUNCHES, mp_ops.LAUNCHES))
     return 0
 
 
@@ -3629,8 +4117,8 @@ def main(argv) -> int:
     src = ROOT / "src"
     if argv[:1] == ["--label-sweep"] and len(argv) == 2:
         src = Path(argv[1]).resolve()
-    elif argv and argv != ["--lm"]:
-        print("usage: chip_smoke.py [--label-sweep SRC | --lm]",
+    elif argv and not (len(argv) == 1 and argv[0] in CHILDREN):
+        print("usage: chip_smoke.py [--label-sweep SRC | --lm | --lm-train]",
               file=sys.stderr)
         return 2
     if not (src / "repro_torch").is_dir():
@@ -3645,8 +4133,8 @@ def main(argv) -> int:
     # fp32 products in full fp32 (the card-against-CPU checks)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    if argv == ["--lm"]:
-        return lm_main()
+    if argv and argv[0] in CHILDREN:
+        return child_main(argv[0])
     if argv:
         return sweep_main(src)
     from repro_torch.kernels.label_intersect import ops as li_ops
@@ -3658,9 +4146,11 @@ def main(argv) -> int:
     dev = phase_device()
     emit({"phase": "device", "seconds": time.perf_counter() - t0, **dev})
     emit({"phase": "build", **phase_build()})
-    # LM serving first, in a child process on a card this one has not
-    # filled yet: granite-8b's decode cell holds ~58 GB
-    phase_lm_child()
+    # LM serving, then LM training, first, each in a child process on a
+    # card this one has not filled yet: granite-8b's decode cell holds
+    # ~58 GB, qwen2-moe's train step two 21 GB states
+    phase_child("--lm")
+    phase_child("--lm-train")
     t0 = time.perf_counter()
     emit({"phase": "ragged_checks", "cases": phase_ragged(),
           "seconds": time.perf_counter() - t0})

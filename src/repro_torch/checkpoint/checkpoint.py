@@ -5,7 +5,10 @@ into the other.
   * **Format**: ``step_<N:09d>/arrays.npz`` (one array per leaf, named
     by its tree path with ``/`` written ``__``: ``params__w0``,
     ``opt__mu__w0``, ``step``) and ``manifest.json`` (step, and each
-    array's shape, dtype and crc32).
+    array's shape, dtype and crc32). A bf16 leaf is stored as ``repro``
+    stores it: raw 2-byte records (``|V2``) in the npz, ``"dtype":
+    "bfloat16"`` in the manifest, its crc32 over those bytes; it
+    restores as ``torch.bfloat16`` (``core/sync.py``).
   * **Atomic**: write to ``step_<N>.tmp`` then ``os.rename`` — a crash
     mid-save never corrupts the latest checkpoint.
   * **Integrity**: the manifest is verified on restore; corrupt or
@@ -33,7 +36,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from repro_torch.core.sync import host_read, upload
+from repro_torch.core.sync import host_read, is_bf16_host, upload
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.tree import flatten_with_paths, tree_map, unflatten_paths
 
@@ -53,7 +56,10 @@ def snapshot(state):
 def state_from_tree(tree, device=None):
     """A tree of numpy arrays (``repro``'s parameter or state tree, or a
     checkpoint's) as the port's state: every leaf a tensor on
-    ``device`` (the card unless the caller names the CPU)."""
+    ``device`` (the card unless the caller names the CPU). With
+    ``snapshot`` back, this carries a whole train state (``{"params",
+    "opt", "step"}``: AdamW's ``mu``/``nu`` or Adafactor's
+    ``vr``/``vc``/``v``) between the packages, bf16 leaves bitwise."""
     device = resolve_device(device)
     return tree_map(lambda a: upload(np.asarray(a), device), tree)
 
@@ -72,7 +78,8 @@ def save_checkpoint(ckpt_dir, step: int, state, keep: int = 3) -> Path:
     for name, arr in flatten_with_paths(snapshot(state)):
         arrays[name] = arr
         manifest["arrays"][name] = {
-            "shape": list(arr.shape), "dtype": str(arr.dtype),
+            "shape": list(arr.shape),
+            "dtype": "bfloat16" if is_bf16_host(arr.dtype) else str(arr.dtype),
             "crc32": zlib.crc32(np.ascontiguousarray(arr).tobytes()) & 0xFFFFFFFF,
         }
     np.savez(tmp / "arrays.npz",

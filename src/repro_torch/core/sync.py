@@ -14,6 +14,14 @@ copy synchronises too (and raises under mode ``"error"``), so uploads
 are issued ``non_blocking``; from pageable memory CUDA stages the
 source before the call returns, so the numpy array may be dropped at
 once.
+
+numpy has no bfloat16. A bf16 tensor reads to the host as ``repro``'s
+layout of such an array: its raw 2-byte patterns, dtype ``V2``
+(``BF16_HOST``; ``.view(np.uint16)`` gives the bits), which is what
+``np.savez`` writes for ``repro``'s bf16 leaves. ``upload`` takes that
+form, and an array whose dtype is named ``bfloat16`` (``ml_dtypes``,
+which ``np.asarray`` of a ``jnp.bfloat16`` array gives), through its
+bytes: both become ``torch.bfloat16``.
 """
 from __future__ import annotations
 
@@ -21,6 +29,25 @@ import numpy as np
 import torch
 
 _COUNT = 0
+BF16_HOST = np.dtype("V2")
+
+
+def is_bf16_host(dtype) -> bool:
+    """Whether a numpy dtype holds bf16 values: ``BF16_HOST``, or a
+    2-byte dtype named ``bfloat16`` (recognised by name: the port does
+    not import ``ml_dtypes``)."""
+    dtype = np.dtype(dtype)
+    return dtype.itemsize == 2 and dtype.fields is None and (
+        dtype.kind == "V" or dtype.name == "bfloat16")
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A CPU tensor's numpy view; bf16 as its raw patterns
+    (``BF16_HOST``)."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(BF16_HOST)
+    return t.numpy()
 
 
 def host_read(x):
@@ -31,7 +58,7 @@ def host_read(x):
     xs = x if isinstance(x, (tuple, list)) else (x,)
     cuda = any(t.is_cuda for t in xs)
     if not cuda:
-        out = tuple(t.detach().numpy().copy() for t in xs)
+        out = tuple(_numpy(t).copy() for t in xs)
     else:
         prev = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode(0)
@@ -46,7 +73,7 @@ def host_read(x):
                 torch.cuda.current_stream(dev).synchronize()
         finally:
             torch.cuda.set_sync_debug_mode(prev)
-        out = tuple(h.numpy() for h in host)
+        out = tuple(_numpy(h) for h in host)
     return out if isinstance(x, (tuple, list)) else out[0]
 
 
@@ -59,7 +86,7 @@ def host_arrays(*xs) -> list:
     out = []
     for x in xs:
         if isinstance(x, torch.Tensor):
-            out.append(next(read) if x.is_cuda else x.detach().numpy())
+            out.append(next(read) if x.is_cuda else _numpy(x))
         else:
             out.append(np.asarray(x))
     return out
@@ -67,11 +94,17 @@ def host_arrays(*xs) -> list:
 
 def upload(a, device, dtype: torch.dtype | None = None) -> torch.Tensor:
     """numpy (or host tensor) -> tensor on ``device`` without a blocking
-    copy. Always a fresh tensor: callers update it in place."""
+    copy. Always a fresh tensor: callers update it in place. A bf16 host
+    array (``is_bf16_host``) becomes ``torch.bfloat16``."""
     t = a
     if not isinstance(t, torch.Tensor):
         arr = np.ascontiguousarray(a).reshape(np.shape(a))   # keeps 0-d
+        bf16 = is_bf16_host(arr.dtype)
+        if bf16:
+            arr = arr.view(np.int16)
         t = torch.from_numpy(arr if arr.flags.writeable else arr.copy())
+        if bf16:
+            t = t.view(torch.bfloat16)
     dtype = t.dtype if dtype is None else dtype
     if torch.device(device).type == "cpu":
         return t.to(dtype=dtype, copy=True)

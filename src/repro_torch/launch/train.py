@@ -9,11 +9,14 @@ checkpoints, NaN rollback, preemption handling, stragglers).
 
 ``--device`` defaults to ``cuda`` and raises without CUDA; ``--device
 cpu`` runs on the CPU. ``--smoke`` swaps in the reduced config (same
-structure, tiny dims). The GNN family (``gcn-cora``,
-``graphsage-reddit``, ``egnn``, ``dimenet``) and the recsys family
-(``dien``) train here. The LMs serve (``launch/serve.py --mode lm``):
-their ``smoke_spec`` and ``init_state`` branches are here, their train
-step is not ported yet.
+structure, tiny dims). Every family trains here: the five LMs
+(``granite-8b``, ``qwen2-moe-a2.7b``, ``kimi-k2-1t-a32b`` with
+Adafactor and bf16 parameters, ``yi-34b``, ``qwen2-72b``; the
+``train_4k`` step), the GNNs (``gcn-cora``, ``graphsage-reddit``,
+``egnn``, ``dimenet``) and DIEN:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b \\
+      --smoke --steps 20
 """
 from __future__ import annotations
 
@@ -86,12 +89,18 @@ def make_batch_fn(spec: ArchSpec, shape_name: str, seed: int = 0,
                   device=None):
     """``step -> batch``: ``repro``'s arrays (bitwise) on ``device`` (the
     card unless the caller names the CPU). A GNN's graph is static: it
-    is built and uploaded once, and every step gets it. DIEN draws a
-    batch a step (``dien_batch(seed, step, ...)``) and uploads it."""
+    is built and uploaded once, and every step gets it. An LM and DIEN
+    draw a batch a step (``lm_batch(seed, step, ...)``, ``dien_batch``)
+    and upload it."""
     device = resolve_device(device)
     shp = spec.shape(shape_name)
     cfg = spec.model_cfg
     specs = spec.input_specs(shape_name)
+    if spec.family == "lm":
+        return lambda step: {k: upload(v, device) for k, v in
+                             synthetic.lm_batch(seed, step, shp.global_batch,
+                                                shp.seq_len,
+                                                cfg.vocab).items()}
     if spec.family == "recsys":
         return lambda step: {k: upload(v, device) for k, v in
                              synthetic.dien_batch(

@@ -98,7 +98,9 @@ def _gqa_scores(q, k):
     qg = q.reshape(b, qc, kv, g, dh).permute(0, 2, 3, 1, 4).reshape(
         b, kv, g * qc, dh)
     s = _per_sequence(lambda i: torch.bmm(qg[i], k[i].permute(1, 2, 0)), b)
-    s = s.div_(s.new_full((), score_scale(dh, q.dtype)))
+    # out of place: under the "dots" remat policy the product is kept for
+    # the backward and may not change
+    s = s / s.new_full((), score_scale(dh, q.dtype))
     return s.view(b, h, qc, k.shape[1])
 
 

@@ -7,8 +7,20 @@ on a leading axis (``blocks/attn/wq`` is ``[L, E, H·Dh]``), so carrying
 weights between the packages is a rename of ``/`` to ``.``
 (``state_from_tree``, ``tree_from_state``) and checkpoints keep
 ``repro``'s format. ``repro``'s ``lax.scan`` over the stack is a Python
-loop that indexes layer ``i``. Token ids read embedding rows by jnp's gather rule
-(``token_rows``).
+loop over the layers, whose parameters come from one ``unbind(0)`` of
+every stacked leaf a call (``_layers``): under autograd its backward is
+one ``stack`` of the layers' gradients, where indexing layer ``i`` would
+build a zero gradient of the whole stack per layer and sum L of them.
+Token ids read embedding rows by jnp's gather rule (``token_rows``).
+
+Activation remat follows ``repro``'s ``jax.checkpoint`` of each layer
+(``remat``, ``remat_policy``) when autograd records: ``"none"``
+(``nothing_saveable``) keeps a layer's inputs and recomputes the rest in
+the backward (``torch.utils.checkpoint``); ``"dots"``
+(``dots_saveable``) also keeps the outputs of the layer's matrix
+products (a selective-checkpoint context); ``"off"`` or ``remat=False``
+keeps everything. Prefill and decode run without autograd and take no
+wrapper.
 
 Serving writes the cache in place: ``prefill`` allocates it and writes
 each layer's K and V straight into it, and ``decode_step`` writes one
@@ -24,10 +36,12 @@ the ``meta`` device.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import layers as L
@@ -52,6 +66,8 @@ class LMConfig:
     moe: MoEConfig | None = None
     q_chunk: int = 512
     dtype: str = "bfloat16"
+    remat: bool = True
+    remat_policy: str = "none"         # none=nothing_saveable | dots | off
     tie_embeddings: bool = False
     ce_impl: str = "gather"            # "iota": repro's vocab-sharding form
 
@@ -205,8 +221,11 @@ def _unembed(params, cfg: LMConfig, x, dtype):
     return (x @ w.to(dtype)).to(torch.float32)
 
 
-def _layer(params, i: int) -> dict:
-    return tree_map(lambda a: a[i], params["blocks"])
+def _layers(params, n_layers: int) -> list:
+    """Each layer's parameters: every stacked leaf read once with
+    ``unbind(0)``."""
+    cols = tree_map(lambda a: a.unbind(0), params["blocks"])
+    return [tree_map(lambda c: c[i], cols) for i in range(n_layers)]
 
 
 def _ffn(cfg: LMConfig, lp, x, dtype):
@@ -216,19 +235,45 @@ def _ffn(cfg: LMConfig, lp, x, dtype):
     return L.swiglu(lp["ffn"], h, dtype), None
 
 
+def _block(cfg: LMConfig, dtype, lp, x):
+    """One layer: ``x`` [B, S, E] -> (x, aux loss or None)."""
+    h, _ = causal_attention(lp["attn"], cfg.attn_cfg(),
+                            L.rmsnorm(lp["ln1"], x), q_chunk=cfg.q_chunk,
+                            dtype=dtype)
+    x = x + h
+    f, a = _ffn(cfg, lp, x, dtype)
+    return x + f, a
+
+
+# the ops whose outputs "dots" keeps (dots_saveable: every dot_general)
+DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+           torch.ops.aten.addmm.default)
+
+
+def _remat(cfg: LMConfig, block):
+    """``block`` under ``cfg``'s remat policy while autograd records
+    (``repro``'s ``jax.checkpoint`` of the layer), else ``block``."""
+    if cfg.remat_policy not in ("none", "dots", "off"):
+        raise ValueError(f"remat_policy {cfg.remat_policy!r}")
+    if not (cfg.remat and cfg.remat_policy != "off"
+            and torch.is_grad_enabled()):
+        return block
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, list(DOT_OPS))
+    return functools.partial(ckpt.checkpoint, block, use_reentrant=False,
+                             preserve_rng_state=False, **kw)
+
+
 def forward(params, cfg: LMConfig, tokens):
     """tokens int[B, S] -> (logits f32[B, S, V], aux loss f32[])."""
     dtype = compute_dtype(cfg)
     x = _embed(params, cfg, tokens, dtype)
     aux = x.new_zeros((), dtype=torch.float32)
-    for i in range(cfg.n_layers):
-        lp = _layer(params, i)
-        h, _ = causal_attention(lp["attn"], cfg.attn_cfg(),
-                                L.rmsnorm(lp["ln1"], x), q_chunk=cfg.q_chunk,
-                                dtype=dtype)
-        x = x + h
-        f, a = _ffn(cfg, lp, x, dtype)
-        x = x + f
+    block = _remat(cfg, functools.partial(_block, cfg, dtype))
+    for lp in _layers(params, cfg.n_layers):
+        x, a = block(lp, x)
         if a is not None:
             aux = aux + a
     x = L.rmsnorm(params["ln_f"], x)
@@ -267,8 +312,7 @@ def prefill(params, cfg: LMConfig, tokens, max_len: int):
         raise ValueError(f"prefill of {s} tokens into a cache of {max_len}")
     x = _embed(params, cfg, tokens, dtype)
     cache = init_cache(cfg, b, max_len, dtype, tokens.device)
-    for i in range(cfg.n_layers):
-        lp = _layer(params, i)
+    for i, lp in enumerate(_layers(params, cfg.n_layers)):
         h, (k, v) = causal_attention(lp["attn"], cfg.attn_cfg(),
                                      L.rmsnorm(lp["ln1"], x),
                                      q_chunk=cfg.q_chunk, dtype=dtype)
@@ -286,8 +330,7 @@ def decode_step(params, cfg: LMConfig, cache, last_tokens):
     returns (logits f32[B, 1, V], cache)."""
     dtype = compute_dtype(cfg)
     x = _embed(params, cfg, last_tokens, dtype)
-    for i in range(cfg.n_layers):
-        lp = _layer(params, i)
+    for i, lp in enumerate(_layers(params, cfg.n_layers)):
         h, _, _ = decode_attention(lp["attn"], cfg.attn_cfg(),
                                    L.rmsnorm(lp["ln1"], x), cache["k"][i],
                                    cache["v"][i], cache["len"], dtype=dtype)

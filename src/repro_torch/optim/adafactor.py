@@ -1,7 +1,9 @@
 """Adafactor (Shazeer & Stern, arXiv:1804.04235) — factored second
 moments: the port's copy of ``repro.optim.adafactor``. For an
 ``[a, b]`` matrix the state is a + b floats (``vr``, ``vc``) and no
-first moment; a vector keeps a full ``v``.
+first moment; a vector keeps a full ``v``. The parameters keep their
+dtype: a bf16 parameter's update is ``repro``'s fp32 value rounded to
+bf16 (``repro``'s own parameters turn fp32 after one step).
 """
 from __future__ import annotations
 
@@ -57,8 +59,13 @@ def adafactor(lr=1e-3, decay=0.8, eps=1e-30, clip_norm=1.0,
             # update-norm clipping (Adafactor's d=1.0 rule, simplified)
             rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
             u = u / torch.clamp(rms, min=1.0)
-            newp = p - lr_t * (u + weight_decay * p).to(p.dtype)
-            return newp, news
+            # repro's lr_t is a strongly typed fp32 scalar, so with bf16
+            # parameters its product and difference are fp32 (and repro's
+            # parameters turn fp32 after a step). The same fp32 value here,
+            # rounded back: the state keeps the parameter dtype.
+            newp = p - lr_t * (u + weight_decay * p).to(p.dtype).to(
+                torch.float32)
+            return newp.to(p.dtype), news
 
         # tree_map walks the params: at each leaf the state's subtree
         # ({"vr", "vc"} or {"v"}) comes along whole

@@ -1,25 +1,34 @@
 """Step builders: (ArchSpec, shape) -> a step on one device — the port
-of the LM serving, GNN and recsys parts of ``repro.train.steps``.
+of the LM, GNN and recsys parts of ``repro.train.steps``.
 
 A train ``StepBundle`` holds ``fn = train_step(state, batch) -> (state,
 {"loss", "gnorm"})`` with ``state = {"params", "opt", "step"}``, the
-tree ``repro``'s step carries (``repro_torch.tree``); DIEN's serve and
-retrieval bundles hold ``fn(params, batch)`` (CTR probabilities [B];
-scores [B, C]). An LM's prefill bundle holds ``fn(params, batch) ->
-(logits [B, 1, V], cache)`` and its decode bundle ``fn(params, cache,
-last_tokens) -> (logits [B, 1, V], cache)``, writing the cache in place
-(``repro``'s bundle donates it). One card needs no mesh and no
-sharding: the bundle's ``device`` (``device=None`` is the card) is
-where ``launch/train.py`` places the state and the batch.
+tree ``repro``'s step carries (``repro_torch.tree``); an LM's state is
+held in ``spec.param_dtype``. DIEN's serve and retrieval bundles hold
+``fn(params, batch)`` (CTR probabilities [B]; scores [B, C]). An LM's
+prefill bundle holds ``fn(params, batch) -> (logits [B, 1, V], cache)``
+and its decode bundle ``fn(params, cache, last_tokens) -> (logits [B,
+1, V], cache)``, writing the cache in place (``repro``'s bundle donates
+it). One card needs no mesh and no sharding: the bundle's ``device``
+(``device=None`` is the card) is where ``launch/train.py`` places the
+state and the batch.
 
 The train step is functional, as ``repro``'s jitted step is: it returns a new
-state and leaves its input alone. The forward runs through
-``torch.func.functional_call`` on detached aliases of the parameters,
-the optimizer (``optim/``) builds new tensors, and nothing is updated in
-place. So a caller that drops a step's result (the fault-tolerant runner
-on a non-finite loss or an exception mid-step, ``fault/runner.py``)
-still holds the state from before that step, with no snapshot. The step
-reads nothing back to the host.
+state and leaves its input alone. The loss runs on detached aliases of
+the parameters (a module's through ``torch.func.functional_call``),
+the optimizer (``optim/``) builds new tensors, and nothing of the state
+is updated in place. So a caller that drops a step's result (the
+fault-tolerant runner on a non-finite loss or an exception mid-step,
+``fault/runner.py``) still holds the state from before that step, with
+no snapshot. The step reads nothing back to the host.
+
+``overrides`` (the LM train step, as ``repro``'s): ``grad_accum`` splits
+the batch into that many micro-batches along axis 0 and sums their
+gradients into fp32 zeros and their losses in fp32, both divided by the
+count (``repro``'s ``micro`` scan, a Python loop here); ``warmup`` is
+the schedule's warm-up; ``accum_unroll`` (a ``lax.scan`` hint) is
+ignored; ``compress_pods`` needs a ``pod`` axis of several cards and
+raises.
 """
 from __future__ import annotations
 
@@ -39,7 +48,8 @@ from repro_torch.models import gnn as G
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.optim import Optimizer, adafactor, adamw, warmup_cosine
-from repro_torch.tree import unflatten_paths
+from repro_torch.tree import (flatten_with_paths, leaves, tree_map,
+                              unflatten_paths)
 
 
 @dataclasses.dataclass
@@ -61,15 +71,31 @@ def make_optimizer(name: str, total_steps: int = 100_000,
 
 
 # ============================================================ LM family
-def build_lm_bundle(spec: ArchSpec, shape_name: str,
-                    device=None) -> StepBundle:
-    """An LM's ``prefill`` or ``decode`` step on ``device`` (the card
-    unless the caller names the CPU); ``static_meta["cfg"]`` is the
-    config. The ``train`` kind comes with the LM training slice."""
+def build_lm_bundle(spec: ArchSpec, shape_name: str, device=None,
+                    overrides: dict | None = None) -> StepBundle:
+    """An LM's ``train``, ``prefill`` or ``decode`` step on ``device``
+    (the card unless the caller names the CPU); ``static_meta["cfg"]``
+    is the config. ``overrides`` is read by the train step."""
     device = resolve_device(device)
     shp = spec.shape(shape_name)
     cfg = spec.model_cfg
     name = f"{spec.arch_id}:{shape_name}:{shp.kind}"
+
+    if shp.kind == "train":
+        ov = overrides or {}
+        if ov.get("compress_pods"):
+            raise ValueError("compress_pods (int8 gradients across pods) "
+                             "needs a pod axis: it comes with the "
+                             "multi-card slice")
+        opt = make_optimizer(spec.optimizer,
+                             warmup=int(ov.get("warmup", 2000)))
+
+        def loss_fn(params, batch):
+            return T.lm_loss(params, cfg, batch["tokens"], batch["targets"])
+
+        return StepBundle(name=name, fn=_train_step(
+            opt, loss_fn, int(ov.get("grad_accum", 1))), device=device,
+            optimizer=opt, static_meta={"cfg": cfg})
 
     if shp.kind == "prefill":
         def prefill_step(params, batch):
@@ -84,9 +110,6 @@ def build_lm_bundle(spec: ArchSpec, shape_name: str,
                 return T.decode_step(params, cfg, cache, last_tokens)
         return StepBundle(name=name, fn=decode_step, device=device,
                           static_meta={"cfg": cfg})
-    if shp.kind == "train":
-        raise KeyError(f"{name}: the LM train step is not ported yet: it "
-                       "comes with the LM training slice")
     raise KeyError(shp.kind)
 
 
@@ -167,31 +190,60 @@ def build_gnn_bundle(spec: ArchSpec, shape_name: str,
         model = _gnn_model(cfg)
     opt = make_optimizer(spec.optimizer)
     train_step = _train_step(opt, lambda params, batch: gnn_loss(
-        model, params, batch, shp.kind))
+        model, L.dotted(params), batch, shp.kind))
     return StepBundle(name=f"{spec.arch_id}:{shape_name}:train",
                       fn=train_step, device=device, optimizer=opt,
                       static_meta={"cfg": cfg})
 
 
-def _train_step(opt: Optimizer, loss_fn):
-    """``train_step(state, batch)`` over ``loss_fn(params, batch)``
-    (``params``: the flat dotted dict ``functional_call`` takes)."""
+def _micro_batches(batch: dict, accum: int) -> list:
+    """``batch`` cut into ``accum`` consecutive blocks along axis 0
+    (``repro``'s ``reshape(accum, B // accum, ...)``)."""
+    b = next(iter(batch.values())).shape[0]
+    if b % accum:
+        raise ValueError(f"a batch of {b} does not split into {accum} "
+                         "micro-batches")
+    return [{k: v[i * (b // accum):(i + 1) * (b // accum)]
+             for k, v in batch.items()} for i in range(accum)]
 
-    def train_step(state, batch):
-        params = {k: v.detach().requires_grad_()
-                  for k, v in L.dotted(state["params"]).items()}
+
+def _train_step(opt: Optimizer, loss_fn, accum: int = 1):
+    """``train_step(state, batch)`` over ``loss_fn(params, batch)``
+    (``params``: the nested parameter tree), with ``accum`` micro-batches
+    (the module docstring)."""
+
+    def value_and_grad(state_params, batch):
+        paths = [k for k, _ in flatten_with_paths(state_params)]
+        params = tree_map(lambda v: v.detach().requires_grad_(), state_params)
         loss = loss_fn(params, batch)
         # a parameter the loss does not reach (EGNN's last phi_x) gets a
         # zero gradient, as under jax.grad
-        grads = torch.autograd.grad(loss, list(params.values()),
-                                    allow_unused=True,
+        grads = torch.autograd.grad(loss, leaves(params), allow_unused=True,
                                     materialize_grads=True)
-        grads = unflatten_paths((k.replace(".", "/"), g)
-                                for k, g in zip(params, grads))
+        return loss.detach(), unflatten_paths(zip(paths, grads))
+
+    def train_step(state, batch):
+        if accum > 1:
+            # fp32 sums, as repro's scan carries them: a bf16 model hands
+            # its optimizer fp32 gradients. The sums are this step's own
+            # tensors, so they are added to in place.
+            grads = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device),
+                state["params"])
+            loss = None
+            for micro in _micro_batches(batch, accum):
+                loss_i, grads_i = value_and_grad(state["params"], micro)
+                tree_map(torch.Tensor.add_, grads, grads_i)
+                loss = loss_i if loss is None else loss + loss_i
+                del grads_i
+            tree_map(lambda g: g.div_(accum), grads)
+            loss = loss / accum
+        else:
+            loss, grads = value_and_grad(state["params"], batch)
         new_p, new_opt, gnorm = opt.update(grads, state["opt"],
                                            state["params"], state["step"])
         return ({"params": new_p, "opt": new_opt, "step": state["step"] + 1},
-                {"loss": loss.detach(), "gnorm": gnorm})
+                {"loss": loss, "gnorm": gnorm})
 
     return train_step
 
@@ -211,7 +263,7 @@ def build_recsys_bundle(spec: ArchSpec, shape_name: str,
     if shp.kind == "train":
         opt = make_optimizer(spec.optimizer)
         train_step = _train_step(opt, lambda params, batch: D.dien_loss(
-            model, params, batch))
+            model, L.dotted(params), batch))
         return StepBundle(name=name, fn=train_step, device=device,
                           optimizer=opt, static_meta={"cfg": cfg})
 
@@ -233,9 +285,12 @@ def build_recsys_bundle(spec: ArchSpec, shape_name: str,
 
 
 # ------------------------------------------------------------- dispatcher
-def build_bundle(spec: ArchSpec, shape_name: str, device=None) -> StepBundle:
+def build_bundle(spec: ArchSpec, shape_name: str, device=None,
+                 overrides: dict | None = None) -> StepBundle:
+    """``overrides``: the LM train step's (``build_lm_bundle``); the other
+    families take none, as in ``repro``."""
     if spec.family == "lm":
-        return build_lm_bundle(spec, shape_name, device)
+        return build_lm_bundle(spec, shape_name, device, overrides)
     if spec.family == "gnn":
         return build_gnn_bundle(spec, shape_name, device)
     if spec.family == "recsys":

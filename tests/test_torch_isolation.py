@@ -1,7 +1,8 @@
 """Isolation and no-fallback rules of the PyTorch port.
 
 ``repro_torch`` never imports jax nor ``repro`` (not even its numpy-only
-modules); its entry points run on the card unless the caller names the
+modules), nor ``ml_dtypes`` (bf16 host arrays are recognised by dtype
+name); its entry points run on the card unless the caller names the
 CPU, and a kernel binding given a CPU tensor raises instead of running
 something else.
 """
@@ -53,7 +54,8 @@ def test_import_pulls_in_neither_jax_nor_repro():
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or "
-            "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
+            "k.startswith('jax.') or k == 'repro' or k.startswith('repro.') "
+            "or k == 'ml_dtypes')\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     env = {"PYTHONPATH": str(ROOT / "src"), "JAX_PLATFORMS": "cpu",
@@ -68,7 +70,8 @@ def test_import_pulls_in_neither_jax_nor_repro():
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_imports_in_source(path):
     text = path.read_text()
-    assert not re.search(r"^\s*(import jax|from jax)", text, re.M)
+    assert not re.search(r"^\s*(import jax|from jax|import ml_dtypes|"
+                         r"from ml_dtypes)", text, re.M)
     assert not re.search(r"^\s*(from repro[\s.]|import repro[\s.]|"
                          r"import repro$)", text, re.M)
 
@@ -136,6 +139,10 @@ def _default_device_calls():
         "state_from_tree": lambda: state_from_tree({"w": np.zeros(2)}),
         "build_lm_bundle": lambda: build_lm_bundle(
             registry.get_spec("qwen2-moe-a2.7b"), "decode_32k"),
+        "build_lm_bundle (train)": lambda: build_lm_bundle(
+            lm, "train_4k", overrides={"grad_accum": 2}),
+        "train.make_batch_fn (lm)": lambda: train.make_batch_fn(
+            lm, "train_4k"),
         "train.init_state (lm)": lambda: train.init_state(
             lm, StepBundle("lm", None, torch.device("cuda"),
                            static_meta={"cfg": lm_cfg})),

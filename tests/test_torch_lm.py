@@ -1,12 +1,15 @@
 """The LM serving slice of the PyTorch port against ``repro`` on the CPU:
 ``models/{layers,attention,moe,transformer}.py``, the five LM configs,
-``build_lm_bundle`` and ``launch/serve.py --mode lm``.
+``build_lm_bundle`` and ``launch/serve.py --mode lm``. The train kind of
+``build_lm_bundle`` is checked here for its outputs only; its parity with
+``repro``'s train step is ``tests/test_torch_lm_train.py``.
 
 ``repro``'s parameters come from ``init_lm(PRNGKey(0), tiny_like(cfg))``
 with ``bq bk bv`` redrawn non-zero (``repro``'s init sets them to zero,
 which would leave the bias path untested), carried across with
 ``transformer.state_from_tree``. ``repro``'s functions run without a
-mesh (its jitted train steps are among the reference failures). Its
+mesh (under one its jitted train steps are among the reference
+failures). Its
 functions run under ``jax.jit`` with the config static, each compiled
 once a config and shape and shared by the tests: an eager ``lax.scan``
 traces and compiles its body anew on every call, and eager ``jnp``
@@ -441,8 +444,9 @@ def test_lm_bundles_on_a_smoke_spec():
     """``build_bundle(spec, "prefill_32k")`` and ``"decode_32k"`` on the
     smoke config in fp32, with those cells cut to 16 tokens and 2
     sequences, against ``repro``'s ``prefill``/``decode_step`` (what its
-    bundles call) on the bundle's parameters; the ``train`` kind names
-    the LM training slice."""
+    bundles call) on the bundle's parameters; the ``train`` kind's step
+    returns ``{"loss", "gnorm"}`` and a new state, its input untouched
+    (its parity with ``repro``: ``tests/test_torch_lm_train.py``)."""
     arch = "qwen2-moe-a2.7b"
     shapes = {"prefill_32k": ("prefill", 16, 2), "decode_32k":
               ("decode", 16, 2), "train_4k": ("train", 16, 2)}
@@ -459,8 +463,17 @@ def test_lm_bundles_on_a_smoke_spec():
         (2, 2, 16, 2, 8)
     assert spec.runnable_cells() == list(shapes)
     assert "long_500k" not in t_registry.get_spec(arch).runnable_cells()
-    with pytest.raises(KeyError, match="LM training slice"):
-        build_bundle(spec, "train_4k", "cpu")
+    train = build_bundle(spec, "train_4k", "cpu")
+    st0 = t_train.init_state(spec, train)
+    before = {k: v.clone() for k, v in flatten_with_paths(st0)}
+    st1, metrics = train.fn(st0, t_train.make_batch_fn(
+        spec, "train_4k", device="cpu")(0))
+    assert set(metrics) == {"loss", "gnorm"}
+    assert all(torch.isfinite(v) and v.shape == () for v in metrics.values())
+    assert set(st1) == {"params", "opt", "step"} and int(st1["step"]) == 1
+    assert all(torch.equal(v, before[k]) for k, v in flatten_with_paths(st0))
+    assert all(a is not b for (_, a), (_, b) in zip(
+        flatten_with_paths(st1["params"]), flatten_with_paths(st0["params"])))
     state = t_train.init_state(spec, pre)
     assert set(state) == {"params"}
     jp = jax.tree.map(jnp.asarray, t_tf.tree_from_state(
