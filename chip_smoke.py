@@ -206,6 +206,39 @@ Phases, one JSON line each (with its seconds):
    CPU, each with a lost step as its control; restore, resume, one
    injected failure), then ``launch/train.py --arch
    granite-8b --smoke`` and ``--arch kimi-k2-1t-a32b --smoke``.
+   ``prefetch``: granite's cell above (4 layers, 8 x 4,096,
+   ``grad_accum`` 4) fed through ``PrefetchPipeline(depth=2)`` from
+   pinned host batches for 6 steps: losses bitwise equal to the same
+   steps fed directly, a ``reset`` seek returning the same batch, and a
+   profile whose host-to-device copies run on a stream none of the
+   step's kernels use; step ms of both runs.
+17. islabel_serve_1m — the ``islabel`` arch's query step (no kernel of
+   ``kernels/`` lies on its path) at ``serve_1m``'s published shape (n
+   = 2^20, l_cap 64, n_core 2^17, 2^22 core edges, Q = 4,096) on
+   inputs drawn on the card from a seed, at ``relax_chunks`` 64 (the
+   cut: 0 would gather 68.7 GB): step ms, the bytes it needs and moves
+   and their bounds, peak device bytes; the first 16 queries bitwise
+   equal to the same bundle on the CPU; the ``fused`` index through the
+   bundle (rounds past its route's) equal to ``idx.query`` on its 1,024
+   pairs. islabel_build_16m — one peel level at n = 2^24 (e_cap 2^26)
+   on a random graph drawn on the card (halved until its reckoned peak
+   fits the card, the cut recorded): the chosen set independent, and
+   the level equal to ``build_hierarchy_device``'s first level on the
+   same graph and permutation.
+18. distributed — ``torchrun --nproc-per-node=<cards> chip_smoke.py
+   --distributed`` (NCCL): granite-8b's smoke step over
+   ``make_host_mesh`` against the unsharded step (bitwise at one card),
+   ``compressed_psum_pod`` and ``lookup_mod_sharded`` against their
+   one-device forms; then ``torchrun ... -m repro_torch.launch.train
+   --arch granite-8b --smoke --steps 20``. On a one-card machine the
+   world is 1.
+19. dryrun — started in the background right after ``build`` (CPU only,
+   the fake process group, no card): ``python -m
+   repro_torch.launch.dryrun --all --include-islabel --multipod single``
+   and ``--multipod multi`` on ``perf.py``'s ``:mp`` cells, every cell
+   ``ok``; per cell FLOPs, bytes, collective bytes, argument and peak
+   bytes per device and the dominant term on the H100 model; and
+   ``python -m repro_torch.launch.perf --cell islabel:serve_128m``.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script
@@ -213,7 +246,9 @@ exits nonzero and prints no result. It needs one CUDA card and the
 repository's ``src/`` beside it.
 
 ``--lm`` and ``--lm-train`` run the LM serving and LM training phases
-alone (the whole script runs each so, in a child process).
+alone (the whole script runs each so, in a child process);
+``--distributed`` is the ``distributed`` phase's per-rank check, run
+under ``torchrun``.
 ``--label-sweep SRC`` builds the four paths' indexes with the port under
 ``SRC`` (for instance an older commit unpacked with ``git archive``) and
 prints ``label_sweep``'s line with each path's query times, so two
@@ -222,6 +257,7 @@ call.
 """
 from __future__ import annotations
 
+import atexit
 import json
 import statistics
 import subprocess
@@ -2593,8 +2629,8 @@ class RouteRecorder:
     def __enter__(self):
         import torch
 
-        def recorded(p, cfg, xf, dtype=torch.bfloat16):
-            r = self.plain(p, cfg, xf, dtype)
+        def recorded(p, cfg, xf, dtype=torch.bfloat16, dist=None):
+            r = self.plain(p, cfg, xf, dtype, dist)
             logits = (xf @ p["router"].to(dtype)).to(torch.float32)
             top = torch.topk(logits, cfg.top_k + 1, dim=-1).values
             kth, nxt = top[:, -2], top[:, -1]
@@ -4018,6 +4054,635 @@ def phase_kernels(indexes, clock_max_hz: float) -> list:
     return out
 
 
+# ------------------------------------------------ the PR-24 slice's phases
+ISLABEL_SEED = 24
+ISLABEL_CHUNKS = 64        # serve_1m's cut: relax_chunks 0 gathers 68.7 GB
+ISLABEL_STEPS = 3          # timed query steps after one warm-up
+ISLABEL_CHECK_Q = 16       # queries held to the CPU bundle bitwise
+BUILD_LOG2 = 24            # islabel build_16m: n = 2^24, e_cap = 2^26
+DRYRUN_JOBS = 8             # the chip machine's cores
+DRYRUN_MULTI = ["qwen2-moe-a2.7b:train_4k", "kimi-k2-1t-a32b:train_4k"]
+DRYRUN_TIMEOUT = 700
+DRYRUN_OUT = ROOT / "experiments" / "chip_smoke"   # the script's own records
+PREFETCH_STEPS = 6
+DIST_LAUNCHER = ["-m", "repro_torch.launch.train", "--arch", "granite-8b",
+                 "--smoke", "--steps", "20"]
+
+
+def islabel_inputs(shp, device, seed: int) -> dict:
+    """A ``query`` cell's batch drawn on ``device`` from ``seed``: label
+    rows of ``l_cap`` sorted ids below n (a row's first ``fill`` slots;
+    the rest padding n, distance +inf), integer-valued fp32 distances,
+    ``core_pos`` (a random tenth of the vertices, at most ``n_core``,
+    in core positions; the rest ``n_core``), core edges with weights in
+    1..4, and Q endpoint pairs."""
+    import torch
+    g = torch.Generator(device).manual_seed(seed)
+    n, l_cap, n_core = shp.n_vertices, shp.l_cap, shp.n_core
+    rows = -(-(n + 1) // 512) * 512
+    ids = torch.randint(0, n, (rows, l_cap), generator=g, device=device,
+                        dtype=torch.int32)
+    ids = torch.sort(ids, dim=1).values
+    fill = torch.randint(1, l_cap + 1, (rows, 1), generator=g,
+                         device=device)
+    pad = torch.arange(l_cap, device=device)[None, :] >= fill
+    ids = torch.where(pad, n, ids)
+    ids[n:] = n
+    d = torch.randint(1, 64, (rows, l_cap), generator=g, device=device
+                      ).to(torch.float32)
+    d = torch.where(ids < n, d, float("inf"))
+    core = torch.randperm(n, generator=g, device=device)[:n_core]
+    core_pos = torch.full((rows,), n_core, dtype=torch.int32, device=device)
+    core_pos[core] = torch.arange(n_core, dtype=torch.int32, device=device)
+    e = shp.core_edges
+    return {"lbl_ids": ids, "lbl_d": d, "core_pos": core_pos,
+            "ce_src": torch.randint(0, n_core, (e,), generator=g,
+                                    device=device, dtype=torch.int32),
+            "ce_dst": torch.randint(0, n_core, (e,), generator=g,
+                                    device=device, dtype=torch.int32),
+            "ce_w": torch.randint(1, 5, (e,), generator=g, device=device
+                                  ).to(torch.float32),
+            "s": torch.randint(0, n, (shp.q_batch,), generator=g,
+                               device=device, dtype=torch.int32),
+            "t": torch.randint(0, n, (shp.q_batch,), generator=g,
+                               device=device, dtype=torch.int32)}
+
+
+def islabel_bytes(shp, rounds: int, chunks: int) -> dict:
+    """A query step's bytes: ``needed`` — each input it reads once (the
+    2Q label rows and their core positions, the core edges, the
+    endpoints) and its output; ``moved`` — what the step's eager rounds
+    move: per side and round, each chunk's gather of Q x chunk frontier
+    values, its candidates written and read by the scatter-min, and the
+    chunk's edges, plus the frontiers' seeding."""
+    q, l_cap, e, v = shp.q_batch, shp.l_cap, shp.core_edges, shp.n_core + 1
+    step = e // chunks if chunks else e
+    used = step * (chunks or 1)
+    needed = 2 * q * l_cap * (4 + 4 + 4) + e * 12 + 2 * q * 4 + q * 4
+    per_round = 3 * q * used * 4 + used * 12 + 2 * q * v * 4
+    moved = needed + 2 * (q * v * 4 + rounds * per_round)
+    return {"needed_bytes": needed, "moved_bytes": moved,
+            "needed_bound_ms": needed / HBM_BYTES_PER_S * 1e3,
+            "moved_bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+
+
+def phase_islabel_serve(tables, fused, fused_rounds: int,
+                        device="cuda") -> dict:
+    """``islabel``'s ``serve_1m`` query step at its published shape (the
+    ``islabel_inputs`` batch, ``relax_chunks`` ``ISLABEL_CHUNKS``, 8
+    rounds): ``ISLABEL_STEPS`` timed steps after a warm-up, peak device
+    bytes; the first ``ISLABEL_CHECK_Q`` queries bitwise equal to the
+    same bundle on the CPU on those queries; then the ``fused`` index
+    (``er:10000:2.2@1``) through the bundle at a shape sized to it with
+    ``relax_rounds`` past its route's rounds, equal to ``idx.query`` on
+    its 1,024 pairs. No kernel of ``kernels/`` may launch."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.configs.shapes import IndexShape
+    from repro_torch.core.sync import host_read
+    from repro_torch.train.steps import build_bundle
+    spec = registry.get_spec("islabel")
+    shp = spec.shape("serve_1m")
+    ov = {"relax_chunks": ISLABEL_CHUNKS}
+    zero(tables)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    batch = islabel_inputs(shp, device, ISLABEL_SEED)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    bundle = build_bundle(spec, "serve_1m", device, ov)
+    torch.cuda.reset_peak_memory_stats()
+    out = bundle.fn(batch)                              # warm-up
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ms = []
+    for _ in range(ISLABEL_STEPS):
+        ev[0].record()
+        out = bundle.fn(batch)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+    peak = torch.cuda.max_memory_allocated() - base
+    check_launches("islabel_serve_1m", launches_of(tables), set())
+    got = host_read(out)
+    if got.shape != (shp.q_batch,) or np.isnan(got).any():
+        fail(f"islabel_serve_1m: output {got.shape}, NaN {np.isnan(got).sum()}")
+    # the first queries on the CPU: rows are independent
+    qc = ISLABEL_CHECK_Q
+    cpu_shp = dataclasses.replace(shp, q_batch=qc)
+    cpu_spec = dataclasses.replace(spec, shapes={"serve_1m": cpu_shp})
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    cpu_batch["s"], cpu_batch["t"] = cpu_batch["s"][:qc], cpu_batch["t"][:qc]
+    t0 = time.perf_counter()
+    want = build_bundle(cpu_spec, "serve_1m", "cpu", ov).fn(cpu_batch).numpy()
+    cpu_s = time.perf_counter() - t0
+    if not np.array_equal(got[:qc], want):
+        fail(f"islabel_serve_1m: card {got[:qc]} != CPU {want}")
+    med = statistics.median(ms)
+    rec = {"shape": dataclasses.asdict(shp), "relax_rounds": 8,
+           "relax_chunks": ISLABEL_CHUNKS,
+           "cut": "relax_chunks 64 (repro's default 0 gathers a [4096, "
+                  "2^22] fp32 block: 68.7 GB, twice)",
+           "label_bytes": int(batch["lbl_ids"].numel() * 8),
+           "frontier_bytes": int(2 * shp.q_batch * (shp.n_core + 1) * 4),
+           "setup_s": setup_s, "step_ms": ms, "step_ms_median": med,
+           "queries_per_s": shp.q_batch / med * 1e3,
+           "peak_device_bytes": peak, "finite": int(np.isfinite(got).sum()),
+           "checked_on_cpu": qc, "cpu_s": cpu_s,
+           **islabel_bytes(shp, 8, ISLABEL_CHUNKS)}
+    rec["moved_share_of_bound"] = rec["moved_bound_ms"] / med
+    del batch, out
+    torch.cuda.empty_cache()
+
+    # the fused graph's index through the bundle: answers = idx.query
+    idx, s, t = fused
+    n, l_cap = idx.n, idx.lbl_ids.shape[1]
+    n_core = len(idx.core_ids)
+    rows = -(-(n + 1) // 512) * 512
+    cpos = np.full(rows, n_core, np.int32)
+    cpos[:n + 1] = idx.core_pos_host
+    ids = torch.full((rows, l_cap), n, dtype=torch.int32, device=device)
+    dd = torch.full((rows, l_cap), float("inf"), device=device)
+    ids[:n + 1], dd[:n + 1] = idx.lbl_ids, idx.lbl_d
+    fb = {"lbl_ids": ids, "lbl_d": dd,
+          "core_pos": torch.from_numpy(cpos).to(device),
+          "ce_src": torch.from_numpy(cpos[idx.core_src]).to(device),
+          "ce_dst": torch.from_numpy(cpos[idx.core_dst]).to(device),
+          "ce_w": torch.from_numpy(np.asarray(idx.core_w, np.float32)
+                                   ).to(device),
+          "s": torch.as_tensor(s, device=device).to(torch.int32),
+          "t": torch.as_tensor(t, device=device).to(torch.int32)}
+    fshp = IndexShape("fused", "query", n, l_cap, n_core,
+                      len(idx.core_src), q_batch=len(fb["s"]))
+    fspec = dataclasses.replace(spec, shapes={"fused": fshp})
+    rounds = fused_rounds + 2
+    want = host_read(idx.query(fb["s"], fb["t"]))
+    zero(tables)
+    got = host_read(build_bundle(fspec, "fused", device,
+                                 {"relax_rounds": rounds}).fn(fb))
+    check_launches("islabel_serve_1m (fused)", launches_of(tables), set())
+    if not np.array_equal(got, want):
+        fail(f"islabel fused: {int((got != want).sum())} answers differ "
+             "from idx.query")
+    rec["fused_index"] = {"n": n, "n_core": n_core,
+                          "core_edges": len(idx.core_src),
+                          "route_rounds": fused_rounds,
+                          "relax_rounds": rounds, "pairs": len(fb["s"]),
+                          "equal_to_query": True,
+                          "finite": int(np.isfinite(got).sum())}
+    rec["launches"] = launches_of(tables)
+    return rec
+
+
+def random_graph_cuda(n: int, n_und: int, seed: int, device="cuda"):
+    """``n_und`` distinct undirected edges (no loops) over n vertices,
+    weights 1..4, both directions, drawn on the card; host arrays."""
+    import torch
+    g = torch.Generator(device).manual_seed(seed)
+    keys = torch.empty(0, dtype=torch.int64, device=device)
+    while keys.numel() < n_und:
+        u = torch.randint(0, n, (2 * n_und,), generator=g, device=device)
+        v = torch.randint(0, n, (2 * n_und,), generator=g, device=device)
+        lo, hi = torch.minimum(u, v), torch.maximum(u, v)
+        keys = torch.unique(torch.cat([keys, (lo * n + hi)[lo != hi]]))
+    keys = keys[torch.randperm(keys.numel(), generator=g,
+                               device=device)[:n_und]]
+    lo, hi = keys // n, keys % n
+    w = torch.randint(1, 5, (n_und,), generator=g, device=device).float()
+    src = torch.cat([lo, hi]).to(torch.int32)
+    dst = torch.cat([hi, lo]).to(torch.int32)
+    return (src.cpu().numpy(), dst.cpu().numpy(),
+            torch.cat([w, w]).cpu().numpy())
+
+
+LEVEL_BYTES_PER_SLOT = 93     # a peel level's peak a candidate edge slot
+
+
+def build_level_peak(n: int, e_cap: int, d_cap: int) -> int:
+    """A peel level's reckoned peak: ``LEVEL_BYTES_PER_SLOT`` bytes for
+    each of its candidate edge slots (the e_cap kept edges and the
+    e_cap/2 x d_cap augmenting pairs that the dedup sorts), the rate
+    measured at ``build_16m`` (56,086,239,232 B over 603,979,776 slots,
+    92.9 B, H100 80GB HBM3); the [n+1, d_cap] neighbour planes are
+    within it at this shape."""
+    del n
+    return LEVEL_BYTES_PER_SLOT * (e_cap + e_cap // 2 * d_cap)
+
+
+def phase_islabel_build(tables, device="cuda") -> dict:
+    """``islabel``'s ``build_16m``: one peel level at n = 2^BUILD_LOG2
+    (e_cap 2^(BUILD_LOG2 + 2), the shape's d_cap) on a random graph of
+    e_cap / 4 undirected edges (weights 1..4, drawn on the card), laid
+    out by ``graphs/csr.from_host_edges``, with a seeded permutation:
+    the chosen set independent, no output edge touching it, and the
+    level equal to the first level of ``build_hierarchy_device``
+    (``k_force=2``) on the same graph and permutation (a consistency
+    check: the builder runs the same ``peel_level``). Halves n (and e_cap) until the reckoned peak fits the
+    card's free memory; the cut is recorded."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.core.config import IndexConfig
+    from repro_torch.core.hierarchy import build_hierarchy_device
+    from repro_torch.core.sync import host_read
+    from repro_torch.graphs import csr as gcsr
+    from repro_torch.train.steps import build_bundle
+    spec = registry.get_spec("islabel")
+    shp = spec.shape("build_16m")
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    log2 = BUILD_LOG2
+    while build_level_peak(1 << log2, 1 << (log2 + 2), shp.d_cap) \
+            > 0.85 * free:
+        log2 -= 1
+    n, e_cap = 1 << log2, 1 << (log2 + 2)
+    rec = {"published": dataclasses.asdict(shp), "n": n, "e_cap": e_cap,
+           "d_cap": shp.d_cap, "reckoned_peak_bytes":
+               build_level_peak(n, e_cap, shp.d_cap), "free_bytes": free,
+           "cut": None if log2 == BUILD_LOG2 else f"n = 2^{log2}"}
+    t0 = time.perf_counter()
+    src, dst, w = random_graph_cuda(n, e_cap // 4, ISLABEL_SEED, device)
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(
+        ISLABEL_SEED)).to(torch.int32)
+    g = gcsr.from_host_edges(src, dst, w, n, e_cap, device=device)
+    rec["graph_s"] = time.perf_counter() - t0
+    cell = dataclasses.replace(shp, n_vertices=n, e_cap=e_cap)
+    bundle = build_bundle(dataclasses.replace(spec, shapes={"lvl": cell}),
+                          "lvl", device)
+    batch = {"src": g.src, "dst": g.dst, "w": g.weight, "via": g.via,
+             "active": torch.ones(n, dtype=torch.bool, device=device)}
+    zero(tables)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = bundle.fn(batch, perm.to(device))
+    torch.cuda.synchronize()
+    rec["level_s"] = time.perf_counter() - t0
+    rec["peak_device_bytes"] = torch.cuda.max_memory_allocated() - base
+    check_launches("islabel_build_16m", launches_of(tables), set())
+    o_src, o_dst, o_w, o_via, in_is = out
+    valid = batch["src"] < n
+    both = in_is[batch["src"].long().clamp(max=n - 1)] & \
+        in_is[batch["dst"].long().clamp(max=n - 1)] & valid
+    # the level's output edges join vertices outside the set only
+    kept = o_src < n
+    touch = (in_is[o_src.long().clamp(max=n - 1)] |
+             in_is[o_dst.long().clamp(max=n - 1)]) & kept
+    n_is, n_bad, n_out, n_touch = (int(x) for x in host_read(
+        (in_is.sum(), both.sum(), kept.sum(), touch.sum())))
+    if n_bad or not 0 < n_is < n:
+        fail(f"islabel_build_16m: |IS| {n_is}, {n_bad} edges inside it")
+    if n_touch:
+        fail(f"islabel_build_16m: {n_touch} output edges touch the set")
+    rec.update(is_size=n_is, edges_in=len(src), edges_out=n_out,
+               out_edges_touching_is=n_touch)
+    o_src, o_dst, o_w, o_via, in_is = host_read((o_src, o_dst, o_w, o_via,
+                                                 in_is))
+    del batch, g, out, valid, both, kept, touch
+    torch.cuda.empty_cache()
+    cfg = IndexConfig(k_force=2, d_cap=shp.d_cap)
+    if cfg.e_cap(len(src)) != e_cap or cfg.aug_cap(len(src)) != e_cap // 2:
+        fail("islabel_build_16m: the builder's capacities differ")
+    t0 = time.perf_counter()
+    hier = build_hierarchy_device(n, src, dst, w, cfg, device,
+                                  perms=iter([perm]))
+    rec["builder_s"] = time.perf_counter() - t0
+    lvl_is = hier.level == 1
+    keep = o_src < n
+    mine = np.lexsort((o_dst[keep], o_src[keep]))
+    theirs = np.lexsort((hier.core_dst, hier.core_src))
+    same = (np.array_equal(in_is, lvl_is) and hier.level_sizes[:1] == [n_is]
+            and all(np.array_equal(a[keep][mine], b[theirs]) for a, b in (
+                (o_src, hier.core_src), (o_dst, hier.core_dst),
+                (o_w, hier.core_w), (o_via, hier.core_via))))
+    if not same:
+        fail("islabel_build_16m: the level differs from the builder's")
+    rec["equal_to_builder_level"] = True
+    rec["launches"] = launches_of(tables)
+    return rec
+
+
+def prefetch_stream_profile(fn) -> dict:
+    """``fn()`` under ``torch.profiler``: the CUDA streams of the trace's
+    host-to-device copies and of its kernels (chrome-trace ``tid``s)."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text()).get("traceEvents", [])
+    h2d, kern = {}, {}
+    for e in events:
+        cat, name = e.get("cat", ""), e.get("name", "")
+        if cat == "gpu_memcpy" and "HtoD" in name:
+            h2d[e.get("tid")] = h2d.get(e.get("tid"), 0) + 1
+        elif cat == "kernel":
+            kern[e.get("tid")] = kern.get(e.get("tid"), 0) + 1
+    return {"h2d_copies_by_stream": {str(k): v for k, v in h2d.items()},
+            "kernels_by_stream": {str(k): v for k, v in kern.items()}}
+
+
+def phase_prefetch(tables, device="cuda") -> dict:
+    """granite-8b's train cell (4 layers, 8 x 4,096 tokens, ``grad_accum``
+    4) fed through ``PrefetchPipeline(depth=2)`` from pinned host
+    batches for ``PREFETCH_STEPS`` steps: the losses bitwise equal to
+    the same steps fed directly (uploaded by ``make_batch_fn``) from the
+    same state, a ``reset`` seek returning the same batch, and a profile
+    of two prefetched steps whose host-to-device copies run on a stream
+    the step's kernels do not use; step ms of both runs."""
+    import numpy as np
+    import torch
+    from repro_torch.core.sync import host_read
+    from repro_torch.data import PrefetchPipeline, synthetic
+    from repro_torch.launch.train import init_state, make_batch_fn
+    from repro_torch.train.steps import build_bundle
+    spec = lm_train_spec("granite-8b", 4, 8)
+    shp = spec.shape("train_4k")
+    torch.cuda.empty_cache()
+    bundle = build_bundle(spec, "train_4k", device, {"grad_accum": 4})
+    state0 = init_state(spec, bundle)
+    direct = make_batch_fn(spec, "train_4k", device=device)
+
+    def host_batch(step):
+        return synthetic.lm_batch(0, step, shp.global_batch, shp.seq_len,
+                                  spec.model_cfg.vocab)
+
+    def run(get):
+        state, losses, ms = state0, [], []
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        for i in range(PREFETCH_STEPS):
+            ev[0].record()
+            state, m = bundle.fn(state, get(i))
+            ev[1].record()
+            losses.append(m["loss"])
+            torch.cuda.synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+        return [float(x) for x in host_read(tuple(losses))], ms, state
+
+    zero(tables)
+    want, ms_direct, _ = run(direct)
+    pipe = PrefetchPipeline(host_batch, depth=2, device=device)
+    got, ms_pipe, state = run(pipe)
+    if got != want or not all(np.isfinite(got)):
+        fail(f"prefetch: losses {got} != direct {want}")
+    seek = pipe(3)
+    again = pipe(3)
+    b3 = direct(3)
+    same = all(torch.equal(seek[k], b3[k]) and torch.equal(again[k], b3[k])
+               for k in b3)
+    if not same:
+        fail("prefetch: a reset seek returned another batch")
+
+    def two():
+        nonlocal state
+        pipe.reset(PREFETCH_STEPS)
+        for i in range(2):
+            state, m = bundle.fn(state, pipe(PREFETCH_STEPS + i))
+        host_read(m["loss"])
+    streams = prefetch_stream_profile(two)
+    pipe.stop()
+    kern = set(streams["kernels_by_stream"])
+    if not streams["h2d_copies_by_stream"] or \
+            set(streams["h2d_copies_by_stream"]) & kern:
+        fail(f"prefetch: copies not on a side stream {streams}")
+    check_launches("prefetch", launches_of(tables), set())
+    del state, state0
+    torch.cuda.empty_cache()
+    return {"steps": PREFETCH_STEPS, "losses": got,
+            "equal_to_direct": True, "seek_equal": True,
+            "step_ms_direct": ms_direct, "step_ms_prefetch": ms_pipe,
+            "step_ms_median_direct": statistics.median(ms_direct[1:]),
+            "step_ms_median_prefetch": statistics.median(ms_pipe[1:]),
+            **streams}
+
+
+def dist_main() -> int:
+    """``chip_smoke.py --distributed`` under ``torchrun`` (one process a
+    card, NCCL, deterministic algorithms): granite-8b's smoke train step
+    over ``make_host_mesh`` against the unsharded step from the same
+    state (bitwise at one rank, rtol 1e-5 above), ``compressed_psum_pod`` over a ``pod`` mesh
+    of every rank against its one-device form, and
+    ``lookup_mod_sharded`` against the same arithmetic on the whole
+    table. Rank 0 prints one line."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Shard, distribute_tensor
+    from repro_torch.checkpoint.checkpoint import snapshot
+    from repro_torch.configs import registry
+    from repro_torch.distributed.compression import (compressed_psum_pod,
+                                                     dequantize_int8,
+                                                     quantize_int8)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import init_state, make_batch_fn, smoke_spec
+    from repro_torch.models.embedding import lookup, lookup_mod_sharded
+    from repro_torch.train.steps import build_bundle
+    from repro_torch.tree import flatten_with_paths
+    t0 = time.perf_counter()
+    # bitwise at one rank: the embedding's backward sums in atomics'
+    # order unless the algorithms are deterministic
+    torch.use_deterministic_algorithms(True)
+    mesh = make_host_mesh(1, "cuda")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    spec = smoke_spec(registry.get_spec("granite-8b"))
+    spec = dataclasses.replace(spec, model_cfg=dataclasses.replace(
+        spec.model_cfg, dtype="float32"))
+    plain = build_bundle(spec, "train_4k", dev, {"warmup": 1})
+    sharded = build_bundle(spec, "train_4k", dev, {"warmup": 1}, mesh)
+    state = init_state(spec, plain)
+    mb = make_batch_fn(spec, "train_4k", device=dev)
+    a, b = state, sharded.place_state(state)
+    la, lb = [], []
+    for i in range(3):
+        a, ma = plain.fn(a, mb(i))
+        b, mbm = sharded.fn(b, sharded.place_batch(mb(i)))
+        la.append(float(ma["loss"]))
+        lb.append(float(mbm["loss"]))
+    sa, sb = dict(flatten_with_paths(snapshot(a))), dict(
+        flatten_with_paths(snapshot(b)))
+    if world == 1:
+        step_ok = la == lb and all(np.array_equal(sa[k], sb[k]) for k in sa)
+    else:
+        step_ok = np.allclose(la, lb, rtol=1e-5) and all(
+            np.allclose(sa[k], sb[k], rtol=1e-5, atol=1e-5) for k in sa)
+    # int8 across a pod axis of every rank, against its one-device form
+    pm = init_device_mesh("cuda", (world,), mesh_dim_names=("pod",))
+    r = np.random.default_rng(5)
+    g_all = torch.from_numpy((r.standard_normal((world, 4099)) * 2).astype(
+        np.float32)).to(dev)
+    e_all = torch.from_numpy((r.standard_normal((world, 4099)) * .01).astype(
+        np.float32)).to(dev)
+    mean, err = compressed_psum_pod({"a": g_all[rank]}, {"a": e_all[rank]},
+                                    pm)
+    gf = g_all + e_all
+    scale = gf.abs().max() / 127.0 + 1e-12
+    q = quantize_int8(gf, scale)
+    comp_ok = torch.equal(mean["a"], dequantize_int8(q, scale).mean(0)) and \
+        torch.equal(err["a"], (gf - dequantize_int8(q, scale))[rank])
+    # the mod-sharded lookup over a "model" axis of every rank
+    mm = init_device_mesh("cuda", (world,), mesh_dim_names=("model",))
+    n = 64 * world
+    table = torch.arange(n * 8, dtype=torch.float32, device=dev).view(n, 8)
+    ids = torch.tensor([0, 1, 5, n - 1, n, n + 3, -1, -2, -n, -n - 1],
+                       device=dev)
+    got = lookup_mod_sharded(distribute_tensor(table, mm, [Shard(0)],
+                                               src_data_rank=None), ids, mm)
+    k = n // world
+    local = torch.div(ids, world, rounding_mode="floor")
+    want = lookup(table, torch.remainder(ids, world) * k
+                  + torch.remainder(local, k))
+    want = torch.where(((local >= -k) & (local < k))[:, None], want,
+                       float("nan"))
+    look_ok = torch.equal(torch.nan_to_num(got, nan=-1.0),
+                          torch.nan_to_num(want, nan=-1.0))
+    flags = torch.tensor([int(step_ok), int(comp_ok), int(look_ok)],
+                         device=dev)
+    dist.all_reduce(flags, dist.ReduceOp.MIN)
+    if rank == 0:
+        emit({"world": world, "backend": dist.get_backend(),
+              "mesh": list(mesh.shape), "losses_plain": la,
+              "losses_mesh": lb, "step_equal": bool(flags[0]),
+              "compressed_equal": bool(flags[1]),
+              "mod_lookup_equal": bool(flags[2]),
+              "seconds": time.perf_counter() - t0})
+    dist.destroy_process_group()
+    return 0 if bool(flags.all()) else 1
+
+
+def phase_distributed() -> dict:
+    """``dist_main`` under ``torchrun --nproc-per-node=<cards>``, then
+    ``torchrun ... -m repro_torch.launch.train --arch granite-8b --smoke
+    --steps 20``; both must exit 0."""
+    import os
+    import tempfile
+
+    import torch
+    torch.cuda.empty_cache()          # the ranks' NCCL setup needs room
+    count = torch.cuda.device_count()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    run = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={count}"]
+    t0 = time.perf_counter()
+    checks = subprocess.run(run + [str(Path(__file__).resolve()),
+                                   "--distributed"], cwd=ROOT, env=env,
+                            capture_output=True, text=True, timeout=600)
+    checks_s = time.perf_counter() - t0
+    lines = [ln for ln in checks.stdout.splitlines() if ln.startswith("{")]
+    if checks.returncode or not lines:
+        err = checks.stderr
+        first = err.find("Traceback")
+        fail(f"distributed checks exited {checks.returncode}: "
+             f"{checks.stdout[-1500:]} {err[first:first + 3000]}")
+    rec = json.loads(lines[-1])
+    with tempfile.TemporaryDirectory() as ckpt:
+        t0 = time.perf_counter()
+        launch = subprocess.run(run + DIST_LAUNCHER + ["--ckpt-dir", ckpt],
+                                cwd=ROOT, env=env, capture_output=True,
+                                text=True, timeout=600)
+    if launch.returncode:
+        fail(f"torchrun launcher exited {launch.returncode}: "
+             f"{launch.stderr[-3000:]}")
+    return {"cards": count, "checks": rec, "checks_s": checks_s,
+            "launcher_s": time.perf_counter() - t0,
+            "launcher_tail": launch.stdout.strip().splitlines()[-4:]}
+
+
+def start_dryrun() -> list:
+    """The dry run's processes, started together (CPU only, on the fake
+    process group, after the timed phases): ``--all --include-islabel --multipod
+    single`` with ``DRYRUN_JOBS`` workers, ``--multipod multi`` on each
+    ``DRYRUN_MULTI`` cell (records under ``DRYRUN_OUT / "dryrun"``), and
+    ``launch.perf --cell islabel:serve_128m`` (``DRYRUN_OUT / "perf"``)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    import shutil
+    out = DRYRUN_OUT / "dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.rmtree(DRYRUN_OUT / "perf", ignore_errors=True)
+    base = [sys.executable, "-m", "repro_torch.launch.dryrun", "--out",
+            str(out)]
+    cmds = [base + ["--all", "--include-islabel", "--multipod", "single",
+                    "--jobs", str(DRYRUN_JOBS)]]
+    for cell in DRYRUN_MULTI:
+        arch, shape = cell.split(":")
+        cmds.append(base + ["--arch", arch, "--shape", shape, "--multipod",
+                            "multi"])
+    cmds.append([sys.executable, "-m", "repro_torch.launch.perf", "--cell",
+                 "islabel:serve_128m", "--out",
+                 str(DRYRUN_OUT / "perf")])
+    procs = [(c, time.perf_counter(), subprocess.Popen(
+        c, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.DEVNULL, text=True, start_new_session=True))
+        for c in cmds]
+    atexit.register(stop_groups, [p for _, _, p in procs])
+    return procs
+
+
+def stop_groups(procs) -> None:
+    """Kill each process's group (its pool workers too) if it still
+    runs: a failed phase exits without waiting for the dry run."""
+    import os
+    import signal
+    for p in procs:
+        if p.poll() is None:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+
+
+def phase_dryrun(procs) -> dict:
+    """Wait for ``start_dryrun``'s processes (each must exit 0, every
+    cell ``ok``); per cell FLOPs, bytes, collective bytes, argument and
+    peak bytes per device, whether that peak fits 80 GB, and the
+    dominant term; the perf variants' lines."""
+    cells, secs, outs = [], [], []
+    for cmd, t0, p in procs:
+        try:
+            out, _ = p.communicate(timeout=DRYRUN_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            fail(f"dryrun {cmd[5:]} ran past {DRYRUN_TIMEOUT} s")
+        secs.append(time.perf_counter() - t0)
+        outs.append(out)
+        if p.returncode:
+            fail(f"dryrun {cmd[3:]} exited {p.returncode}: {out[-2000:]}")
+    out_dir = DRYRUN_OUT / "dryrun"
+    for f in sorted(out_dir.glob("*.json")):
+        r = json.loads(f.read_text())
+        if not r.get("ok"):
+            fail(f"dryrun cell {f.name}: {r.get('error')}")
+        cells.append({k: r[k] for k in (
+            "arch", "shape", "mesh", "flops_per_device", "bytes_per_device",
+            "argument_bytes_per_device", "peak_bytes_per_device",
+            "fits_80gb", "dominant", "t_compute_s", "t_memory_s", "t_collective_s")}
+            | {"collective_bytes_per_device":
+               r["collective_bytes_per_device"]["total"]})
+    if len(cells) != 38 + len(DRYRUN_MULTI):
+        fail(f"dryrun: {len(cells)} cell records")
+    return {"cells": cells, "process_s": secs,
+            "perf": [ln for ln in outs[-1].splitlines()
+                     if ln.startswith("[")]}
+
+
 def sweep_main(src: Path) -> int:
     """``--label-sweep SRC``: build the four paths' indexes with the port
     found under ``SRC`` (this tree's ``src`` or an unpacked older
@@ -4058,7 +4723,7 @@ def main_lm(tables) -> None:
 
 def main_lm_train(tables) -> None:
     """The LM training phases: ``train_lm_<arch>`` for ``LM_TRAIN``,
-    ``train_lm_checks`` and ``train_lm_smoke``. cuBLAS gets a fixed
+    ``train_lm_checks``, ``train_lm_smoke`` and ``prefetch``. cuBLAS gets a fixed
     workspace before its first product (deterministic algorithms need
     one: ``train_lm_smoke``)."""
     import os
@@ -4069,7 +4734,8 @@ def main_lm_train(tables) -> None:
         emit({"phase": f"train_lm_{arch}",
               "seconds": time.perf_counter() - t0, **rec})
     for name, fn in (("train_lm_checks", phase_lm_train_checks),
-                     ("train_lm_smoke", phase_lm_train_smoke)):
+                     ("train_lm_smoke", phase_lm_train_smoke),
+                     ("prefetch", phase_prefetch)):
         t0 = time.perf_counter()
         rec = fn(tables)
         emit({"phase": name, "seconds": time.perf_counter() - t0, **rec})
@@ -4117,9 +4783,10 @@ def main(argv) -> int:
     src = ROOT / "src"
     if argv[:1] == ["--label-sweep"] and len(argv) == 2:
         src = Path(argv[1]).resolve()
-    elif argv and not (len(argv) == 1 and argv[0] in CHILDREN):
-        print("usage: chip_smoke.py [--label-sweep SRC | --lm | --lm-train]",
-              file=sys.stderr)
+    elif argv and not (len(argv) == 1 and (argv[0] in CHILDREN
+                                           or argv[0] == "--distributed")):
+        print("usage: chip_smoke.py [--label-sweep SRC | --lm | --lm-train "
+              "| --distributed]", file=sys.stderr)
         return 2
     if not (src / "repro_torch").is_dir():
         print(f"chip_smoke: {src / 'repro_torch'} not found",
@@ -4135,6 +4802,8 @@ def main(argv) -> int:
     torch.set_float32_matmul_precision("highest")
     if argv and argv[0] in CHILDREN:
         return child_main(argv[0])
+    if argv == ["--distributed"]:
+        return dist_main()
     if argv:
         return sweep_main(src)
     from repro_torch.kernels.label_intersect import ops as li_ops
@@ -4157,7 +4826,7 @@ def main(argv) -> int:
 
     tables = (li_ops.LAUNCHES, sp_ops.LAUNCHES, mp_ops.LAUNCHES)
     counters = {k: 0 for tab in tables for k in tab}
-    indexes, graphs = {}, {}
+    indexes, graphs, rounds = {}, {}, {}
     for path, route, spec, gen_call, overrides, kernels in PATHS:
         zero(tables)              # each path starts from zero
         t0 = time.perf_counter()
@@ -4171,6 +4840,7 @@ def main(argv) -> int:
         for k, v in launches.items():
             counters[k] += v
         indexes[path] = (idx, s, t)
+        rounds[path] = int(rec["rounds"])
 
     # the path lane (§8.1) on each path's index, the serving engine,
     # then §8.3 mutation
@@ -4249,6 +4919,20 @@ def main(argv) -> int:
     emit({"phase": "train_launcher", "seconds": time.perf_counter() - t0,
           **rec})
 
+    # the islabel arch: the query step at serve_1m, a peel level at
+    # build_16m; then the mesh code over NCCL
+    t0 = time.perf_counter()
+    rec = phase_islabel_serve(tables, indexes["fused"], rounds["fused"])
+    emit({"phase": "islabel_serve_1m", "seconds": time.perf_counter() - t0,
+          **rec})
+    t0 = time.perf_counter()
+    rec = phase_islabel_build(tables)
+    emit({"phase": "islabel_build_16m", "seconds": time.perf_counter() - t0,
+          **rec})
+    t0 = time.perf_counter()
+    rec = phase_distributed()
+    emit({"phase": "distributed", "seconds": time.perf_counter() - t0,
+          **rec})
     t0 = time.perf_counter()
     emit({"phase": "builders", **phase_builders(indexes["ell_loop"][0]),
           "seconds": time.perf_counter() - t0})
@@ -4259,6 +4943,12 @@ def main(argv) -> int:
         rec["launches"] = counters[rec["name"]]
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0,
           "uncovered_timings": UNCOVERED[0], "power_limit": dev["smi"]})
+
+    # the dry run (CPU only, fake process group) after every timed phase:
+    # its processes take the host's cores
+    t0 = time.perf_counter()
+    rec = phase_dryrun(start_dryrun())
+    emit({"phase": "dryrun", "seconds": time.perf_counter() - t0, **rec})
 
     emit({"kernels": kernels})
     emit({"phase": "total", "seconds": time.perf_counter() - t_all})

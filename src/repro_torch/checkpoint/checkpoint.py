@@ -19,9 +19,13 @@ into the other.
     where a tensor's numpy view shares its memory: without it, an
     in-place update after the call would change a checkpoint still
     being written.
-  * **Elastic**: arrays are stored whole on the host, so ``restore``
-    may place them on another device (``device=``), which stands in for
-    ``repro``'s re-shard onto new shardings.
+  * **Elastic**: arrays are stored whole on the host (a DTensor leaf is
+    gathered first: every rank takes part, rank 0 writes), so
+    ``restore`` may place them on another device (``device=``) or lay
+    them out on another mesh (``shardings=``, a tree of
+    ``distributed.sharding.NamedSharding``: ``repro``'s re-shard for
+    elastic restarts). A DTensor leaf of ``state_like`` without
+    ``shardings`` comes back in its own layout.
   * **Retention**: keep the last ``keep`` checkpoints, delete older.
 """
 from __future__ import annotations
@@ -41,11 +45,21 @@ from repro_torch.kernels.backend import resolve_device
 from repro_torch.tree import flatten_with_paths, tree_map, unflatten_paths
 
 
+def _writer() -> bool:
+    """Whether this process writes checkpoints: rank 0 of a world, or a
+    process outside any."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def snapshot(state):
     """``state`` as a tree of numpy arrays that share no memory with it:
-    every tensor leaf through one counted ``host_read`` (a copy), every
-    other leaf copied by ``np.array``."""
-    flat = flatten_with_paths(state)
+    every tensor leaf through one counted ``host_read`` (a copy; a
+    DTensor gathered whole first), every other leaf copied by
+    ``np.array``."""
+    from repro_torch.distributed.sharding import gather
+    flat = [(k, gather(v) if isinstance(v, torch.Tensor) else v)
+            for k, v in flatten_with_paths(state)]
     tensors = tuple(leaf for _, leaf in flat if isinstance(leaf, torch.Tensor))
     read = iter(host_read(tensors) if tensors else ())
     return unflatten_paths(
@@ -65,17 +79,22 @@ def state_from_tree(tree, device=None):
 
 
 def save_checkpoint(ckpt_dir, step: int, state, keep: int = 3) -> Path:
-    """Synchronous atomic save. Returns the final directory path."""
+    """Synchronous atomic save. Returns the final directory path. In a
+    world of several ranks every rank calls it (DTensor leaves are
+    gathered) and rank 0 writes."""
     ckpt_dir = Path(ckpt_dir)
+    final = ckpt_dir / f"step_{step:09d}"
+    host = snapshot(state)
+    if not _writer():
+        return final
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     tmp = ckpt_dir / f"step_{step:09d}.tmp"
-    final = ckpt_dir / f"step_{step:09d}"
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir()
     manifest = {"step": step, "arrays": {}}
     arrays = {}
-    for name, arr in flatten_with_paths(snapshot(state)):
+    for name, arr in flatten_with_paths(host):
         arrays[name] = arr
         manifest["arrays"][name] = {
             "shape": list(arr.shape),
@@ -125,12 +144,18 @@ def _verify(d: Path) -> bool:
 
 
 def restore_checkpoint(ckpt_dir, state_like, step: int | None = None,
-                       device=None):
+                       device=None, shardings=None):
     """Restore the newest valid checkpoint into the structure of
     ``state_like``. A leaf that is a tensor there comes back as a
-    tensor on ``device`` (by default that leaf's own device); any other
-    leaf as a numpy array. Returns (state, step), or (None, None) when
-    nothing valid exists."""
+    tensor on ``device`` (by default that leaf's own device), laid out
+    by its ``shardings`` leaf when given, else as a DTensor in the
+    ``state_like`` leaf's own layout when that is one; any other leaf as
+    a numpy array. Returns (state, step), or (None, None) when nothing
+    valid exists."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import sharding as SHD
+    shards = dict(flatten_with_paths(shardings)) if shardings else {}
     ckpt_dir = Path(ckpt_dir)
     candidates = sorted((p for p in ckpt_dir.glob("step_*") if p.is_dir()
                          and not p.name.endswith(".tmp")), reverse=True)
@@ -149,6 +174,11 @@ def restore_checkpoint(ckpt_dir, state_like, step: int | None = None,
             arr = z[name.replace("/", "__")]
             if isinstance(like, torch.Tensor):
                 arr = upload(arr, like.device if device is None else device)
+                if name in shards:
+                    arr = SHD.place(arr, shards[name])
+                elif isinstance(like, DTensor):
+                    arr = SHD.place(arr, SHD.NamedSharding(
+                        like.device_mesh, layout=like.placements))
             leaves.append((name, arr))
         return unflatten_paths(leaves), int(d.name.split("_")[1])
     return None, None
@@ -184,5 +214,8 @@ class CheckpointManager:
             self._thread = None
 
     def restore_latest(self, state_like):
+        import torch.distributed as dist
         self.wait()
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            dist.barrier()        # rank 0's last write is on disk
         return restore_checkpoint(self.dir, state_like)

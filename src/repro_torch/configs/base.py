@@ -3,8 +3,7 @@ specs — the port's copy of ``repro.configs.base``.
 
 ``input_specs`` returns ``TensorSpec(shape, dtype)`` pairs (torch
 dtypes) where ``repro`` returns ``jax.ShapeDtypeStruct``s, with the
-same ``r512`` padding. The LM, GNN and recsys families' specs are
-ported; the IS-LABEL specs come with their slice.
+same ``r512`` padding, for all four families.
 """
 from __future__ import annotations
 
@@ -40,6 +39,7 @@ class ArchSpec:
     optimizer: str = "adamw"          # adamw | adafactor
     smoke_cfg_fn: Callable | None = None
     notes: str = ""
+    fsdp_over_pod: bool = False       # 1T-class models: FSDP across pods
     param_dtype: str = "float32"
 
     def shape(self, name: str):
@@ -53,8 +53,9 @@ class ArchSpec:
             return gnn_input_specs(self.model_cfg, shp)
         if self.family == "recsys":
             return recsys_input_specs(self.model_cfg, shp)
-        raise KeyError(f"input specs of the {self.family!r} family are not "
-                       "ported yet")
+        if self.family == "graph_index":
+            return islabel_input_specs(self.model_cfg, shp)
+        raise KeyError(self.family)
 
     def runnable_cells(self):
         """Shape names that apply to this arch (assignment skip rules)."""
@@ -140,3 +141,24 @@ def recsys_input_specs(cfg, shp: SH.RecShape) -> dict:
         # sharding"; r512 gives 1,000,448)
         d["cand_items"] = sds((r512(shp.n_candidates),), torch.int32)
     return d
+
+
+# ----------------------------------------------------- IS-LABEL (the paper)
+def islabel_input_specs(cfg, shp: SH.IndexShape) -> dict:
+    if shp.kind == "query":
+        nrows = r512(shp.n_vertices + 1)
+        return {"lbl_ids": sds((nrows, shp.l_cap), torch.int32),
+                "lbl_d": sds((nrows, shp.l_cap), torch.float32),
+                "core_pos": sds((nrows,), torch.int32),
+                "ce_src": sds((shp.core_edges,), torch.int32),
+                "ce_dst": sds((shp.core_edges,), torch.int32),
+                "ce_w": sds((shp.core_edges,), torch.float32),
+                "s": sds((shp.q_batch,), torch.int32),
+                "t": sds((shp.q_batch,), torch.int32)}
+    if shp.kind == "build_level":
+        return {"src": sds((shp.e_cap,), torch.int32),
+                "dst": sds((shp.e_cap,), torch.int32),
+                "w": sds((shp.e_cap,), torch.float32),
+                "via": sds((shp.e_cap,), torch.int32),
+                "active": sds((shp.n_vertices,), torch.bool)}
+    raise KeyError(shp.kind)

@@ -19,5 +19,5 @@ def get_spec() -> ArchSpec:
     return ArchSpec(arch_id="kimi-k2-1t-a32b", family="lm", model_cfg=CONFIG,
                     shapes=dict(LM_SHAPES), optimizer="adafactor",
                     smoke_cfg_fn=lambda: tiny_like(CONFIG),
-                    param_dtype="bfloat16",
+                    fsdp_over_pod=True, param_dtype="bfloat16",
                     notes='Kimi K2 trillion-param MoE [arXiv:2501.kimi2; unverified]; assignment specifies GQA kv=8 (not MLA)')

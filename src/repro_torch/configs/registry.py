@@ -1,7 +1,5 @@
-"""Architecture registry: ``--arch <id>`` resolution for the launchers —
-the port's copy of ``repro.configs.registry``, holding the architectures
-ported so far. Any other of ``repro``'s ids raises a ``KeyError`` that
-names the slice of the port that brings it."""
+"""Architecture registry: ``--arch <id>`` resolution for every launcher —
+the port's copy of ``repro.configs.registry``."""
 from __future__ import annotations
 
 import importlib
@@ -20,19 +18,24 @@ _MODULES = {
     "egnn": "repro_torch.configs.egnn",
     # recsys
     "dien": "repro_torch.configs.dien",
+    # the paper's own workload
+    "islabel": "repro_torch.configs.islabel",
 }
 
-_LATER = {
-    "islabel": "the data, distributed and launcher slice",
-}
-
-PORTED = list(_MODULES)
+ASSIGNED = [a for a in _MODULES if a != "islabel"]
 
 
 def get_spec(arch_id: str):
-    if arch_id in _LATER:
-        raise KeyError(f"arch {arch_id!r} is not ported yet: it comes with "
-                       f"{_LATER[arch_id]}; ported: {sorted(_MODULES)}")
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULES)}")
     return importlib.import_module(_MODULES[arch_id]).get_spec()
+
+
+def all_cells(include_islabel: bool = False):
+    """Every runnable (arch, shape) pair — the dry-run/roofline table."""
+    out = []
+    for arch in (list(_MODULES) if include_islabel else ASSIGNED):
+        spec = get_spec(arch)
+        for shape in spec.runnable_cells():
+            out.append((arch, shape))
+    return out

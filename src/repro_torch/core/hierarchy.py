@@ -101,6 +101,9 @@ def peel_level(src, dst, w, via, in_is, n: int, d_cap: int, aug_cap: int):
     all_dst = torch.cat([torch.where(keep, dst, n), pair_dst.reshape(-1)])
     all_w = torch.cat([torch.where(keep, w, INF), pair_w.reshape(-1)])
     all_via = torch.cat([torch.where(keep, via, -1), pair_via.reshape(-1)])
+    # the [aug_cap, d_cap] pair planes are in all_*: free them before the
+    # dedup sort (at e_cap 2^26, d_cap 16, 13 GB of the level's peak)
+    del p_ids, p_w, pair_ok, pair_src, pair_dst, pair_w, pair_via
 
     o_src, o_dst, o_w, o_via, n_unique = gcsr.dedup_min_edges(
         all_src, all_dst, all_w, all_via, n, e_cap)

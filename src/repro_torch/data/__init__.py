@@ -1,3 +1,5 @@
-# repro_torch.data — the port's copy of repro.data.synthetic (numpy
-# only). The prefetch pipeline and the SNAP loaders of
-# repro.data.pipeline come with a later slice.
+# repro_torch.data — the port of repro.data: the synthetic batches
+# (synthetic.py, numpy only) and the prefetch pipeline and graph sources
+# (pipeline.py).
+from repro_torch.data.pipeline import PrefetchPipeline
+from repro_torch.data import synthetic

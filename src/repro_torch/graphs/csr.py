@@ -125,7 +125,9 @@ def dedup_min_edges(src, dst, weight, via, n_nodes: int, out_cap: int):
     t = src.shape[0]
     key = src.long() * (n_nodes + 1) + dst.long()
     order = torch.sort(key, stable=True).indices
+    del key
     s, d, w, v = src[order], dst[order], weight[order], via[order]
+    del order
     is_first = torch.ones(t, dtype=torch.bool, device=src.device)
     is_first[1:] = (s[1:] != s[:-1]) | (d[1:] != d[:-1])
     gid = torch.cumsum(is_first, 0, dtype=torch.int32) - 1    # group index

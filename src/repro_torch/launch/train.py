@@ -17,6 +17,18 @@ Adafactor and bf16 parameters, ``yi-34b``, ``qwen2-72b``; the
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b \\
       --smoke --steps 20
+
+Under ``torchrun`` (one process a card) the step runs over a
+``(world // N, N)`` ``("data", "model")`` mesh (``--model-parallel N``,
+``launch/mesh.make_host_mesh``): the state laid out by the sharding
+rules, the batch over ``data``, checkpoints gathered and written by
+rank 0 (``train/steps.py``'s mesh path):
+
+  PYTHONPATH=src torchrun --nproc-per-node=4 -m repro_torch.launch.train \\
+      --arch granite-8b --smoke --steps 20 --model-parallel 2
+
+``--model-parallel`` above 1 without ``torchrun`` starts a world of one
+rank, which only ``--model-parallel 1`` divides.
 """
 from __future__ import annotations
 
@@ -28,6 +40,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import registry
 from repro_torch.configs.base import ArchSpec
@@ -35,6 +48,7 @@ from repro_torch.core.sync import host_read, upload
 from repro_torch.data import synthetic
 from repro_torch.fault import FaultTolerantRunner, RunnerConfig
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.dien import init_dien
 from repro_torch.models.dimenet import build_triplets
 from repro_torch.models.transformer import init_lm
@@ -82,6 +96,10 @@ def init_state(spec: ArchSpec, bundle: StepBundle):
         params = _gnn_init(cfg, torch.Generator().manual_seed(0))
     state = {"params": params, "opt": bundle.optimizer.init(params),
              "step": torch.zeros((), dtype=torch.int32)}
+    if bundle.static_meta.get("compress"):
+        from repro_torch.distributed.compression import init_error_feedback
+        state["err"] = init_error_feedback(params,
+                                           bundle.static_meta["n_pods"])
     return tree_map(lambda x: upload(x, bundle.device), state)
 
 
@@ -148,24 +166,33 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs on the CPU)")
     args = ap.parse_args(argv)
-    if args.model_parallel != 1:
-        raise SystemExit("--model-parallel > 1 needs the multi-card slice")
     device = resolve_device(args.device)
+    mesh = None
+    if args.model_parallel > 1 or "WORLD_SIZE" in os.environ:
+        mesh = make_host_mesh(args.model_parallel, device)
+        device = torch.device(mesh.device_type,
+                              int(os.environ.get("LOCAL_RANK", "0"))) \
+            if mesh.device_type == "cuda" else device
+    lead = mesh is None or dist.get_rank() == 0
 
     spec = registry.get_spec(args.arch)
     if args.smoke:
         spec = smoke_spec(spec)
     shape_name = args.shape or next(iter(spec.shapes))
-    bundle = build_bundle(spec, shape_name, device)
-    state = init_state(spec, bundle)
-    make_batch = make_batch_fn(spec, shape_name, device=device)
+    bundle = build_bundle(spec, shape_name, device, mesh=mesh)
+    state = bundle.place_state(init_state(spec, bundle))
+    whole_batch = make_batch_fn(spec, shape_name, device=device)
+
+    def make_batch(step):
+        return bundle.place_batch(whole_batch(step))
 
     runner = FaultTolerantRunner(
         bundle.fn, state, make_batch,
         RunnerConfig(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every))
     if args.resume:
         start = runner.restore()
-        print(f"resumed at step {start}")
+        if lead:
+            print(f"resumed at step {start}")
 
     t0 = time.time()
     steps, losses = [], []
@@ -174,8 +201,14 @@ def main(argv=None):
     dt = time.time() - t0
     # the runner read each loss already; the list is read back once
     losses = [float(x) for x in host_read(tuple(losses))] if losses else []
+    if mesh is not None:
+        dist.destroy_process_group()
+    if not lead:
+        return
+    where = (f"mesh {tuple(mesh.shape)} {mesh.mesh_dim_names}"
+             if mesh is not None else str(device))
     print(f"[{spec.arch_id}/{shape_name}] {args.steps} steps in {dt:.1f}s "
-          f"({dt / max(args.steps, 1):.3f}s/step) on {device}")
+          f"({dt / max(args.steps, 1):.3f}s/step) on {where}")
     shown = list(zip(steps, losses))
     for s, l in shown[:3] + shown[-3:]:
         print(f"  step {s}: loss {l:.4f}")

@@ -58,6 +58,15 @@ class Attention(nn.Module):
             self.bv = L._fill((*lead, kv * dh), 0.0, generator, dtype)
 
 
+def attention_axes(cfg: AttnConfig) -> dict:
+    """``repro``'s ``init_attention`` axes."""
+    a = {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+         "wv": ("embed", "kv_heads"), "wo": ("heads", "embed")}
+    if cfg.qkv_bias:
+        a.update(bq=("heads",), bk=("kv_heads",), bv=("kv_heads",))
+    return a
+
+
 def _project_qkv(p, cfg: AttnConfig, x, positions, dtype):
     b, s, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim

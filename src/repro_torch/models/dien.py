@@ -25,7 +25,7 @@ from torch.func import functional_call
 from torch.nn import functional as F
 
 from repro_torch.models import layers as L
-from repro_torch.models.embedding import Table, lookup
+from repro_torch.models.embedding import Table, lookup, table_axes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +43,20 @@ class DIENConfig:
     @property
     def d_behavior(self) -> int:      # item + category embedding concat
         return 2 * self.embed_dim
+
+
+def gru_axes(prefix: str = "gru") -> dict:
+    a = {w: (f"{prefix}_in", f"{prefix}_h") for w in ("wz", "wr", "wh")}
+    a.update({b: (f"{prefix}_h",) for b in ("bz", "br", "bh")})
+    return a
+
+
+def dien_axes(cfg: DIENConfig) -> dict:
+    """``repro``'s ``init_dien`` axes: the tables' rows on their own
+    axis (``table_rows``), the towers replicated."""
+    return {"item": table_axes(), "cat": table_axes(), "user": table_axes(),
+            "gru1": gru_axes(), "augru": gru_axes(), "att": L.mlp_axes(2),
+            "head": L.mlp_axes(3)}
 
 
 class GRU(nn.Module):

@@ -91,6 +91,23 @@ def bilinear_interaction(sb, bilinear, m_kj):
     return torch.bmm(sb[:, None, :], y.view(t, b, g))[:, 0]
 
 
+def dimenet_axes(cfg: DimeNetConfig) -> dict:
+    """``repro``'s ``init_dimenet`` axes."""
+    a = {"emb_atom": ("gnn_in", "gnn_hidden"), "emb_rbf": L.linear_axes(),
+         "emb_msg": L.mlp_axes(1)}
+    for i in range(cfg.n_blocks):
+        a[f"blk{i}"] = {
+            "w_rbf": {"w": ("rbf", "gnn_hidden")},
+            "w_sbf": {"w": ("sbf", "bilinear")},
+            "w_kj": {"w": ("gnn_hidden", "gnn_hidden")},
+            "w_ji": {"w": ("gnn_hidden", "gnn_hidden")},
+            "bilinear": ("bilinear", "gnn_hidden", "gnn_hidden"),
+            "mlp": L.mlp_axes(2),
+        }
+        a[f"out{i}"] = L.mlp_axes(2)
+    return a
+
+
 class _Block(nn.Module):
     def __init__(self, cfg: DimeNetConfig, generator=None):
         super().__init__()

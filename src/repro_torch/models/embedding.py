@@ -6,8 +6,18 @@ on one card.
 of NaN (its gradient is dropped). The ids are mapped into [0, n) before
 ``index_select`` (which raises on ids past the table, and whose backward
 is an ``index_add_``), and the rows of out-of-range ids are filled
-afterwards. ``repro``'s ``lookup_mod_sharded`` (``shard_map`` over a
-mesh) comes with the multi-card slice.
+afterwards.
+
+``lookup_mod_sharded`` is ``repro``'s explicit mod-sharded lookup over a
+mesh axis: row r lives on shard r % S at local index r // S; each shard
+looks up the rows it owns (``lookup``'s rule on its local block), zeroes
+the rest, and one ``all_reduce(SUM)`` over the axis's group combines
+them. It keeps what ``repro``'s form returns (read in ``repro`` on 2
+host devices): the table's rows are sharded in contiguous blocks, so on
+a table in natural order id r reads row (r % S) · n/S + r // S; ``%``
+and ``//`` floor, so a negative id reads the local row that wraps from
+the end of its owner's block; an id whose local index falls outside
+[-n/S, n/S) reads NaN.
 """
 from __future__ import annotations
 
@@ -23,6 +33,10 @@ def init_table(generator: torch.Generator, n_rows: int, dim: int,
     generator's device (a 2^26-row table is drawn on the card)."""
     return {"table": torch.randn((n_rows, dim), generator=generator,
                                  device=generator.device) * scale}
+
+
+def table_axes() -> dict:
+    return {"table": ("table_rows", "table_dim")}
 
 
 class Table(nn.Module):
@@ -47,6 +61,30 @@ def lookup(table, ids):
     vals = table.index_select(0, rows)
     vals = torch.where(ok[:, None], vals, float("nan"))
     return vals.reshape(tuple(ids.shape) + (table.shape[1],))
+
+
+def lookup_mod_sharded(table, ids, mesh, axis: str = "model"):
+    """Mod-sharded lookup (the module docstring). ``table``: a DTensor
+    sharded on rows over ``axis`` (``Shard(0)``, rows divisible by the
+    axis size, as ``repro``'s ``shard_map`` requires), or this rank's block; ``ids``: the same
+    [..] ids on every rank. Returns the [.., D] rows on every rank."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    group = mesh.get_group(axis)
+    n_shards = dist.get_world_size(group)
+    shard = dist.get_rank(group)
+    local = table
+    if isinstance(table, DTensor):
+        if table.shape[0] % n_shards:
+            raise ValueError(f"{table.shape[0]} rows do not divide "
+                             f"{n_shards} shards")
+        local = table.to_local()
+    ids = ids.long()
+    owner = torch.remainder(ids, n_shards)
+    vals = lookup(local, torch.div(ids, n_shards, rounding_mode="floor"))
+    vals = torch.where((owner == shard)[..., None], vals, 0.0)
+    dist.all_reduce(vals, group=group)
+    return vals
 
 
 def embedding_bag(table, ids, segment_ids, n_bags: int, mode: str = "sum"):

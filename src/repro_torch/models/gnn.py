@@ -39,6 +39,27 @@ class GCNConfig:
     norm: str = "sym"
 
 
+def gcn_axes(cfg) -> dict:
+    return {f"w{i}": ("gnn_in", "gnn_hidden") for i in range(cfg.n_layers)}
+
+
+def sage_axes(cfg) -> dict:
+    a = {}
+    for i in range(cfg.n_layers):
+        a[f"self{i}"] = ("gnn_in", "gnn_hidden")
+        a[f"nbr{i}"] = ("gnn_in", "gnn_hidden")
+    return a
+
+
+def egnn_axes(cfg) -> dict:
+    a = {"embed": ("gnn_in", "gnn_hidden")}
+    for i in range(cfg.n_layers):
+        for name in ("phi_e", "phi_x", "phi_h"):
+            a[f"{name}{i}"] = L.mlp_axes(2)
+    a["out"] = L.mlp_axes(2)
+    return a
+
+
 class GCN(nn.Module):
     def __init__(self, cfg: GCNConfig, generator=None):
         super().__init__()

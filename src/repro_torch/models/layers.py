@@ -5,7 +5,9 @@ A module's parameter names are the paths of ``repro``'s parameter tree
 joined by dots (``Linear``: ``w``, ``b``; ``MLP``: ``l0.w``, ``l0.b``,
 ...), so carrying weights between the packages is a rename of ``/`` to
 ``.`` (``params_tree``, ``dotted``), not a table. ``repro``'s logical
-sharding axes have no counterpart on one card.
+sharding axes (the second tree its ``init_*`` return) are the
+``*_axes`` functions: trees of axis-name tuples with the parameter
+tree's structure, which ``distributed/sharding.py`` maps onto a mesh.
 
 The LM layers (RMSNorm, LayerNorm, SwiGLU, RoPE) keep ``repro``'s casts:
 ``rmsnorm`` takes the mean square in fp32 and multiplies in ``x``'s
@@ -64,6 +66,34 @@ class Linear(nn.Module):
         if hasattr(self, "b"):
             y = y + self.b
         return y
+
+
+def linear_axes(axes=("embed", "mlp"), bias=False) -> dict:
+    a = {"w": tuple(axes)}
+    if bias:
+        a["b"] = (axes[1],)
+    return a
+
+
+def mlp_axes(n_layers: int, axes_prefix="mlp", bias=True,
+             final_bias=True) -> dict:
+    """``MLP``'s axes: ``l{i}`` with ``(<prefix>_in, <prefix>_out)``."""
+    return {f"l{i}": linear_axes(
+        (f"{axes_prefix}_in", f"{axes_prefix}_out"),
+        bias if i < n_layers - 1 else final_bias) for i in range(n_layers)}
+
+
+def rmsnorm_axes(axis="embed") -> dict:
+    return {"scale": (axis,)}
+
+
+def layernorm_axes(axis="embed") -> dict:
+    return {"scale": (axis,), "bias": (axis,)}
+
+
+def swiglu_axes() -> dict:
+    return {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+            "w_down": ("mlp", "embed")}
 
 
 class MLP(nn.Module):

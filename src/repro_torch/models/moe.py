@@ -14,9 +14,26 @@ Top-k keeps ``jax.lax.top_k``'s rule that the lower expert wins a tie
 (``torch.topk`` does not): the probabilities are sorted descending with
 a stable sort and the first k taken, the same on the CPU and the card.
 
-``dispatch_shard`` and ``set_dispatch_mesh`` are ``repro``'s sharding
-hints for expert parallelism over a mesh. One card has no mesh: the
-field is accepted and ignored, and ``set_dispatch_mesh`` does nothing.
+On a mesh (``dist``, ``distributed/sharding.ModelCall``: the step's
+batch split over ``dist.dp``) each rank routes its own shard of the
+batch as ``repro`` routes the whole batch: the capacity is that of the
+global token count, a token's rank in its expert is offset by the
+assignments of the shards before it (an all-gather of per-expert counts
+in the batch's shard order), and the load-balance loss takes its means
+over every token. The loss's gradient through this rank's router
+probabilities is scaled by the shard count, so that the mean over the
+ranks the step takes is the whole batch's gradient. Each rank then runs
+the expert products over the whole buffer (its own tokens' rows filled,
+the rest zero), which gives each token's row as the whole buffer would;
+the buffer is the global batch's on every rank (ROADMAP queue 1: no
+expert-parallel dispatch).
+
+``dispatch_shard`` and ``set_dispatch_mesh`` are ``repro``'s layout
+constraint on the dispatch buffer (experts over ``model``, capacity over
+the data axes). The port's mesh step runs the expert products on every
+rank of a ``model`` group, on gathered weights, so the buffer has no
+layout to constrain: the field is accepted and ``set_dispatch_mesh``
+does nothing.
 """
 from __future__ import annotations
 
@@ -39,7 +56,7 @@ class MoEConfig:
     d_shared_ff: int = 0          # 0 -> n_shared * d_expert_ff
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.001
-    dispatch_shard: bool = False  # a mesh hint in repro; ignored here
+    dispatch_shard: bool = False  # repro's layout hint; no effect here
     ep_pad: int = 0               # pad the expert count (60 -> 64); padded
                                   # experts get no routed tokens
     combine_impl: str = "gather"  # "scatter": segment-sum combine
@@ -50,8 +67,8 @@ class MoEConfig:
 
 
 def set_dispatch_mesh(mesh):
-    """``repro``'s dispatch-buffer sharding hint: nothing to do on one
-    card."""
+    """``repro``'s dispatch-buffer layout hint: nothing to constrain in
+    the port's mesh step (the module docstring)."""
     del mesh
 
 
@@ -77,6 +94,17 @@ class MoE(nn.Module):
             self.shared = L.SwiGLU(d_model, dsf, lead, generator, dtype)
 
 
+def moe_axes(cfg: MoEConfig) -> dict:
+    """``repro``'s ``init_moe`` axes: experts on their own axis."""
+    a = {"router": ("embed", "experts_router"),
+         "w_gate": ("experts", "embed", "expert_mlp"),
+         "w_up": ("experts", "embed", "expert_mlp"),
+         "w_down": ("experts", "expert_mlp", "embed")}
+    if cfg.n_shared:
+        a["shared"] = L.swiglu_axes()
+    return a
+
+
 class Routing(NamedTuple):
     probs: torch.Tensor       # f32 [T, n_experts]
     gate_v: torch.Tensor      # f32 [T, K], renormalised
@@ -87,8 +115,15 @@ class Routing(NamedTuple):
     cap: int
 
 
-def route(p, cfg: MoEConfig, xf, dtype=torch.bfloat16) -> Routing:
-    """Router softmax, top-k and the capacity dispatch of ``xf`` [T, E]."""
+def _shards(dist) -> tuple:
+    """(batch shard count, this rank's index): (1, 0) off a mesh."""
+    return (1, 0) if dist is None or not dist.dp else dist.shard_index()
+
+
+def route(p, cfg: MoEConfig, xf, dtype=torch.bfloat16,
+          dist=None) -> Routing:
+    """Router softmax, top-k and the capacity dispatch of ``xf`` [T, E]
+    (on a mesh, this rank's shard of the batch: the module docstring)."""
     t = xf.shape[0]
     logits = (xf @ p["router"].to(dtype)).to(torch.float32)       # [T, N]
     probs = torch.softmax(logits, dim=-1)
@@ -97,25 +132,31 @@ def route(p, cfg: MoEConfig, xf, dtype=torch.bfloat16) -> Routing:
     gate_v = gate_v / torch.clamp(gate_v.sum(-1, keepdim=True), min=1e-9)
 
     n, k = cfg.n_total, cfg.top_k
-    cap = int(cfg.capacity_factor * k * t / cfg.n_experts + 1)
+    shards, index = _shards(dist)
+    cap = int(cfg.capacity_factor * k * t * shards / cfg.n_experts + 1)
     flat_e = top_i.reshape(-1)                                     # [T*K]
     sorted_e, order = torch.sort(flat_e, stable=True)
     pos = torch.arange(t * k, device=xf.device)
     first = torch.full((n,), t * k, dtype=pos.dtype, device=xf.device)
     first = first.scatter_reduce(0, sorted_e, pos, "amin")        # segment min
     rank = pos - first[sorted_e]
+    if shards > 1:        # offset by the earlier shards' assignments
+        counts = torch.zeros(n, dtype=pos.dtype, device=xf.device)
+        counts.scatter_add_(0, flat_e, torch.ones_like(flat_e))
+        rank = rank + dist.all_shards(counts)[:index].sum(0)[sorted_e]
     keep = rank < cap
     slot = torch.where(keep, sorted_e * cap + rank,
                        torch.full_like(rank, n * cap))            # drop row
     return Routing(probs, gate_v, top_i, order, slot, keep, cap)
 
 
-def moe_ffn(p, cfg: MoEConfig, x, *, dtype=torch.bfloat16):
-    """x: [B, S, E] -> ([B, S, E], aux_loss)."""
+def moe_ffn(p, cfg: MoEConfig, x, *, dtype=torch.bfloat16, dist=None):
+    """x: [B, S, E] -> ([B, S, E], aux_loss); ``dist`` the mesh call
+    (the module docstring)."""
     b, s, e = x.shape
     t = b * s
     xf = x.reshape(t, e)
-    r = route(p, cfg, xf, dtype)
+    r = route(p, cfg, xf, dtype, dist)
     n, k, cap = cfg.n_total, cfg.top_k, r.cap
     token_of = r.order // k
 
@@ -152,9 +193,21 @@ def moe_ffn(p, cfg: MoEConfig, x, *, dtype=torch.bfloat16):
         y = y + L.swiglu(p["shared"], xf.to(dtype), dtype)
 
     # Switch-style load-balance auxiliary loss (over the real experts)
-    me = torch.mean(r.probs, dim=0)                                # [N]
-    ce = torch.mean(F.one_hot(r.top_i[:, 0], cfg.n_experts).to(torch.float32),
-                    dim=0)
-    aux = cfg.router_aux_weight * cfg.n_experts * torch.sum(me * ce)
+    hot = F.one_hot(r.top_i[:, 0], cfg.n_experts).to(torch.float32)
+    scale = cfg.router_aux_weight * cfg.n_experts
+    shards, _ = _shards(dist)
+    if shards == 1:
+        me = torch.mean(r.probs, dim=0)                            # [N]
+        ce = torch.mean(hot, dim=0)
+        aux = scale * torch.sum(me * ce)
+    else:
+        # means over every shard's tokens; the gradient through this
+        # shard's probabilities times the shard count (the module
+        # docstring), the value the whole batch's
+        t_all = t * shards
+        ce = dist.all_shards(hot.sum(0)).sum(0) / t_all
+        me = dist.all_shards(r.probs.sum(0)).sum(0) / t_all
+        own = shards * scale * torch.sum(r.probs.sum(0) / t_all * ce)
+        aux = scale * torch.sum(me * ce) + (own - own.detach())
     return y.reshape(b, s, e), aux
 

@@ -28,10 +28,27 @@ slot a layer and bumps ``cache["len"]`` on the device, then returns the
 same dict (``repro`` returns a new cache and its bundle donates the old
 one). A decode step reads nothing back to the host.
 
-``repro``'s ``lm_axes`` (logical sharding axes) and
-``set_act_shard_mesh`` (activation sharding constraints) have no
-counterpart on one card; ``abstract_params`` is the parameter tree on
-the ``meta`` device.
+``lm_axes`` is ``repro``'s logical sharding-axes tree
+(``distributed/sharding.py`` maps it onto a mesh); ``abstract_params``
+is the parameter tree on the ``meta`` device.
+
+On a mesh every entry point takes ``dist`` (``distributed/sharding.
+ModelCall``) and its parameters as DTensors laid out by the rules, and
+reads each parameter whole only where it is used (``dist.whole``: an
+all-gather): the embedding for the token rows, each layer's parameters
+at the start of that layer (inside its remat region, so the forward
+frees them after the layer and the recompute gathers them again), the
+final norm and unembedding at the end. So one layer's parameters are
+whole at a time, as FSDP gathers them; without remat autograd keeps
+every layer's for the backward.
+
+``act_shard`` (``repro``'s sharding constraint on the residual stream,
+``P(dp, None, "model")``) takes effect on a mesh: each layer's input is
+kept as this rank's ``model`` slice of the embed dim (a local chunk of
+a DTensor; every rank of a ``model`` group runs the same micro-batch)
+and gathered back inside the layer (an all-gather), so under remat the
+saved residuals take 1/|model| of the memory and the recompute gathers
+them again.
 """
 from __future__ import annotations
 
@@ -70,6 +87,7 @@ class LMConfig:
     remat_policy: str = "none"         # none=nothing_saveable | dots | off
     tie_embeddings: bool = False
     ce_impl: str = "gather"            # "iota": repro's vocab-sharding form
+    act_shard: bool = False            # residuals sharded over "model"
 
     @property
     def hd(self) -> int:
@@ -160,6 +178,22 @@ class LM(nn.Module):
 
 
 
+def lm_axes(cfg: LMConfig) -> dict:
+    """``repro``'s logical-axis tree of ``init_lm``: each stacked leaf
+    leads with ``layers``."""
+    from repro_torch.models.attention import attention_axes
+    from repro_torch.models.moe import moe_axes
+    layer = {"attn": attention_axes(cfg.attn_cfg()),
+             "ffn": moe_axes(cfg.moe) if cfg.moe else L.swiglu_axes(),
+             "ln1": L.rmsnorm_axes(), "ln2": L.rmsnorm_axes()}
+    a = {"embed": ("vocab", "embed"),
+         "blocks": tree_map(lambda ax: ("layers",) + ax, layer),
+         "ln_f": {"scale": ("embed",)}}
+    if not cfg.tie_embeddings:
+        a["unembed"] = ("embed", "vocab")
+    return a
+
+
 def init_lm(cfg: LMConfig, seed: int = 0, device=None,
             dtype: torch.dtype = torch.float32) -> dict:
     """The parameter tree drawn on ``device`` (the card unless the caller
@@ -208,40 +242,51 @@ def token_rows(tokens, vocab: int) -> torch.Tensor:
     return torch.where(t < 0, t + vocab, t)
 
 
-def _embed(params, cfg: LMConfig, tokens, dtype):
+def _whole(dist, tree):
+    """``tree``'s parameters whole (``dist.whole``); as they are off a
+    mesh."""
+    return tree if dist is None else tree_map(dist.whole, tree)
+
+
+def _embed(params, cfg: LMConfig, tokens, dtype, dist=None):
     """``params["embed"].astype(dtype)[tokens]``: the rows are gathered
     first, then cast (the same values, without a cast of the table)."""
     rows = token_rows(tokens, cfg.vocab)
-    return params["embed"].index_select(0, rows.reshape(-1)).to(dtype).view(
-        *tokens.shape, cfg.d_model)
+    return _whole(dist, params["embed"]).index_select(
+        0, rows.reshape(-1)).to(dtype).view(*tokens.shape, cfg.d_model)
 
 
-def _unembed(params, cfg: LMConfig, x, dtype):
-    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+def _unembed(params, cfg: LMConfig, x, dtype, dist=None):
+    x = L.rmsnorm(_whole(dist, params["ln_f"]), x)
+    w = _whole(dist, params["embed"]).T if cfg.tie_embeddings else \
+        _whole(dist, params["unembed"])
     return (x @ w.to(dtype)).to(torch.float32)
 
 
-def _layers(params, n_layers: int) -> list:
+def _layers(params, n_layers: int, dist=None) -> list:
     """Each layer's parameters: every stacked leaf read once with
-    ``unbind(0)``."""
-    cols = tree_map(lambda a: a.unbind(0), params["blocks"])
+    ``unbind(0)`` (on a mesh, each layer's DTensors: ``dist.unstack``)."""
+    unstack = (lambda a: a.unbind(0)) if dist is None else dist.unstack
+    cols = tree_map(unstack, params["blocks"])
     return [tree_map(lambda c: c[i], cols) for i in range(n_layers)]
 
 
-def _ffn(cfg: LMConfig, lp, x, dtype):
+def _ffn(cfg: LMConfig, lp, x, dtype, dist=None):
     h = L.rmsnorm(lp["ln2"], x)
     if cfg.moe:
-        return moe_ffn(lp["ffn"], cfg.moe, h, dtype=dtype)
+        return moe_ffn(lp["ffn"], cfg.moe, h, dtype=dtype, dist=dist)
     return L.swiglu(lp["ffn"], h, dtype), None
 
 
-def _block(cfg: LMConfig, dtype, lp, x):
-    """One layer: ``x`` [B, S, E] -> (x, aux loss or None)."""
+def _block(cfg: LMConfig, dtype, dist, lp, x):
+    """One layer: ``x`` [B, S, E] -> (x, aux loss or None); ``lp``
+    gathered whole first on a mesh."""
+    lp = _whole(dist, lp)
     h, _ = causal_attention(lp["attn"], cfg.attn_cfg(),
                             L.rmsnorm(lp["ln1"], x), q_chunk=cfg.q_chunk,
                             dtype=dtype)
     x = x + h
-    f, a = _ffn(cfg, lp, x, dtype)
+    f, a = _ffn(cfg, lp, x, dtype, dist)
     return x + f, a
 
 
@@ -266,22 +311,62 @@ def _remat(cfg: LMConfig, block):
                              preserve_rng_state=False, **kw)
 
 
-def forward(params, cfg: LMConfig, tokens):
-    """tokens int[B, S] -> (logits f32[B, S, V], aux loss f32[])."""
+def _act_layouts(mesh):
+    """(whole, sliced) placements of a [B, S, E] residual on this rank's
+    batch shard: replicated, or the embed dim over ``model``."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(mesh.mesh_dim_names)
+    whole = tuple(Replicate() for _ in names)
+    return whole, tuple(Shard(2) if a == "model" else Replicate()
+                        for a in names)
+
+
+def _sliced_block(block, mesh):
+    """``block`` taking its input as this rank's ``model`` slice of the
+    embed dim and returning its output sliced the same way."""
+    from torch.distributed.tensor import DTensor
+    whole, sliced = _act_layouts(mesh)
+
+    def run(lp, x_slice):
+        x = DTensor.from_local(x_slice, mesh, sliced, run_check=False) \
+            .redistribute(mesh, whole).to_local()           # all-gather
+        y, a = block(lp, x)
+        return _slice(y, mesh), a
+    return run
+
+
+def _slice(x, mesh):
+    from torch.distributed.tensor import DTensor
+    whole, sliced = _act_layouts(mesh)
+    return DTensor.from_local(x, mesh, whole, run_check=False) \
+        .redistribute(mesh, sliced).to_local()              # a local chunk
+
+
+def forward(params, cfg: LMConfig, tokens, dist=None):
+    """tokens int[B, S] -> (logits f32[B, S, V], aux loss f32[]);
+    ``dist``: the mesh call (the module docstring)."""
     dtype = compute_dtype(cfg)
-    x = _embed(params, cfg, tokens, dtype)
+    x = _embed(params, cfg, tokens, dtype, dist)
     aux = x.new_zeros((), dtype=torch.float32)
-    block = _remat(cfg, functools.partial(_block, cfg, dtype))
-    for lp in _layers(params, cfg.n_layers):
+    block = functools.partial(_block, cfg, dtype, dist)
+    mesh = dist.mesh if cfg.act_shard and dist is not None else None
+    if mesh is not None:
+        block, x = _sliced_block(block, mesh), _slice(x, mesh)
+    block = _remat(cfg, block)
+    for lp in _layers(params, cfg.n_layers, dist):
         x, a = block(lp, x)
         if a is not None:
             aux = aux + a
-    x = L.rmsnorm(params["ln_f"], x)
-    return _unembed(params, cfg, x, dtype), aux
+    if mesh is not None:
+        whole, sliced = _act_layouts(mesh)
+        from torch.distributed.tensor import DTensor
+        x = DTensor.from_local(x, mesh, sliced, run_check=False) \
+            .redistribute(mesh, whole).to_local()
+    return _unembed(params, cfg, x, dtype, dist), aux
 
 
-def lm_loss(params, cfg: LMConfig, tokens, targets, mask=None):
-    logits, aux = forward(params, cfg, tokens)
+def lm_loss(params, cfg: LMConfig, tokens, targets, mask=None, dist=None):
+    logits, aux = forward(params, cfg, tokens, dist)
     loss = L.softmax_cross_entropy(logits, targets, impl=cfg.ce_impl)
     if mask is not None:
         loss = torch.sum(loss * mask) / torch.clamp(torch.sum(mask), min=1.0)
@@ -302,7 +387,7 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int,
             "len": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def prefill(params, cfg: LMConfig, tokens, max_len: int):
+def prefill(params, cfg: LMConfig, tokens, max_len: int, dist=None):
     """Full-sequence forward that also fills the KV cache. tokens int[B,
     S], S <= max_len. Returns (logits f32[B, 1, V] at the last position,
     cache)."""
@@ -310,32 +395,32 @@ def prefill(params, cfg: LMConfig, tokens, max_len: int):
     b, s = tokens.shape
     if s > max_len:
         raise ValueError(f"prefill of {s} tokens into a cache of {max_len}")
-    x = _embed(params, cfg, tokens, dtype)
+    x = _embed(params, cfg, tokens, dtype, dist)
     cache = init_cache(cfg, b, max_len, dtype, tokens.device)
-    for i, lp in enumerate(_layers(params, cfg.n_layers)):
+    for i, lp in enumerate(_layers(params, cfg.n_layers, dist)):
+        lp = _whole(dist, lp)
         h, (k, v) = causal_attention(lp["attn"], cfg.attn_cfg(),
                                      L.rmsnorm(lp["ln1"], x),
                                      q_chunk=cfg.q_chunk, dtype=dtype)
         cache["k"][i, :, :s] = k
         cache["v"][i, :, :s] = v
         x = x + h
-        x = x + _ffn(cfg, lp, x, dtype)[0]
+        x = x + _ffn(cfg, lp, x, dtype, dist)[0]
     cache["len"].fill_(s)
-    x = L.rmsnorm(params["ln_f"], x[:, -1:])
-    return _unembed(params, cfg, x, dtype), cache
+    return _unembed(params, cfg, x[:, -1:], dtype, dist), cache
 
 
-def decode_step(params, cfg: LMConfig, cache, last_tokens):
+def decode_step(params, cfg: LMConfig, cache, last_tokens, dist=None):
     """One-token decode. last_tokens int[B, 1]. Writes the cache in place;
     returns (logits f32[B, 1, V], cache)."""
     dtype = compute_dtype(cfg)
-    x = _embed(params, cfg, last_tokens, dtype)
-    for i, lp in enumerate(_layers(params, cfg.n_layers)):
+    x = _embed(params, cfg, last_tokens, dtype, dist)
+    for i, lp in enumerate(_layers(params, cfg.n_layers, dist)):
+        lp = _whole(dist, lp)
         h, _, _ = decode_attention(lp["attn"], cfg.attn_cfg(),
                                    L.rmsnorm(lp["ln1"], x), cache["k"][i],
                                    cache["v"][i], cache["len"], dtype=dtype)
         x = x + h
-        x = x + _ffn(cfg, lp, x, dtype)[0]
+        x = x + _ffn(cfg, lp, x, dtype, dist)[0]
     cache["len"].add_(1)
-    x = L.rmsnorm(params["ln_f"], x)
-    return _unembed(params, cfg, x, dtype), cache
+    return _unembed(params, cfg, x, dtype, dist), cache

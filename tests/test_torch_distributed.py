@@ -1,0 +1,502 @@
+"""The port's distribution layer against ``repro`` on the CPU: the
+sharding rules and the models' logical-axes trees, int8 compression
+with error feedback, the mod-sharded lookup, sharded train steps over a
+gloo mesh, the elastic restore, and the dry run on a fake process group.
+
+Multi-rank cases run the port under ``torchrun`` over gloo (one worker
+script, ``WORKER``, written to the test's directory), ``repro``'s
+collectives in one subprocess with 2 XLA host devices. The sharded
+steps start from one state (the port's ``init_state`` at the smoke
+configs in fp32, the schedule's warm-up at 1 step so steps 1 and 2
+update at the full rate) and take the launcher's batches; after two
+steps the sharded state, gathered, is held to the port's unsharded
+step and to ``repro``'s own step jitted without shardings at rtol and
+atol 1e-5 (``tests/test_torch_lm_train.py``'s ``FP32``): the mesh sums
+the gradients of the two data shards in another order. The elastic
+restore is bitwise.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import json
+import os
+import subprocess
+import sys
+import textwrap
+import types
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import registry as j_registry
+from repro.distributed import compression as j_comp
+from repro.distributed import sharding as j_shd
+from repro.launch import train as j_train
+from repro.models import dien as j_dien
+from repro.models import dimenet as j_dimenet
+from repro.models import gnn as j_gnn
+from repro.models import transformer as j_tf
+from repro.train import steps as j_steps
+from repro_torch.checkpoint import checkpoint as t_ckpt
+from repro_torch.configs import registry as t_registry
+from repro_torch.data import pipeline as t_pipe
+from repro_torch.distributed import compression as t_comp
+from repro_torch.distributed import sharding as t_shd
+from repro_torch.launch import train as t_train
+from repro_torch.models import dien as t_dien
+from repro_torch.models import dimenet as t_dimenet
+from repro_torch.models import gnn as t_gnn
+from repro_torch.models import transformer as t_tf
+from repro_torch.train import steps as t_steps
+from repro_torch.tree import flatten_with_paths
+
+SRC = str(Path(__file__).resolve().parents[1] / "src")
+FP32 = dict(rtol=1e-5, atol=1e-5)
+STEP_ARCHS = ("granite-8b", "qwen2-moe-a2.7b")
+ACCUM_ARCH = "qwen2-moe-a2.7b"      # its routing sees each micro-batch
+ODD_IDS = [0, 1, 2, 5, 9, 10, 11, 13, 19, 20, 21, -1, -2, -3, -9, -10, -11,
+           -12, -20, -21]
+
+
+# ------------------------------------------------------------ the rules
+def _meshes(multi: bool):
+    names = ("pod", "data", "model") if multi else ("data", "model")
+    shape = (2, 16, 16) if multi else (16, 16)
+    j = types.SimpleNamespace(axis_names=names, shape=dict(zip(names, shape)))
+    t = types.SimpleNamespace(mesh_dim_names=names, shape=shape)
+    return j, t
+
+
+@functools.lru_cache(maxsize=None)
+def _axes(arch):
+    """(repro's axes tree, the port's) at the published config."""
+    jspec, tspec = j_registry.get_spec(arch), t_registry.get_spec(arch)
+    if jspec.family == "lm":
+        return j_tf.lm_axes(jspec.model_cfg), t_tf.lm_axes(tspec.model_cfg)
+    if arch == "dien":
+        return (j_dien.init_dien(jax.random.PRNGKey(0),
+                                 jspec.smoke_cfg_fn())[1],
+                t_dien.dien_axes(tspec.model_cfg))
+    init = {"gcn-cora": (j_gnn.init_gcn, t_gnn.gcn_axes),
+            "graphsage-reddit": (j_gnn.init_sage, t_gnn.sage_axes),
+            "egnn": (j_gnn.init_egnn, t_gnn.egnn_axes),
+            "dimenet": (j_dimenet.init_dimenet, t_dimenet.dimenet_axes)}
+    ji, ti = init[arch]
+    shp = next(iter(jspec.shapes.values()))
+    jcfg = j_steps._adapt_gnn_cfg(jspec.smoke_cfg_fn(), shp)
+    tcfg = t_steps._adapt_gnn_cfg(tspec.smoke_cfg_fn(), shp)
+    return ji(jax.random.PRNGKey(0), jcfg)[1], ti(tcfg)
+
+
+def _leaves(tree):
+    return [(k, v) for k, v in flatten_with_paths(
+        tree)] if isinstance(tree, dict) else [("", tree)]
+
+
+@pytest.mark.parametrize("arch", j_registry.ASSIGNED)
+@pytest.mark.parametrize("multi", [False, True], ids=["single", "multi"])
+def test_axes_trees_and_specs_equal_repro(arch, multi):
+    """Every family's axes tree is ``repro``'s, and ``spec_for_axes``
+    gives ``repro``'s ``PartitionSpec`` entries for every leaf under the
+    family's rules (the LMs' rules on the production mesh, where the
+    MoE's expert rule and kimi-k2's FSDP over pods depend on it)."""
+    jax_axes, t_axes = _axes(arch)
+    assert t_axes == jax_axes
+    spec = j_registry.get_spec(arch)
+    jm, tm = _meshes(multi)
+    if spec.family == "lm":
+        jr = j_steps.lm_rules(spec, jm)
+        tr = t_steps.lm_rules(t_registry.get_spec(arch), tm)
+        assert tr == jr
+    else:
+        jr = tr = {"gnn": j_shd.GNN_RULES, "recsys": j_shd.RECSYS_RULES}[
+            spec.family]
+        assert t_shd.FAMILY_RULES[spec.family] == jr
+    for path, ax in flatten_with_paths(t_axes):
+        assert t_shd.spec_for_axes(ax, tr) == tuple(
+            j_shd.spec_for_axes(ax, jr)), path
+
+
+def test_adafactor_state_specs_equal_repro():
+    """kimi-k2's factored statistics drop the reduced dim as ``repro``'s
+    do (``opt_state_shardings``), on the multi-pod rules."""
+    jm, tm = _meshes(True)
+    jspec = j_registry.get_spec("kimi-k2-1t-a32b")
+    tspec = t_registry.get_spec("kimi-k2-1t-a32b")
+    t_sh = t_shd.tree_shardings(_axes("kimi-k2-1t-a32b")[1],
+                                t_steps.lm_rules(tspec, tm), tm)
+    t_opt = t_shd.opt_state_shardings(
+        "adafactor", t_tf.abstract_params(tspec.model_cfg), t_sh, tm)
+    mesh = jax.make_mesh((1, 1, 1), ("pod", "data", "model"))
+    j_sh = j_shd.tree_shardings(_axes("kimi-k2-1t-a32b")[0],
+                                j_steps.lm_rules(jspec, jm), mesh)
+    j_opt = j_shd.opt_state_shardings(
+        "adafactor", j_tf.abstract_params(jspec.model_cfg), j_sh, mesh)
+    want = {k: tuple(v.spec) for k, v in flatten_with_paths(
+        jax.tree.map(lambda x: x, j_opt,
+                     is_leaf=lambda x: isinstance(
+                         x, jax.sharding.NamedSharding)))}
+    got = {k: v.spec for k, v in flatten_with_paths(t_opt)}
+    assert got == want
+
+
+def test_quantize_bitwise():
+    r = np.random.default_rng(3)
+    g = (r.standard_normal(4096) * 3).astype(np.float32)
+    g[:8] = [0.5, 1.5, 2.5, -0.5, -2.5, 127.5, -300.0, 300.0]
+    for scale in (np.float32(1.0), np.float32(0.037)):
+        want = np.asarray(j_comp.quantize_int8(g, scale))
+        got = t_comp.quantize_int8(torch.from_numpy(g),
+                                   torch.tensor(scale)).numpy()
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(
+            t_comp.dequantize_int8(torch.from_numpy(got),
+                                   torch.tensor(scale)).numpy(),
+            np.asarray(j_comp.dequantize_int8(want, scale)))
+
+
+# ------------------------------------------------------- multi-rank runs
+WORKER = '''
+import json, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import distribute_tensor, Shard, Replicate
+from repro_torch.checkpoint import checkpoint as ck
+from repro_torch.configs import registry
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.compression import compressed_psum_pod
+from repro_torch.launch import train as tr
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models.embedding import lookup_mod_sharded
+from repro_torch.train.steps import build_bundle
+import dataclasses
+
+torch.set_num_threads(1)
+mode, out = sys.argv[1], sys.argv[2]
+mesh = make_host_mesh(2, "cpu")
+rank = dist.get_rank()
+if mode == "steps":
+    res = {}
+    for case in sys.argv[3:]:
+        arch, accum = case.split(":")
+        key = arch if accum == "1" else f"{arch}+accum{accum}"
+        spec = tr.smoke_spec(registry.get_spec(arch))
+        spec = dataclasses.replace(spec, model_cfg=dataclasses.replace(
+            spec.model_cfg, dtype="float32"))
+        bundle = build_bundle(spec, "train_4k", "cpu",
+                              {"warmup": 1, "grad_accum": int(accum)}, mesh)
+        state0, _ = ck.restore_checkpoint(f"{out}/{arch}_init",
+            tr.init_state(spec, build_bundle(spec, "train_4k", "cpu")))
+        st = bundle.place_state(state0)
+        mb = tr.make_batch_fn(spec, "train_4k", device="cpu")
+        losses = []
+        for i in range(2):
+            st, m = bundle.fn(st, bundle.place_batch(mb(i)))
+            losses.append([float(m["loss"]), float(m["gnorm"])])
+        ck.save_checkpoint(f"{out}/{key}_mesh", 2, st)
+        res[key] = losses
+    # int8 across the pod axis and the mod-sharded lookup over "model"
+    pm = init_device_mesh("cpu", (2, 2), mesh_dim_names=("pod", "model"))
+    pod, col = pm.get_coordinate()
+    d = np.load(f"{out}/comp_in.npz")
+    mean, err = compressed_psum_pod({"a": torch.from_numpy(d["g"][pod])},
+                                    {"a": torch.from_numpy(d["e"][pod])}, pm)
+    table = distribute_tensor(torch.from_numpy(d["table"]), pm,
+                              [Replicate(), Shard(0)], src_data_rank=None)
+    rows = lookup_mod_sharded(table, torch.from_numpy(d["ids"]), pm)
+    if col == 0:
+        np.savez(f"{out}/comp_out_{pod}.npz", mean=mean["a"].numpy(),
+                 err=err["a"].numpy(), rows=rows.numpy())
+    # the islabel query and a peel level on the (2, 2) mesh
+    from repro_torch.configs.shapes import IndexShape
+    d = dict(np.load(f"{out}/isl_in.npz"))
+    f = json.loads(str(d.pop("fields")))
+    spec = registry.get_spec("islabel")
+    spec = dataclasses.replace(spec, shapes={
+        "q": IndexShape("q", "query", **f["query"]),
+        "lvl": IndexShape("lvl", "build_level", **f["level"])})
+    qb = build_bundle(spec, "q", "cpu", {"relax_rounds": 5,
+                                         "relax_chunks": 3}, mesh)
+    dist_q = qb.fn(qb.place_batch({k: torch.from_numpy(d[k]) for k in (
+        "lbl_ids", "lbl_d", "core_pos", "ce_src", "ce_dst", "ce_w", "s",
+        "t")})).full_tensor()
+    lb = build_bundle(spec, "lvl", "cpu", None, mesh)
+    lvl = lb.fn(lb.place_batch({k: torch.from_numpy(d[k]) for k in (
+        "src", "dst", "w", "via", "active")}), torch.from_numpy(d["perm"]))
+    if rank == 0:
+        np.savez(f"{out}/isl_out.npz", dist=dist_q.numpy(),
+                 **{f"lvl{i}": x.numpy() for i, x in enumerate(lvl)})
+    if rank == 0:
+        json.dump(res, open(f"{out}/losses.json", "w"))
+elif mode == "elastic":
+    a = make_host_mesh(2, "cpu")                               # (4, 2)
+    b = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
+    spec = tr.smoke_spec(registry.get_spec("qwen2-moe-a2.7b"))
+    ba = build_bundle(spec, "train_4k", "cpu", None, a)
+    bb = build_bundle(spec, "train_4k", "cpu", None, b)
+    whole = tr.init_state(spec, build_bundle(spec, "train_4k", "cpu"))
+    ck.save_checkpoint(f"{out}/ck", 7, ba.place_state(whole))
+    dist.barrier()                    # rank 0's write is on disk
+    got, step = ck.restore_checkpoint(f"{out}/ck", whole,
+                                      shardings=bb.shardings["state"])
+    direct = bb.place_state(whole)
+    from repro_torch.tree import flatten_with_paths
+    same = all(
+        torch.equal(g.to_local(), d.to_local())
+        and g.placements == d.placements
+        for (_, g), (_, d) in zip(flatten_with_paths(got),
+                                  flatten_with_paths(direct)))
+    full = all(np.array_equal(x, y) for (_, x), (_, y) in zip(
+        flatten_with_paths(ck.snapshot(got)),
+        flatten_with_paths(ck.snapshot(whole))))
+    flags = torch.tensor([int(same and full and step == 7)])
+    dist.all_reduce(flags, dist.ReduceOp.MIN)
+    if rank == 0:
+        json.dump({"ok": int(flags)}, open(f"{out}/elastic.json", "w"))
+dist.destroy_process_group()
+'''
+
+
+def _torchrun(tmp_path, n: int, *args):
+    script = tmp_path / "worker.py"
+    script.write_text(WORKER)
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep +
+               os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, "-m", "torch.distributed.run",
+                        f"--nproc-per-node={n}", "--standalone",
+                        str(script), *args], capture_output=True, text=True,
+                       timeout=600, env=env, cwd=tmp_path)
+    assert r.returncode == 0, f"STDOUT:\n{r.stdout}\nSTDERR:\n{r.stderr[-6000:]}"
+
+
+def _repro_collectives(tmp_path):
+    """``repro``'s ``compressed_psum_pod`` (a ``shard_map`` over 2 pods)
+    and ``lookup_mod_sharded`` (over 2 ``model`` shards) on 2 host
+    devices."""
+    code = f'''
+        import jax, jax.numpy as jnp, numpy as np
+        from jax import shard_map
+        from jax.sharding import PartitionSpec as P
+        from repro.distributed.compression import compressed_psum_pod
+        from repro.models.embedding import lookup_mod_sharded
+        d = np.load("{tmp_path}/comp_in.npz")
+        mesh = jax.make_mesh((2,), ("pod",))
+        def inner(g, e):
+            m, ne = compressed_psum_pod({{"a": g[0]}}, {{"a": e[0]}}, mesh)
+            return m["a"], ne["a"][None]
+        fn = shard_map(inner, mesh=mesh, in_specs=(P("pod"), P("pod")),
+                       out_specs=(P(), P("pod")), check_vma=False)
+        mean, err = fn(jnp.asarray(d["g"]), jnp.asarray(d["e"]))
+        rows = lookup_mod_sharded(jnp.asarray(d["table"]),
+                                  jnp.asarray(d["ids"]),
+                                  jax.make_mesh((2,), ("model",)))
+        np.savez("{tmp_path}/repro_out.npz", mean=np.asarray(mean),
+                 err=np.asarray(err), rows=np.asarray(rows))
+    '''
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=2",
+               PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    r = subprocess.run([sys.executable, "-c", textwrap.dedent(code)],
+                       capture_output=True, text=True, timeout=300, env=env)
+    assert r.returncode == 0, r.stderr[-4000:]
+    return np.load(f"{tmp_path}/repro_out.npz")
+
+
+def _specs(arch):
+    out = []
+    for registry, train in ((j_registry, j_train), (t_registry, t_train)):
+        spec = train.smoke_spec(registry.get_spec(arch))
+        out.append(dataclasses.replace(spec, model_cfg=dataclasses.replace(
+            spec.model_cfg, dtype="float32")))
+    return out
+
+
+def _values(tree):
+    return {k: np.asarray(v, np.float32) for k, v in flatten_with_paths(tree)
+            if not k.startswith("step")}
+
+
+def _islabel_batch(r):
+    """A small ``islabel`` query batch (sorted label rows of ids below n,
+    padding n; integer distances; a 40-vertex core) with endpoint ids
+    past both ends, and a peel level's edge list with a permutation."""
+    n, l_cap, n_core, e, q = 300, 16, 40, 203, 8
+    rows = 512
+    ids = np.sort(r.integers(0, n, (rows, l_cap)), axis=1).astype(np.int32)
+    ids[r.random((rows, l_cap)) < 0.3] = n
+    ids = np.sort(ids, axis=1)
+    ids[n:] = n
+    core = r.permutation(n)[:n_core]
+    cpos = np.full(rows, n_core, np.int32)
+    cpos[core] = np.arange(n_core)
+    g = t_pipe.graph_from_spec("er:300:3@4")
+    e_cap = 4096
+    pad = e_cap - len(g[1])
+    batch = {"lbl_ids": ids,
+             "lbl_d": np.where(ids < n, r.integers(1, 30, (rows, l_cap)),
+                               np.inf).astype(np.float32),
+             "core_pos": cpos,
+             "ce_src": r.integers(0, n_core, e).astype(np.int32),
+             "ce_dst": r.integers(0, n_core, e).astype(np.int32),
+             "ce_w": r.integers(1, 5, e).astype(np.float32),
+             "s": np.array([3, 7, n, -1, 299, 1000, -600, 12], np.int32),
+             "t": r.integers(0, n, q).astype(np.int32),
+             "src": np.concatenate([g[1], np.full(pad, n)]).astype(np.int32),
+             "dst": np.concatenate([g[2], np.full(pad, n)]).astype(np.int32),
+             "w": np.concatenate([g[3], np.full(pad, np.inf)]).astype(
+                 np.float32),
+             "via": np.full(e_cap, -1, np.int32),
+             "active": np.ones(n, bool),
+             "perm": r.permutation(n).astype(np.int32)}
+    fields = {"query": dict(n_vertices=n, l_cap=l_cap, n_core=n_core,
+                            core_edges=e, q_batch=q),
+              "level": dict(n_vertices=n, l_cap=l_cap, n_core=0,
+                            core_edges=0, e_cap=e_cap, d_cap=16)}
+    return fields, batch
+
+
+@pytest.fixture(scope="module")
+def mesh_run(tmp_path_factory):
+    """The 4-rank run (``steps``) and both unsharded references."""
+    tmp = tmp_path_factory.mktemp("mesh")
+    r = np.random.default_rng(7)
+    n = 10
+    np.savez(tmp / "comp_in.npz",
+             g=(r.standard_normal((2, 257)) * 2).astype(np.float32),
+             e=(r.standard_normal((2, 257)) * 0.01).astype(np.float32),
+             table=np.arange(n * 3, dtype=np.float32).reshape(n, 3),
+             ids=np.array(ODD_IDS, np.int32))
+    fields, batch = _islabel_batch(r)
+    np.savez(tmp / "isl_in.npz", fields=json.dumps(fields), **batch)
+    refs = {}
+    cases = [(arch, 1) for arch in STEP_ARCHS] + [(ACCUM_ARCH, 2)]
+    for arch, accum in cases:
+        jspec, tspec = _specs(arch)
+        state0 = t_ckpt.snapshot(t_train.init_state(
+            tspec, t_steps.build_bundle(tspec, "train_4k", "cpu")))
+        t_ckpt.save_checkpoint(tmp / f"{arch}_init", 0,
+                               t_ckpt.state_from_tree(state0, "cpu"))
+        ov = {"warmup": 1, "grad_accum": accum}
+        bundle = t_steps.build_bundle(tspec, "train_4k", "cpu", ov)
+        tb = t_train.make_batch_fn(tspec, "train_4k", device="cpu")
+        jfn = jax.jit(j_steps.build_bundle(
+            jspec, "train_4k", jax.make_mesh((1, 1), ("data", "model")),
+            ov).fn)
+        jb = j_train.make_batch_fn(jspec, "train_4k")
+        ts, js = t_ckpt.state_from_tree(state0, "cpu"), state0
+        tl, jl = [], []
+        for i in range(2):
+            ts, tm = bundle.fn(ts, tb(i))
+            js, jm = jfn(js, jb(i))
+            tl.append([float(tm["loss"]), float(tm["gnorm"])])
+            jl.append([float(jm["loss"]), float(jm["gnorm"])])
+        key = arch if accum == 1 else f"{arch}+accum{accum}"
+        refs[key] = {"port": (_values(t_ckpt.snapshot(ts)), tl),
+                     "repro": (_values(jax.tree.map(np.asarray, js)), jl)}
+    _torchrun(tmp, 4, "steps", str(tmp),
+              *(f"{arch}:{accum}" for arch, accum in cases))
+    return tmp, refs
+
+
+@pytest.mark.parametrize("arch", STEP_ARCHS + (f"{ACCUM_ARCH}+accum2",))
+@pytest.mark.parametrize("ref", ["port", "repro"])
+def test_sharded_step_matches_unsharded(mesh_run, arch, ref):
+    """Two steps on the (2, 2) mesh against the unsharded ``ref`` run's,
+    at ``FP32``; ``+accum2`` at ``grad_accum`` 2, the batch laid out by
+    micro-batch, so each rank routes its share of each global
+    micro-batch as the unsharded step routes that micro-batch."""
+    tmp, refs = mesh_run
+    spec = _specs(arch.split("+")[0])[1]
+    got_state, _ = t_ckpt.restore_checkpoint(
+        tmp / f"{arch}_mesh", t_ckpt.state_from_tree(
+            t_ckpt.snapshot(t_train.init_state(
+                spec, t_steps.build_bundle(spec, "train_4k", "cpu"))),
+            "cpu"))
+    got = _values(t_ckpt.snapshot(got_state))
+    want, want_losses = refs[arch][ref]
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], err_msg=k, **FP32)
+    losses = json.load(open(tmp / "losses.json"))[arch]
+    np.testing.assert_allclose(losses, want_losses, **FP32)
+
+
+def test_compressed_psum_pod_and_mod_lookup_bitwise(mesh_run, tmp_path):
+    """Both pods' mean and residual, and the mod-sharded lookup on ids
+    past both ends of the table, as ``repro`` computes them."""
+    tmp, _ = mesh_run
+    want = _repro_collectives(tmp)
+    for pod in (0, 1):
+        got = np.load(tmp / f"comp_out_{pod}.npz")
+        np.testing.assert_array_equal(got["mean"], want["mean"])
+        np.testing.assert_array_equal(got["err"], want["err"][pod])
+        np.testing.assert_array_equal(got["rows"], want["rows"])
+    assert np.isnan(want["rows"]).any() and np.isfinite(want["rows"]).any()
+
+
+def test_islabel_on_mesh_bitwise(mesh_run):
+    """The ``islabel`` query (rows gathered from each rank's block,
+    queries split over ``data``, 3 chunks with a remainder) and a peel
+    level on the (2, 2) mesh, bitwise equal to the bundles on one
+    device."""
+    from repro_torch.configs.shapes import IndexShape
+    tmp, _ = mesh_run
+    d = dict(np.load(tmp / "isl_in.npz"))
+    f = json.loads(str(d.pop("fields")))
+    spec = dataclasses.replace(t_registry.get_spec("islabel"), shapes={
+        "q": IndexShape("q", "query", **f["query"]),
+        "lvl": IndexShape("lvl", "build_level", **f["level"])})
+    tb = {k: torch.from_numpy(v) for k, v in d.items()}
+    want = t_steps.build_bundle(spec, "q", "cpu", {
+        "relax_rounds": 5, "relax_chunks": 3}).fn(tb).numpy()
+    lvl = t_steps.build_bundle(spec, "lvl", "cpu").fn(tb, tb["perm"])
+    got = np.load(tmp / "isl_out.npz")
+    np.testing.assert_array_equal(got["dist"], want)
+    assert np.isfinite(want).any() and np.isinf(want).any()
+    for i, x in enumerate(lvl):
+        np.testing.assert_array_equal(got[f"lvl{i}"], x.numpy())
+
+
+def test_elastic_restore_bitwise(tmp_path):
+    """A state saved from a (4, 2) mesh restores onto (2, 4): every
+    shard and placement as the new layout places the whole state, and
+    the gathered state bitwise."""
+    _torchrun(tmp_path, 8, "elastic", str(tmp_path))
+    assert json.load(open(tmp_path / "elastic.json")) == {"ok": 1}
+
+
+def test_dryrun_cell_on_8_fake_ranks():
+    """One granite smoke cell traced on a fake group of 8 ranks, mesh
+    (4, 2): FLOPs and collective bytes counted (``repro``'s
+    ``test_small_dryrun_cell_on_8_devices``)."""
+    code = '''
+        import json
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import init_device_mesh
+        from repro_torch.configs import registry
+        from repro_torch.launch import dryrun
+        from repro_torch.launch.train import smoke_spec
+        dryrun.fake_world(8)
+        dryrun.make_production_mesh = lambda **kw: init_device_mesh(
+            "cpu", (4, 2), mesh_dim_names=("data", "model"))
+        rec = dryrun.trace_cell(smoke_spec(registry.get_spec("granite-8b")),
+                                "train_4k", False)
+        print(json.dumps(rec))
+    '''
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep +
+               os.environ.get("PYTHONPATH", ""))
+    r = subprocess.run([sys.executable, "-c", textwrap.dedent(code)],
+                       capture_output=True, text=True, timeout=300, env=env)
+    assert r.returncode == 0, r.stderr[-4000:]
+    rec = json.loads(r.stdout.strip().splitlines()[-1])
+    assert rec["mesh"] == "4x2" and rec["devices"] == 8
+    assert rec["flops_per_device"] > 0
+    assert rec["collective_bytes_per_device"]["total"] > 0
+    assert rec["collective_bytes_per_device"]["all-gather"] > 0
+    assert rec["peak_bytes_per_device"] >= rec["argument_bytes_per_device"] > 0
+    assert rec["fits_80gb"] is True

@@ -50,7 +50,13 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "repro_torch.configs.qwen2_moe_a2_7b",
             "repro_torch.configs.kimi_k2_1t_a32b",
             "repro_torch.configs.yi_34b",
-            "repro_torch.configs.qwen2_72b"} <= set(mods)
+            "repro_torch.configs.qwen2_72b", "repro_torch.configs.islabel",
+            "repro_torch.data.pipeline", "repro_torch.launch.mesh",
+            "repro_torch.distributed.sharding",
+            "repro_torch.distributed.compression",
+            "repro_torch.launch.analysis", "repro_torch.launch.dryrun",
+            "repro_torch.launch.perf", "repro_torch.obs.regression"} \
+        <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or "
@@ -101,7 +107,10 @@ def _default_device_calls():
     from repro_torch.launch.serve import main
     from repro_torch.core.vc_baseline import build_vc_index
     from repro_torch.models.transformer import init_cache, init_lm
+    from repro_torch.data import PrefetchPipeline
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.train.steps import (StepBundle, build_gnn_bundle,
+                                         build_islabel_bundle,
                                          build_lm_bundle, build_recsys_bundle)
     from repro_torch.serve.versions import VersionFamily
     from repro_torch.shard import ShardedIndex
@@ -151,6 +160,13 @@ def _default_device_calls():
         "launcher --mode lm": lambda: main(
             ["--mode", "lm", "--arch", "granite-8b", "--batch", "2",
              "--gen-len", "2"]),
+        "build_islabel_bundle": lambda: build_islabel_bundle(
+            registry.get_spec("islabel"), "serve_1m"),
+        "PrefetchPipeline": lambda: PrefetchPipeline(lambda step: {}),
+        "make_host_mesh": lambda: make_host_mesh(1),
+        "train.main --model-parallel": lambda: train.main(
+            ["--arch", "granite-8b", "--smoke", "--steps", "2",
+             "--model-parallel", "2"]),
     }
 
 

@@ -145,8 +145,8 @@ class RouteRecorder:
         self.plain, self.calls = t_moe.route, []
 
     def __enter__(self):
-        def recorded(p, cfg, xf, dtype=torch.bfloat16):
-            r = self.plain(p, cfg, xf, dtype)
+        def recorded(p, cfg, xf, dtype=torch.bfloat16, dist=None):
+            r = self.plain(p, cfg, xf, dtype, dist)
             self.calls.append((p["router"].detach().clone(), cfg,
                                xf.detach().clone(), dtype, r))
             return r
@@ -423,11 +423,20 @@ def test_remat_policies_give_bitwise_gradients(arch, batch):
 
 
 def test_train_bundle_overrides():
-    """``compress_pods`` names the multi-card slice; a batch that does not
-    split into ``grad_accum`` micro-batches raises."""
+    """``compress_pods`` without a mesh's ``pod`` axis is ignored, as in
+    ``repro`` (the plain step, its state unchanged; the int8 step is
+    ``tests/test_torch_distributed.py``'s); a batch that does not split
+    into ``grad_accum`` micro-batches raises."""
     _, spec = _specs("granite-8b", "float32")
-    with pytest.raises(ValueError, match="multi-card slice"):
-        t_build_bundle(spec, "train_4k", "cpu", {"compress_pods": True})
+    plain = t_build_bundle(spec, "train_4k", "cpu")
+    ignored = t_build_bundle(spec, "train_4k", "cpu", {"compress_pods": True})
+    assert ignored.name == plain.name and not ignored.static_meta["compress"]
+    state = t_train.init_state(spec, ignored)
+    assert "err" not in state
+    batch = t_train.make_batch_fn(spec, "train_4k", device="cpu")(0)
+    a, b = ignored.fn(state, batch)[0], plain.fn(state, batch)[0]
+    for (k, x), (_, y) in zip(flatten_with_paths(a), flatten_with_paths(b)):
+        assert torch.equal(x, y), k
     bundle = t_build_bundle(spec, "train_4k", "cpu", {"grad_accum": 3})
     state = t_train.init_state(spec, bundle)
     with pytest.raises(ValueError, match="3 micro-batches"):

@@ -222,14 +222,16 @@ def _repro_tree_paths(arch):
 
 
 def test_unported_archs_raise_naming_their_slice():
-    """An arch of a later slice raises naming it; ``dimenet``, ``dien``
-    and the five LMs (ported with their slices) resolve, and their
-    models' parameters are ``repro``'s tree, path for path and shape for
-    shape, at the published configs."""
-    for arch, slice_ in (("islabel", "launcher"),):
-        with pytest.raises(KeyError, match=slice_):
-            t_registry.get_spec(arch)
-        j_registry.get_spec(arch)          # repro has every one
+    """Every arch resolves now (``islabel`` was the last, with the data,
+    distribution and launcher slice; an unknown id still raises), and
+    ``dimenet``, ``dien`` and the five LMs' parameters are ``repro``'s
+    tree, path for path and shape for shape, at the published configs."""
+    for arch in ("islabel",):
+        got, want = t_registry.get_spec(arch), j_registry.get_spec(arch)
+        assert (got.family, tuple(got.shapes)) == (want.family,
+                                                   tuple(want.shapes))
+    with pytest.raises(KeyError, match="unknown arch"):
+        t_registry.get_spec("no-such-arch")
     for arch, model in (("dimenet", t_dimenet.DimeNet),
                         ("dien", t_dien.DIEN)):
         spec = t_registry.get_spec(arch)
@@ -248,7 +250,7 @@ def test_unported_archs_raise_naming_their_slice():
             jax.random.PRNGKey(0))
         assert got == {k: tuple(v.shape)
                        for k, v in flatten_with_paths(want)}, arch
-    assert t_registry.PORTED == ["qwen2-moe-a2.7b", "kimi-k2-1t-a32b",
+    assert t_registry.ASSIGNED == ["qwen2-moe-a2.7b", "kimi-k2-1t-a32b",
                                  "granite-8b", "yi-34b", "qwen2-72b",
                                  "dimenet", "graphsage-reddit", "gcn-cora",
                                  "egnn", "dien"]
