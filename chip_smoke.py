@@ -4067,6 +4067,12 @@ DRYRUN_OUT = ROOT / "experiments" / "chip_smoke"   # the script's own records
 PREFETCH_STEPS = 6
 DIST_LAUNCHER = ["-m", "repro_torch.launch.train", "--arch", "granite-8b",
                  "--smoke", "--steps", "20"]
+# the split mesh phases: (arch, layers, batch, grad_accum), as LM_TRAIN's
+MESH_TRAIN = ("granite-8b", 4, 8, 4)
+MESH_TRAIN_STEPS = 3
+MESH_PROMPT = 256                # prefill into the decode_32k cache
+MESH_DECODE_BATCH = 8
+MESH_DECODE_STEPS = 8
 
 
 def islabel_inputs(shp, device, seed: int) -> dict:
@@ -4468,12 +4474,123 @@ def phase_prefetch(tables, device="cuda") -> dict:
             **streams}
 
 
+def mesh_lm_train(mesh, dev) -> dict:
+    """granite-8b at full width cut to ``MESH_TRAIN``'s layers and batch
+    (``train_lm_granite-8b``'s cell): ``MESH_TRAIN_STEPS`` steps of the
+    unsharded bundle, then of the mesh bundle (the compute split over
+    ``model``) from the same state; the losses and the final states
+    compared on the card, leaf by leaf (each rank's block of a DTensor
+    against the same block of the unsharded leaf)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.train import init_state, make_batch_fn
+    from repro_torch.train.steps import build_bundle
+    from repro_torch.tree import flatten_with_paths
+    arch, layers, batch, accum = MESH_TRAIN
+    spec = lm_train_spec(arch, layers, batch)
+    ov = {"grad_accum": accum, "warmup": 1}
+    t0 = time.perf_counter()
+    plain = build_bundle(spec, "train_4k", dev, ov)
+    sharded = build_bundle(spec, "train_4k", dev, ov, mesh)
+    state0 = init_state(spec, plain)
+    mb = make_batch_fn(spec, "train_4k", device=dev)
+    torch.cuda.synchronize()
+    out, secs = {}, {"setup": time.perf_counter() - t0}
+    for tag, bundle in (("plain", plain), ("mesh", sharded)):
+        st = state0 if tag == "plain" else sharded.place_state(state0)
+        losses = []
+        t0 = time.perf_counter()
+        for i in range(MESH_TRAIN_STEPS):
+            batch_i = mb(i) if tag == "plain" else sharded.place_batch(mb(i))
+            st, m = bundle.fn(st, batch_i)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        secs[tag] = time.perf_counter() - t0
+        out[tag] = (losses, st)
+    del state0
+    (la, sa), (lb, sb) = out["plain"], out["mesh"]
+    t0 = time.perf_counter()
+    placed = sharded.place_state(sa)        # the unsharded state's blocks
+    unequal = [k for (k, a), (_, b) in zip(flatten_with_paths(placed),
+                                            flatten_with_paths(sb))
+               if not torch.equal(shd.local(a), shd.local(b))]
+    secs["compare"] = time.perf_counter() - t0
+    del placed, out, sa, sb
+    torch.cuda.empty_cache()
+    return {"arch": arch, "layers": layers, "batch": batch, "accum": accum,
+            "losses_plain": la, "losses_mesh": lb, "seconds": secs,
+            "bitwise": la == lb and not unequal, "unequal_leaves": unequal}
+
+
+def mesh_lm_serve(mesh, dev) -> dict:
+    """granite-8b at full width cut to ``MESH_TRAIN``'s layers, bf16
+    weights: a ``MESH_PROMPT``-token prefill at ``MESH_DECODE_BATCH``
+    into the decode_32k cache, then ``MESH_DECODE_STEPS`` greedy decode
+    steps, by the unsharded bundles and by the mesh bundles (the cache's
+    sequence over ``model``); the greedy tokens compared."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.train import init_state
+    from repro_torch.train.steps import build_bundle
+    arch, layers = MESH_TRAIN[:2]
+    spec = registry.get_spec(arch)
+    spec = dataclasses.replace(spec, param_dtype="bfloat16",
+                               model_cfg=dataclasses.replace(
+                                   spec.model_cfg, n_layers=layers))
+    cfg = spec.model_cfg
+    g = torch.Generator(dev).manual_seed(25)
+    prompt = torch.randint(0, cfg.vocab, (MESH_DECODE_BATCH, MESH_PROMPT),
+                           generator=g, device=dev)
+    params = None
+    toks, logits_all, secs = {}, {}, {}
+    for tag, m in (("plain", None), ("mesh", mesh)):
+        pre = build_bundle(spec, "prefill_32k", dev, mesh=m)
+        dec = build_bundle(spec, "decode_32k", dev, mesh=m)
+        if params is None:
+            params = init_state(spec, pre)["params"]
+        p = params if m is None else pre.place_state(
+            {"params": params})["params"]
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, cache = pre.fn(p, pre.place_batch({"tokens": prompt}))
+            seq, lg = [], []
+            for i in range(MESH_DECODE_STEPS + 1):
+                full = logits.full_tensor() if m is not None else logits
+                nxt = full.argmax(-1)
+                seq.append(nxt)
+                lg.append(full)
+                if i == MESH_DECODE_STEPS:
+                    break
+                last = nxt if m is None else shd.place(
+                    nxt, dec.shardings["batch"]["last_tokens"])
+                logits, cache = dec.fn(p, cache, last)
+        torch.cuda.synchronize()
+        secs[tag] = time.perf_counter() - t0
+        toks[tag] = torch.cat(seq, 1).cpu()
+        logits_all[tag] = torch.stack(lg)
+        del cache, logits, p
+        torch.cuda.empty_cache()
+    top = float(logits_all["plain"].abs().max())
+    return {"arch": arch, "layers": layers, "batch": MESH_DECODE_BATCH,
+            "prompt": MESH_PROMPT, "steps": MESH_DECODE_STEPS,
+            "tokens_equal": bool(torch.equal(toks["plain"], toks["mesh"])),
+            "logits_max_abs_diff_rel": float(
+                (logits_all["plain"] - logits_all["mesh"]).abs().max()) / top,
+            "seconds": secs}
+
+
 def dist_main() -> int:
     """``chip_smoke.py --distributed`` under ``torchrun`` (one process a
     card, NCCL, deterministic algorithms): granite-8b's smoke train step
     over ``make_host_mesh`` against the unsharded step from the same
-    state (bitwise at one rank, rtol 1e-5 above), ``compressed_psum_pod`` over a ``pod`` mesh
-    of every rank against its one-device form, and
+    state (bitwise at one rank, rtol 1e-5 above), granite-8b at full
+    width through the mesh path (``mesh_lm_train``: bitwise at one rank;
+    ``mesh_lm_serve``: greedy tokens equal), ``compressed_psum_pod`` over
+    a ``pod`` mesh of every rank against its one-device form, and
     ``lookup_mod_sharded`` against the same arithmetic on the whole
     table. Rank 0 prints one line."""
     import dataclasses
@@ -4521,6 +4638,14 @@ def dist_main() -> int:
     else:
         step_ok = np.allclose(la, lb, rtol=1e-5) and all(
             np.allclose(sa[k], sb[k], rtol=1e-5, atol=1e-5) for k in sa)
+    del a, b, state, sa, sb
+    full_train = mesh_lm_train(mesh, dev)
+    full_serve = mesh_lm_serve(mesh, dev)
+    # bitwise at one rank; several ranks sum in other orders
+    full_ok = full_serve["tokens_equal"] and (
+        full_train["bitwise"] if world == 1 else np.allclose(
+            full_train["losses_plain"], full_train["losses_mesh"],
+            rtol=1e-3))
     # int8 across a pod axis of every rank, against its one-device form
     pm = init_device_mesh("cuda", (world,), mesh_dim_names=("pod",))
     r = np.random.default_rng(5)
@@ -4551,8 +4676,8 @@ def dist_main() -> int:
                        float("nan"))
     look_ok = torch.equal(torch.nan_to_num(got, nan=-1.0),
                           torch.nan_to_num(want, nan=-1.0))
-    flags = torch.tensor([int(step_ok), int(comp_ok), int(look_ok)],
-                         device=dev)
+    flags = torch.tensor([int(step_ok), int(comp_ok), int(look_ok),
+                          int(full_ok)], device=dev)
     dist.all_reduce(flags, dist.ReduceOp.MIN)
     if rank == 0:
         emit({"world": world, "backend": dist.get_backend(),
@@ -4560,15 +4685,17 @@ def dist_main() -> int:
               "losses_mesh": lb, "step_equal": bool(flags[0]),
               "compressed_equal": bool(flags[1]),
               "mod_lookup_equal": bool(flags[2]),
+              "full_width_ok": bool(flags[3]), "full_train": full_train,
+              "full_serve": full_serve,
               "seconds": time.perf_counter() - t0})
     dist.destroy_process_group()
     return 0 if bool(flags.all()) else 1
 
 
 def phase_distributed() -> dict:
-    """``dist_main`` under ``torchrun --nproc-per-node=<cards>``, then
-    ``torchrun ... -m repro_torch.launch.train --arch granite-8b --smoke
-    --steps 20``; both must exit 0."""
+    """``dist_main`` under ``torchrun --nproc-per-node=<cards>`` and,
+    beside it, ``torchrun ... -m repro_torch.launch.train --arch
+    granite-8b --smoke --steps 20``; both must exit 0."""
     import os
     import tempfile
 
@@ -4579,7 +4706,14 @@ def phase_distributed() -> dict:
                CUBLAS_WORKSPACE_CONFIG=":4096:8")
     run = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            f"--nproc-per-node={count}"]
+    # the launcher's torchrun beside the checks' (an exit code to check)
+    ckpt = tempfile.TemporaryDirectory()
     t0 = time.perf_counter()
+    launch = subprocess.Popen(run + DIST_LAUNCHER + ["--ckpt-dir", ckpt.name],
+                              cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True,
+                              start_new_session=True)
+    atexit.register(stop_groups, [launch])
     checks = subprocess.run(run + [str(Path(__file__).resolve()),
                                    "--distributed"], cwd=ROOT, env=env,
                             capture_output=True, text=True, timeout=600)
@@ -4591,17 +4725,16 @@ def phase_distributed() -> dict:
         fail(f"distributed checks exited {checks.returncode}: "
              f"{checks.stdout[-1500:]} {err[first:first + 3000]}")
     rec = json.loads(lines[-1])
-    with tempfile.TemporaryDirectory() as ckpt:
-        t0 = time.perf_counter()
-        launch = subprocess.run(run + DIST_LAUNCHER + ["--ckpt-dir", ckpt],
-                                cwd=ROOT, env=env, capture_output=True,
-                                text=True, timeout=600)
+    try:
+        out, err = launch.communicate(timeout=600)
+    finally:
+        stop_groups([launch])
+        ckpt.cleanup()
     if launch.returncode:
-        fail(f"torchrun launcher exited {launch.returncode}: "
-             f"{launch.stderr[-3000:]}")
+        fail(f"torchrun launcher exited {launch.returncode}: {err[-3000:]}")
     return {"cards": count, "checks": rec, "checks_s": checks_s,
             "launcher_s": time.perf_counter() - t0,
-            "launcher_tail": launch.stdout.strip().splitlines()[-4:]}
+            "launcher_tail": out.strip().splitlines()[-4:]}
 
 
 def start_dryrun() -> list:
@@ -4651,9 +4784,11 @@ def stop_groups(procs) -> None:
 
 def phase_dryrun(procs) -> dict:
     """Wait for ``start_dryrun``'s processes (each must exit 0, every
-    cell ``ok``); per cell FLOPs, bytes, collective bytes, argument and
-    peak bytes per device, whether that peak fits 80 GB, and the
-    dominant term; the perf variants' lines."""
+    cell ``ok``); per cell FLOPs, bytes, collective bytes by kind,
+    argument and peak bytes per device, whether that peak fits 80 GB,
+    and the dominant term (``lm_cells``: the LM cells' FLOPs, peak,
+    ``fits_80gb`` and collective bytes by kind); the perf variants'
+    lines."""
     cells, secs, outs = [], [], []
     for cmd, t0, p in procs:
         try:
@@ -4673,12 +4808,16 @@ def phase_dryrun(procs) -> dict:
         cells.append({k: r[k] for k in (
             "arch", "shape", "mesh", "flops_per_device", "bytes_per_device",
             "argument_bytes_per_device", "peak_bytes_per_device",
-            "fits_80gb", "dominant", "t_compute_s", "t_memory_s", "t_collective_s")}
-            | {"collective_bytes_per_device":
-               r["collective_bytes_per_device"]["total"]})
+            "fits_80gb", "dominant", "t_compute_s", "t_memory_s",
+            "t_collective_s", "collective_bytes_per_device")})
     if len(cells) != 38 + len(DRYRUN_MULTI):
         fail(f"dryrun: {len(cells)} cell records")
-    return {"cells": cells, "process_s": secs,
+    from repro_torch.configs import registry
+    lm = [{k: c[k] for k in ("arch", "shape", "mesh", "flops_per_device",
+                             "peak_bytes_per_device", "fits_80gb",
+                             "collective_bytes_per_device")}
+          for c in cells if registry.get_spec(c["arch"]).family == "lm"]
+    return {"cells": cells, "lm_cells": lm, "process_s": secs,
             "perf": [ln for ln in outs[-1].splitlines()
                      if ln.startswith("[")]}
 

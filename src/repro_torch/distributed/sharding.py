@@ -20,8 +20,11 @@ names, ``Replicate()`` on the others. Conventions, as in ``repro``:
   core graph replicated.
 
 How the port's step computes on such a state is ``train/steps.py``'s
-mesh path; this module says where each array lives, and ``ModelCall``
-how a model call on one rank reads its parameters from there.
+mesh path; this module says where each array lives, ``ModelCall`` how
+a model call on one rank reads its parameters from there, and its
+region operators (``torch.autograd.Function``s over the
+``_c10d_functional`` collectives, which the dry run traces and counts)
+how a rank's part of a split computation joins the others'.
 """
 from __future__ import annotations
 
@@ -178,11 +181,26 @@ def local(x):
     return x.to_local() if isinstance(x, DTensor) else x
 
 
-def from_local(x: torch.Tensor, sharding: NamedSharding) -> DTensor:
+def contiguous_stride(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape`` (computed, not
+    read off an allocation: the dry run counts a meta tensor's bytes)."""
+    stride, n = [], 1
+    for d in reversed(tuple(shape)):
+        stride.append(n)
+        n *= max(d, 1)
+    return tuple(reversed(stride))
+
+
+def from_local(x: torch.Tensor, sharding: NamedSharding,
+               shape=None) -> DTensor:
     """This rank's shard ``x`` as the DTensor laid out by ``sharding``
-    (nothing moves)."""
+    (nothing moves); ``shape``: the global shape, needed where the
+    blocks are uneven."""
+    kw = {}
+    if shape is not None:
+        kw = dict(shape=torch.Size(shape), stride=contiguous_stride(shape))
     return DTensor.from_local(x, sharding.mesh, sharding.placements,
-                              run_check=False)
+                              run_check=False, **kw)
 
 
 def sum_to(x: torch.Tensor, mesh, axes: tuple, n: int, layout) -> DTensor:
@@ -210,34 +228,235 @@ def mean_over(x: torch.Tensor, mesh, axes: tuple, n: int) -> torch.Tensor:
                   tuple(Replicate() for _ in names)).to_local()
 
 
+# ------------------------------------------------ tensor-parallel regions
+def _c10d():
+    return torch.ops._c10d_functional
+
+
+def all_reduce(x, group, op: str = "sum"):
+    """``x`` reduced over ``group`` (``"sum"`` or ``"max"``), on every
+    rank; no gradient."""
+    c = _c10d()
+    return c.wait_tensor(c.all_reduce(x.contiguous(), op, group.group_name))
+
+
+def all_gather(x, group, n: int, dim: int = 0):
+    """The ``n`` ranks' ``x`` of ``group`` concatenated along ``dim`` in
+    rank order; no gradient."""
+    c = _c10d()
+    out = c.wait_tensor(c.all_gather_into_tensor(
+        x.movedim(dim, 0).contiguous(), n, group.group_name))
+    return out.movedim(0, dim)
+
+
+def reduce_scatter(x, group, n: int, dim: int = 0):
+    """This rank's block along ``dim`` (of ``n`` equal blocks) of the sum
+    of the ranks' ``x``; no gradient."""
+    c = _c10d()
+    out = c.wait_tensor(c.reduce_scatter_tensor(
+        x.movedim(dim, 0).contiguous(), "sum", n, group.group_name))
+    return out.movedim(0, dim)
+
+
+class _ToModel(torch.autograd.Function):
+    """Identity forward, all-reduce backward: a replicated input entering
+    a region where each rank computes a part (its gradient is the sum
+    of the parts' gradients)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class _FromModel(torch.autograd.Function):
+    """All-reduce forward, identity backward: the ranks' partial results
+    summed into the replicated one."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather forward along ``dim``, reduce-scatter backward: each
+    rank's block entering a region where each rank computes a part."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, dim):
+        ctx.group, ctx.n, ctx.dim = group, n, dim
+        return all_gather(x, group, n, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.group, ctx.n, ctx.dim), None, None, None
+
+
+class _Scatter(torch.autograd.Function):
+    """Reduce-scatter forward along ``dim``, all-gather backward: the
+    ranks' partial arrays summed, each rank keeping its block."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, dim):
+        ctx.group, ctx.n, ctx.dim = group, n, dim
+        return reduce_scatter(x, group, n, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, ctx.n, ctx.dim), None, None, None
+
+
+def chunk_range(n: int, parts: int, index: int) -> tuple:
+    """Block ``index`` of ``n`` rows cut into ``parts`` by ``Shard``'s
+    rule (``torch.chunk``: blocks of ceil(n / parts), the last ones
+    shorter or empty), as ``(start, stop)``."""
+    chunk = -(-n // parts)
+    start = min(index * chunk, n)
+    return start, min(start + chunk, n)
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelCall:
     """How a model call runs on this rank of a mesh step: the models'
-    ``dist`` argument (``models/transformer.py``, ``models/moe.py``).
-    ``dp`` are the mesh axes the call's batch is split over (empty:
-    every rank runs the whole batch); an MoE routes its shard as part of
-    the whole batch over them.
+    ``dist`` argument (``models/transformer.py``, ``models/moe.py``,
+    ``models/attention.py``). ``dp`` are the mesh axes the call's batch
+    is split over (empty: every rank runs the whole batch); an MoE
+    routes its shard as part of the whole batch over them. ``model`` is
+    the mesh axis the model's compute is split over (``repro``'s
+    tensor, vocabulary and expert parallelism; ``tp``), or None: every
+    rank computes the whole model (``compress_pods``, DIEN, the GNNs).
 
     The model receives its parameters as DTensors laid out by the rules
-    and reads each one whole where it uses it (``whole``: FSDP's
-    all-gather, per layer for a stacked LM), so only the parameters in
-    use are whole at a time. Under autograd the gradient of ``whole``
-    comes back as this rank's contribution summed over ``dp`` into the
-    parameter's layout (a reduce-scatter where the layout shards it, an
-    all-reduce where it does not): a sum, which the step divides by the
-    number of batch shards."""
+    and reads each one where it uses it, per layer for a stacked LM:
+
+    * ``whole``: every axis gathered (FSDP's all-gather), for what every
+      rank of a ``model`` group computes alike (norms, routers, the
+      DIEN and GNN parameters). Its gradient is taken as the same on
+      every ``model`` rank.
+    * ``shard``: the FSDP axes gathered, this rank's ``model`` block
+      left in place (a column or row block of a tensor-parallel matrix,
+      a vocabulary block, an expert block). Its gradient is this rank's
+      block's.
+    * ``gathered``: every axis gathered for a rank that uses a part of
+      it only (the KV projections, query heads not aligned with the
+      blocks: ``models/attention.py``). Its gradient is summed over the
+      ``model`` ranks.
+
+    Under autograd the gradient of each read comes back as this rank's
+    contribution summed over ``dp`` into the parameter's layout (a
+    reduce-scatter where the layout shards it, an all-reduce where it
+    does not): a sum, which the step divides by the number of batch
+    shards. The region operators (``to_model``, ``from_model``,
+    ``gather_model``; ``scatter_dp``, ``gather_dp`` over the batch axes)
+    carry activations into and out of the parts."""
     mesh: object
     dp: tuple = ()
+    model: str | None = "model"
+
+    @property
+    def tp(self) -> bool:
+        """Whether the model's compute is split over ``model``."""
+        return self.model is not None
+
+    def _read(self, p, keep_model: bool, model_grad):
+        if not isinstance(p, DTensor):
+            raise TypeError("a mesh model call reads DTensor parameters")
+        names = tuple(self.mesh.mesh_dim_names)
+        layout = tuple(pl if keep_model and a == self.model else Replicate()
+                       for a, pl in zip(names, p.placements))
+        grad = tuple(Partial() if a in self.dp else
+                     (layout[i] if model_grad is None else model_grad)
+                     if a == self.model else
+                     layout[i] for i, a in enumerate(names))
+        return p.redistribute(self.mesh, layout).to_local(
+            grad_placements=grad)
 
     def whole(self, p):
         """Parameter ``p`` whole as a plain tensor (a plain ``p`` as it
         is; the class docstring)."""
         if not isinstance(p, DTensor):
             return p
-        grad = tuple(Partial() if a in self.dp else Replicate()
-                     for a in self.mesh.mesh_dim_names)
-        return p.redistribute(self.mesh, [Replicate()] * self.mesh.ndim) \
-            .to_local(grad_placements=grad)
+        return self._read(p, False, Replicate())
+
+    def shard(self, p):
+        """This rank's ``model`` block of ``p`` (the class docstring)."""
+        return self._read(p, True, None)
+
+    def gathered(self, p):
+        """``p`` whole for a rank that uses a part (the class
+        docstring)."""
+        return self._read(p, False, Partial())
+
+    def model_dim(self, p):
+        """The dim of DTensor ``p`` that ``model`` shards, or None."""
+        i = tuple(self.mesh.mesh_dim_names).index(self.model)
+        pl = p.placements[i]
+        return pl.dim if isinstance(pl, Shard) else None
+
+    def model_group(self):
+        return self.mesh.get_group(self.model)
+
+    def model_size(self) -> int:
+        return self.mesh.size(tuple(self.mesh.mesh_dim_names).index(
+            self.model))
+
+    def model_rank(self) -> int:
+        return self.mesh.get_local_rank(self.model)
+
+    def model_range(self, n: int, rank: int | None = None) -> tuple:
+        """``(start, stop)`` of this rank's (or ``rank``'s) ``model``
+        block of a dim of ``n`` (``chunk_range``)."""
+        return chunk_range(n, self.model_size(),
+                           self.model_rank() if rank is None else rank)
+
+    def to_model(self, x):
+        """``x`` (the same on every ``model`` rank) entering a split
+        region: identity forward, all-reduce backward."""
+        return _ToModel.apply(x, self.model_group())
+
+    def from_model(self, x):
+        """The ``model`` ranks' partial ``x`` summed: all-reduce forward,
+        identity backward."""
+        return _FromModel.apply(x, self.model_group())
+
+    def gather_model(self, x, dim: int = 0):
+        """The ``model`` ranks' blocks of ``x`` concatenated along
+        ``dim``: all-gather forward, reduce-scatter backward."""
+        return _Gather.apply(x, self.model_group(), self.model_size(), dim)
+
+    def _dp_groups(self) -> list:
+        names = tuple(self.mesh.mesh_dim_names)
+        return [(self.mesh.get_group(a), self.mesh.size(names.index(a)))
+                for a in self.dp]
+
+    def scatter_dp(self, x, dim: int):
+        """The sum over the batch shards of each one's ``x``, this rank's
+        block of it along ``dim`` (blocks in the batch's shard order):
+        reduce-scatter forward over each ``dp`` axis, major first;
+        all-gather backward. ``x.shape[dim]`` must divide evenly."""
+        for group, n in self._dp_groups():
+            x = _Scatter.apply(x, group, n, dim)
+        return x
+
+    def gather_dp(self, x, dim: int):
+        """``scatter_dp``'s inverse layout: every batch shard's block of
+        ``x`` along ``dim``, concatenated (all-gather forward,
+        reduce-scatter backward)."""
+        for group, n in reversed(self._dp_groups()):
+            x = _Gather.apply(x, group, n, dim)
+        return x
+
+    def max_over_model(self, x):
+        """The elementwise max over the ``model`` ranks; no gradient."""
+        return all_reduce(x.detach(), self.model_group(), "max")
 
     def unstack(self, p) -> list:
         """The layers of stacked parameter ``p`` (its leading dim, which
@@ -251,7 +470,7 @@ class ModelCall:
         layer = tuple(Shard(pl.dim - 1) if isinstance(pl, Shard) else pl
                       for pl in p.placements)
         shape = p.shape[1:]
-        stride = torch.empty(shape, device="meta").stride()
+        stride = contiguous_stride(shape)
         return [DTensor.from_local(c, self.mesh, layer, run_check=False,
                                    shape=shape, stride=stride)
                 for c in p.to_local().unbind(0)]
@@ -273,3 +492,9 @@ class ModelCall:
                   for a in self.mesh.mesh_dim_names]
         return DTensor.from_local(x.detach()[None], self.mesh, layout,
                                   run_check=False).full_tensor()
+
+
+def tp(dist) -> bool:
+    """Whether a model call splits its compute over ``model`` (a mesh
+    call with a ``model`` axis; not ``compress_pods``'s)."""
+    return dist is not None and dist.tp

@@ -15,6 +15,8 @@ dtype, ``apply_rope`` rotates in fp32 by promotion and casts back once,
 ``swiglu`` runs in ``dtype``. Their modules take a leading ``lead``
 shape: the LM stacks its layers' parameters on a leading axis, as
 ``repro`` does (``blocks.ln1.scale`` is ``[L, E]``).
+``vocab_cross_entropy`` is ``softmax_cross_entropy`` over logits split
+by vocabulary over a mesh's ``model`` axis.
 """
 from __future__ import annotations
 
@@ -199,6 +201,39 @@ def softmax_cross_entropy(logits, labels, z_loss: float = 0.0,
     else:
         ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * torch.square(lse)
+    return loss
+
+
+def vocab_cross_entropy(logits, labels, start: int, dist, z_loss: float = 0.0,
+                        impl: str = "gather"):
+    """``softmax_cross_entropy`` of logits whose last dim is this rank's
+    vocabulary block ``[start, start + n)`` (``dist``: a tensor-parallel
+    ``distributed.sharding.ModelCall``; no rank holds [..., V] whole).
+
+    Each rank takes its block's ``logsumexp``; the max of those over the
+    ``model`` ranks (no gradient), the sum of their exponentials
+    relative to it, and the target's logit (read by the rank whose block
+    holds it, 0 elsewhere) are all-reduced over ``model``. On one rank
+    the arithmetic is ``softmax_cross_entropy``'s (the block's lse plus
+    log 1)."""
+    logits = logits.to(torch.float32)
+    part = torch.logsumexp(logits, dim=-1)
+    top = dist.max_over_model(part)
+    lse = top + torch.log(dist.from_model(torch.exp(part - top)))
+    n = logits.shape[-1]
+    local = labels.long() - start
+    if impl == "iota":
+        iota = torch.arange(n, device=logits.device)
+        ll = torch.sum(torch.where(local[..., None] == iota, logits, 0.0),
+                       dim=-1)
+    else:
+        mine = (local >= 0) & (local < n)
+        ll = torch.gather(logits, -1,
+                          torch.where(mine, local, 0)[..., None])[..., 0]
+        ll = torch.where(mine, ll, 0.0)
+    loss = lse - dist.from_model(ll)
     if z_loss:
         loss = loss + z_loss * torch.square(lse)
     return loss

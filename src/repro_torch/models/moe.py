@@ -22,18 +22,40 @@ assignments of the shards before it (an all-gather of per-expert counts
 in the batch's shard order), and the load-balance loss takes its means
 over every token. The loss's gradient through this rank's router
 probabilities is scaled by the shard count, so that the mean over the
-ranks the step takes is the whole batch's gradient. Each rank then runs
-the expert products over the whole buffer (its own tokens' rows filled,
-the rest zero), which gives each token's row as the whole buffer would;
-the buffer is the global batch's on every rank (ROADMAP queue 1: no
-expert-parallel dispatch).
+ranks the step takes is the whole batch's gradient. The router is read
+whole and every rank of a ``model`` group routes the same tokens alike.
 
-``dispatch_shard`` and ``set_dispatch_mesh`` are ``repro``'s layout
-constraint on the dispatch buffer (experts over ``model``, capacity over
-the data axes). The port's mesh step runs the expert products on every
-rank of a ``model`` group, on gathered weights, so the buffer has no
-layout to constrain: the field is accepted and ``set_dispatch_mesh``
-does nothing.
+The expert products are split over ``model`` as ``lm_rules`` lays the
+expert weights out (read from their placement):
+
+* experts over ``model`` (kimi-k2: 384 experts on 16 ranks): a rank
+  fills and multiplies only its own experts' rows of the dispatch
+  buffer (``[n_total / |model| * capacity + 1, E]``); the tokens are the
+  same on every rank of the group, so none moves.
+* each expert's ffn over ``model`` (qwen2-moe: 60 % 16 != 0): every
+  rank fills the whole buffer and multiplies it by its columns of
+  ``w_gate``/``w_up`` and its rows of ``w_down``.
+
+Either way a rank's combine is a partial sum of each token's output;
+the shared experts' SwiGLU (its ffn dim over ``model``) adds its own
+partial output, and one all-reduce over ``model`` sums them. The
+tokens and the gate weights enter through ``ModelCall.to_model`` (their
+gradients all-reduced). The buffer holds the global (micro-)batch's
+capacity rows on every rank: each rank fills its own tokens' rows, the
+rest stay zero (ROADMAP: no all-to-all over the data axes).
+
+``dispatch_shard`` is ``repro``'s layout constraint on the dispatch
+buffer, ``(experts, dp, None)``: experts over ``model`` where the
+expert count divides it (the weights' layout above), and the capacity
+over the batch axes. On a mesh it takes effect: each rank's buffer
+(its experts' rows of the global capacity, its own tokens filled) is
+padded to a capacity that the batch shards divide, reduce-scattered
+over the ``dp`` axes along the capacity (each slot is filled by one
+shard, so the sum is that shard's row), multiplied as this rank's block
+of the capacity, and all-gathered back for the combine: the expert
+products' FLOPs fall by the number of batch shards, the buffer's bytes
+do not. ``set_dispatch_mesh`` is ``repro``'s setter for that mesh; the
+port's model calls take it as ``dist`` and it does nothing.
 """
 from __future__ import annotations
 
@@ -44,6 +66,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from repro_torch.distributed import sharding as SHD
 from repro_torch.models import layers as L
 
 
@@ -56,7 +79,7 @@ class MoEConfig:
     d_shared_ff: int = 0          # 0 -> n_shared * d_expert_ff
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.001
-    dispatch_shard: bool = False  # repro's layout hint; no effect here
+    dispatch_shard: bool = False  # capacity over the batch axes on a mesh
     ep_pad: int = 0               # pad the expert count (60 -> 64); padded
                                   # experts get no routed tokens
     combine_impl: str = "gather"  # "scatter": segment-sum combine
@@ -67,8 +90,8 @@ class MoEConfig:
 
 
 def set_dispatch_mesh(mesh):
-    """``repro``'s dispatch-buffer layout hint: nothing to constrain in
-    the port's mesh step (the module docstring)."""
+    """``repro``'s dispatch-buffer mesh setter: the port's model calls
+    take their mesh as ``dist`` (the module docstring)."""
     del mesh
 
 
@@ -153,16 +176,39 @@ def route(p, cfg: MoEConfig, xf, dtype=torch.bfloat16,
 def moe_ffn(p, cfg: MoEConfig, x, *, dtype=torch.bfloat16, dist=None):
     """x: [B, S, E] -> ([B, S, E], aux_loss); ``dist`` the mesh call
     (the module docstring)."""
+    if SHD.tp(dist):
+        return _tp_moe(p, cfg, x, dtype, dist)
     b, s, e = x.shape
     t = b * s
     xf = x.reshape(t, e)
     r = route(p, cfg, xf, dtype, dist)
-    n, k, cap = cfg.n_total, cfg.top_k, r.cap
+    y = _experts(p, cfg, xf, r, r.gate_v, r.slot, cfg.n_total, dtype)
+    if cfg.n_shared:
+        y = y + L.swiglu(p["shared"], xf.to(dtype), dtype)
+    return y.reshape(b, s, e), _aux(cfg, r, t, dist)
+
+
+def _experts(p, cfg: MoEConfig, xf, r: Routing, gate_v, slot, n: int,
+             dtype, dist=None):
+    """The routed experts' output [T, E]: ``xf``'s assignments scattered
+    to their buffer rows ``slot`` (``n`` experts of ``r.cap`` rows, the
+    last row the drop row), the products with ``p``'s ``n`` experts, and
+    the combine weighted by ``gate_v``. With ``dist`` the products run
+    on this rank's block of the capacity (``dispatch_shard``: the module
+    docstring)."""
+    t, e = xf.shape
+    k, cap = cfg.top_k, r.cap
     token_of = r.order // k
 
     buf = xf.new_zeros((n * cap + 1, e), dtype=dtype)
-    buf[r.slot] = xf[token_of].to(dtype)
+    buf[slot] = xf[token_of].to(dtype)
     xe = buf[:-1].view(n, cap, e)
+    if dist is not None:
+        shards, _ = _shards(dist)
+        pad = -cap % shards
+        if pad:
+            xe = torch.cat([xe, xe.new_zeros((n, pad, e))], 1)
+        xe = dist.scatter_dp(xe, 1)
 
     g = torch.bmm(xe, p["w_gate"].to(dtype))
     u = torch.bmm(xe, p["w_up"].to(dtype))
@@ -170,44 +216,70 @@ def moe_ffn(p, cfg: MoEConfig, x, *, dtype=torch.bfloat16, dist=None):
     # cast then reuses the block w_up's cast freed (21 GB on kimi-k2)
     w_down = p["w_down"].to(dtype)
     he = torch.bmm(F.silu(g) * u, w_down)
+    if dist is not None:
+        he = dist.gather_dp(he, 1)[:, :cap]
     he_flat = torch.cat([he.reshape(n * cap, e), he.new_zeros((1, e))], 0)
 
     if cfg.combine_impl == "scatter":
         # each buffer row scatters back to its token with its gate weight
-        gate_sorted = r.gate_v.reshape(-1)[r.order]                # [T*K]
+        gate_sorted = gate_v.reshape(-1)[r.order]                  # [T*K]
         tok_slot = torch.full((n * cap + 1,), t, dtype=torch.int64,
-                              device=x.device)
-        tok_slot[r.slot] = token_of
+                              device=xf.device)
+        tok_slot[slot] = token_of
         gate_slot = xf.new_zeros((n * cap + 1,), dtype=torch.float32)
-        gate_slot[r.slot] = gate_sorted
+        gate_slot[slot] = gate_sorted
         weighted = he_flat * gate_slot[:, None].to(dtype)
-        y = he_flat.new_zeros((t + 1, e)).index_add_(0, tok_slot, weighted)[:t]
-    else:
-        # gather back: assignment (t, k)'s contribution lives at its slot
-        slot_by_assign = torch.empty_like(r.slot)
-        slot_by_assign[r.order] = r.slot
-        contrib = he_flat[slot_by_assign].view(t, k, e)
-        y = torch.sum(contrib * r.gate_v[..., None].to(dtype), dim=1)
+        return he_flat.new_zeros((t + 1, e)).index_add_(
+            0, tok_slot, weighted)[:t]
+    # gather back: assignment (t, k)'s contribution lives at its slot
+    slot_by_assign = torch.empty_like(slot)
+    slot_by_assign[r.order] = slot
+    contrib = he_flat[slot_by_assign].view(t, k, e)
+    return torch.sum(contrib * gate_v[..., None].to(dtype), dim=1)
 
-    if cfg.n_shared:
-        y = y + L.swiglu(p["shared"], xf.to(dtype), dtype)
 
-    # Switch-style load-balance auxiliary loss (over the real experts)
+def _aux(cfg: MoEConfig, r: Routing, t: int, dist):
+    """Switch-style load-balance auxiliary loss (over the real experts)."""
     hot = F.one_hot(r.top_i[:, 0], cfg.n_experts).to(torch.float32)
     scale = cfg.router_aux_weight * cfg.n_experts
     shards, _ = _shards(dist)
     if shards == 1:
         me = torch.mean(r.probs, dim=0)                            # [N]
         ce = torch.mean(hot, dim=0)
-        aux = scale * torch.sum(me * ce)
-    else:
-        # means over every shard's tokens; the gradient through this
-        # shard's probabilities times the shard count (the module
-        # docstring), the value the whole batch's
-        t_all = t * shards
-        ce = dist.all_shards(hot.sum(0)).sum(0) / t_all
-        me = dist.all_shards(r.probs.sum(0)).sum(0) / t_all
-        own = shards * scale * torch.sum(r.probs.sum(0) / t_all * ce)
-        aux = scale * torch.sum(me * ce) + (own - own.detach())
-    return y.reshape(b, s, e), aux
+        return scale * torch.sum(me * ce)
+    # means over every shard's tokens; the gradient through this shard's
+    # probabilities times the shard count (the module docstring), the
+    # value the whole batch's
+    t_all = t * shards
+    ce = dist.all_shards(hot.sum(0)).sum(0) / t_all
+    me = dist.all_shards(r.probs.sum(0)).sum(0) / t_all
+    own = shards * scale * torch.sum(r.probs.sum(0) / t_all * ce)
+    return scale * torch.sum(me * ce) + (own - own.detach())
 
+
+def _tp_moe(p, cfg: MoEConfig, x, dtype, dist):
+    """``moe_ffn`` on a mesh: the experts or their ffns split over
+    ``model`` (the module docstring)."""
+    b, s, e = x.shape
+    t = b * s
+    xf = x.reshape(t, e)
+    r = route({"router": dist.whole(p["router"])}, cfg, xf, dtype, dist)
+    xin, gate = dist.to_model(xf), dist.to_model(r.gate_v)
+    w = {k: dist.shard(p[k]) for k in ("w_gate", "w_up", "w_down")}
+    split = dist.model_dim(p["w_gate"])
+    if split == 0:                 # experts over model: this rank's block
+        n = w["w_gate"].shape[0]
+        first = dist.model_range(cfg.n_total)[0]
+        local = r.slot - first * r.cap
+        slot = torch.where((local >= 0) & (local < n * r.cap), local,
+                           torch.full_like(local, n * r.cap))
+    elif split == 2:               # each expert's ffn over model
+        n, slot = cfg.n_total, r.slot
+    else:
+        raise ValueError("the expert weights are not split over model")
+    y = _experts(w, cfg, xin, r, gate, slot, n, dtype,
+                 dist if cfg.dispatch_shard and dist.dp else None)
+    if cfg.n_shared:
+        y = y + L.swiglu({k: dist.shard(v) for k, v in p["shared"].items()},
+                         xin.to(dtype), dtype)
+    return dist.from_model(y).reshape(b, s, e), _aux(cfg, r, t, dist)

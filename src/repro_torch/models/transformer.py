@@ -34,21 +34,47 @@ is the parameter tree on the ``meta`` device.
 
 On a mesh every entry point takes ``dist`` (``distributed/sharding.
 ModelCall``) and its parameters as DTensors laid out by the rules, and
-reads each parameter whole only where it is used (``dist.whole``: an
-all-gather): the embedding for the token rows, each layer's parameters
-at the start of that layer (inside its remat region, so the forward
-frees them after the layer and the recompute gathers them again), the
-final norm and unembedding at the end. So one layer's parameters are
-whole at a time, as FSDP gathers them; without remat autograd keeps
-every layer's for the backward.
+reads each parameter only where it is used, each layer's at the start
+of that layer (inside its remat region, so the forward frees them after
+the layer and the recompute reads them again): one layer's parameters
+are gathered over the FSDP axes at a time; without remat autograd keeps
+every layer's for the backward. The compute is split over ``model`` as
+``repro``'s rules split the weights (GSPMD's split of ``repro``'s
+matmuls):
+
+* attention: each rank its query heads (``models/attention.py``), the
+  partial outputs all-reduced over ``model``;
+* SwiGLU: ``w_gate``/``w_up`` by columns, ``w_down`` by rows, one
+  all-reduce an ffn; an MoE by experts or by each expert's ffn
+  (``models/moe.py``);
+* embedding: each rank reads the tokens whose rows lie in its block of
+  the vocabulary (``[V / |model|, E]``, rows by jnp's gather rule
+  through ``token_rows``; 0 elsewhere), summed over ``model``;
+* unembedding and loss: each rank's logits are its vocabulary block
+  (``[B, S, V / |model|]``; no rank holds [B, S, V]), and
+  ``layers.vocab_cross_entropy`` all-reduces the softmax's terms. Under
+  ``tie_embeddings`` the embedding's blocks serve both ends.
+
+Norms are read whole and computed alike on every rank of a ``model``
+group; the residual stream is the same on all of them. A split input
+enters through ``ModelCall.to_model`` (identity, its gradient
+all-reduced) and a partial output leaves through ``from_model`` (an
+all-reduce), so each gradient comes back whole on the ranks that
+compute with it. ``compress_pods``'s call (``dist.model`` None) runs the
+whole model on every rank on whole parameters.
+
+Serving on a mesh writes each rank's block of the cache's positions
+(``repro``'s layout ``(None, dp, "model", None, None)``): prefill takes
+the K and V of every KV head at the rank's positions
+(``attention.prefill_kv``), and decode attends over the rank's block and
+combines the ranks' softmax terms (``attention.decode_attention``).
 
 ``act_shard`` (``repro``'s sharding constraint on the residual stream,
 ``P(dp, None, "model")``) takes effect on a mesh: each layer's input is
 kept as this rank's ``model`` slice of the embed dim (a local chunk of
-a DTensor; every rank of a ``model`` group runs the same micro-batch)
-and gathered back inside the layer (an all-gather), so under remat the
-saved residuals take 1/|model| of the memory and the recompute gathers
-them again.
+a DTensor) and gathered back inside the layer (an all-gather), so
+under remat the saved residuals take 1/|model| of the memory and the
+recompute gathers them again.
 """
 from __future__ import annotations
 
@@ -60,10 +86,12 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
+from repro_torch.distributed import sharding as SHD
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.attention import (AttnConfig, Attention,
-                                          causal_attention, decode_attention)
+                                          causal_attention, decode_attention,
+                                          prefill_kv)
 from repro_torch.models.moe import MoE, MoEConfig, moe_ffn
 from repro_torch.tree import tree_map, unflatten_paths
 
@@ -250,16 +278,42 @@ def _whole(dist, tree):
 
 def _embed(params, cfg: LMConfig, tokens, dtype, dist=None):
     """``params["embed"].astype(dtype)[tokens]``: the rows are gathered
-    first, then cast (the same values, without a cast of the table)."""
+    first, then cast (the same values, without a cast of the table). On
+    a mesh each rank reads the rows of its vocabulary block, 0
+    elsewhere, summed over ``model`` (the module docstring)."""
     rows = token_rows(tokens, cfg.vocab)
-    return _whole(dist, params["embed"]).index_select(
-        0, rows.reshape(-1)).to(dtype).view(*tokens.shape, cfg.d_model)
+    if not SHD.tp(dist):
+        return _whole(dist, params["embed"]).index_select(
+            0, rows.reshape(-1)).to(dtype).view(*tokens.shape, cfg.d_model)
+    w = dist.shard(params["embed"])
+    lo, hi = _vocab_block(cfg, dist)
+    flat = rows.reshape(-1) - lo
+    mine = (flat >= 0) & (flat < hi - lo)
+    vals = w.index_select(0, torch.where(mine, flat, 0))
+    vals = torch.where(mine[:, None], vals, vals.new_zeros(()))
+    return dist.from_model(vals.to(dtype)).view(*tokens.shape, cfg.d_model)
+
+
+def _vocab_block(cfg: LMConfig, dist) -> tuple:
+    """This rank's block ``(start, stop)`` of the vocabulary; a rank
+    without one raises."""
+    if any(a >= b for a, b in (dist.model_range(cfg.vocab, r)
+                               for r in range(dist.model_size()))):
+        raise ValueError(f"a vocabulary of {cfg.vocab} leaves a model rank "
+                         "no row")
+    return dist.model_range(cfg.vocab)
 
 
 def _unembed(params, cfg: LMConfig, x, dtype, dist=None):
+    """fp32 logits [..., V]; on a mesh this rank's vocabulary block."""
     x = L.rmsnorm(_whole(dist, params["ln_f"]), x)
-    w = _whole(dist, params["embed"]).T if cfg.tie_embeddings else \
-        _whole(dist, params["unembed"])
+    if SHD.tp(dist):
+        w = dist.shard(params["embed"]).T if cfg.tie_embeddings else \
+            dist.shard(params["unembed"])
+        x = dist.to_model(x)
+    else:
+        w = _whole(dist, params["embed"]).T if cfg.tie_embeddings else \
+            _whole(dist, params["unembed"])
     return (x @ w.to(dtype)).to(torch.float32)
 
 
@@ -272,19 +326,29 @@ def _layers(params, n_layers: int, dist=None) -> list:
 
 
 def _ffn(cfg: LMConfig, lp, x, dtype, dist=None):
-    h = L.rmsnorm(lp["ln2"], x)
+    h = L.rmsnorm(_whole(dist, lp["ln2"]), x)
     if cfg.moe:
         return moe_ffn(lp["ffn"], cfg.moe, h, dtype=dtype, dist=dist)
+    if SHD.tp(dist):
+        w = {k: dist.shard(v) for k, v in lp["ffn"].items()}
+        return dist.from_model(L.swiglu(w, dist.to_model(h), dtype)), None
     return L.swiglu(lp["ffn"], h, dtype), None
 
 
+def _attn_in(lp, x, dist):
+    """The layer's attention input: ``rmsnorm`` by ``ln1``."""
+    return L.rmsnorm(_whole(dist, lp["ln1"]), x)
+
+
 def _block(cfg: LMConfig, dtype, dist, lp, x):
-    """One layer: ``x`` [B, S, E] -> (x, aux loss or None); ``lp``
-    gathered whole first on a mesh."""
-    lp = _whole(dist, lp)
+    """One layer: ``x`` [B, S, E] -> (x, aux loss or None); each
+    parameter read where it is used on a mesh (the module docstring;
+    whole for ``compress_pods``'s call)."""
+    if not SHD.tp(dist):
+        lp = _whole(dist, lp)
     h, _ = causal_attention(lp["attn"], cfg.attn_cfg(),
-                            L.rmsnorm(lp["ln1"], x), q_chunk=cfg.q_chunk,
-                            dtype=dtype)
+                            _attn_in(lp, x, dist), q_chunk=cfg.q_chunk,
+                            dtype=dtype, dist=dist)
     x = x + h
     f, a = _ffn(cfg, lp, x, dtype, dist)
     return x + f, a
@@ -367,7 +431,12 @@ def forward(params, cfg: LMConfig, tokens, dist=None):
 
 def lm_loss(params, cfg: LMConfig, tokens, targets, mask=None, dist=None):
     logits, aux = forward(params, cfg, tokens, dist)
-    loss = L.softmax_cross_entropy(logits, targets, impl=cfg.ce_impl)
+    if SHD.tp(dist):
+        loss = L.vocab_cross_entropy(logits, targets,
+                                     _vocab_block(cfg, dist)[0], dist,
+                                     impl=cfg.ce_impl)
+    else:
+        loss = L.softmax_cross_entropy(logits, targets, impl=cfg.ce_impl)
     if mask is not None:
         loss = torch.sum(loss * mask) / torch.clamp(torch.sum(mask), min=1.0)
     else:
@@ -390,36 +459,53 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int,
 def prefill(params, cfg: LMConfig, tokens, max_len: int, dist=None):
     """Full-sequence forward that also fills the KV cache. tokens int[B,
     S], S <= max_len. Returns (logits f32[B, 1, V] at the last position,
-    cache)."""
+    cache); on a mesh the logits' vocabulary block and the cache's block
+    of positions (the module docstring)."""
     dtype = compute_dtype(cfg)
     b, s = tokens.shape
     if s > max_len:
         raise ValueError(f"prefill of {s} tokens into a cache of {max_len}")
     x = _embed(params, cfg, tokens, dtype, dist)
-    cache = init_cache(cfg, b, max_len, dtype, tokens.device)
+    lo, hi = (0, max_len) if not SHD.tp(dist) else dist.model_range(max_len)
+    cache = init_cache(cfg, b, hi - lo, dtype, tokens.device)
+    stop = min(hi, s)
+    acfg = cfg.attn_cfg()
     for i, lp in enumerate(_layers(params, cfg.n_layers, dist)):
-        lp = _whole(dist, lp)
-        h, (k, v) = causal_attention(lp["attn"], cfg.attn_cfg(),
-                                     L.rmsnorm(lp["ln1"], x),
-                                     q_chunk=cfg.q_chunk, dtype=dtype)
-        cache["k"][i, :, :s] = k
-        cache["v"][i, :, :s] = v
+        if not SHD.tp(dist):
+            lp = _whole(dist, lp)
+        hn = _attn_in(lp, x, dist)
+        h, (k, v) = causal_attention(lp["attn"], acfg, hn,
+                                     q_chunk=cfg.q_chunk, dtype=dtype,
+                                     dist=dist)
+        if SHD.tp(dist):      # every rank reads (collectives), maybe none
+            k, v = prefill_kv(lp["attn"], acfg, hn, (k, v), lo,
+                              max(lo, stop), dtype, dist)
+            cache["k"][i, :, :k.shape[1]] = k
+            cache["v"][i, :, :v.shape[1]] = v
+        else:
+            cache["k"][i, :, :s] = k
+            cache["v"][i, :, :s] = v
         x = x + h
         x = x + _ffn(cfg, lp, x, dtype, dist)[0]
     cache["len"].fill_(s)
     return _unembed(params, cfg, x[:, -1:], dtype, dist), cache
 
 
-def decode_step(params, cfg: LMConfig, cache, last_tokens, dist=None):
+def decode_step(params, cfg: LMConfig, cache, last_tokens, dist=None,
+                max_len: int | None = None):
     """One-token decode. last_tokens int[B, 1]. Writes the cache in place;
-    returns (logits f32[B, 1, V], cache)."""
+    returns (logits f32[B, 1, V], cache). On a mesh ``cache`` is this
+    rank's block of ``max_len`` positions and the logits its vocabulary
+    block (the module docstring)."""
     dtype = compute_dtype(cfg)
     x = _embed(params, cfg, last_tokens, dtype, dist)
     for i, lp in enumerate(_layers(params, cfg.n_layers, dist)):
-        lp = _whole(dist, lp)
+        if not SHD.tp(dist):
+            lp = _whole(dist, lp)
         h, _, _ = decode_attention(lp["attn"], cfg.attn_cfg(),
-                                   L.rmsnorm(lp["ln1"], x), cache["k"][i],
-                                   cache["v"][i], cache["len"], dtype=dtype)
+                                   _attn_in(lp, x, dist), cache["k"][i],
+                                   cache["v"][i], cache["len"], dtype=dtype,
+                                   dist=dist, max_len=max_len)
         x = x + h
         x = x + _ffn(cfg, lp, x, dtype, dist)[0]
     cache["len"].add_(1)

@@ -37,33 +37,39 @@ the state gains ``err``), and is ignored without a ``pod`` axis, as in
 bundle carries ``shardings`` (``{"state": ..., "batch": ...}`` trees of
 ``distributed.sharding.NamedSharding``, ``repro``'s in_shardings) and
 ``place_state`` / ``place_batch`` lay a whole state or batch out as
-DTensors by them. The step is the same arithmetic. DTensor runs the
-optimizer shard by shard and inserts the collectives it needs (the
-global norm's all-reduce); the model's forward and backward have no
-DTensor strategy for every op they use (the embedding gather, the
-MoE's stable sort and its index writes, ``scatter_reduce``,
-``index_add_``), so each family's model runs on plain tensors, with
-explicit redistributions around it:
+DTensors by them. DTensor runs the optimizer shard by shard and inserts
+the collectives it needs (the global norm's all-reduce); the model's
+forward and backward have no DTensor strategy for every op they use
+(the embedding gather, the MoE's stable sort and its index writes,
+``scatter_reduce``, ``index_add_``), so each family's model runs on
+plain tensors, with explicit collectives around it:
 
-* Every train step hands the model its parameters as DTensors and a
-  ``ModelCall`` (``distributed/sharding.py``), through which the model
-  reads each parameter whole where it uses it (an all-gather); the
-  gradients come back summed over the batch's axes into each
-  parameter's layout (a reduce-scatter where it is sharded, an
+* LM (train, prefill, decode): the model splits its compute over
+  ``model`` as ``repro``'s rules split the weights (tensor-parallel
+  attention and SwiGLU, the vocabulary-parallel embedding, logits and
+  loss, the MoE by experts or by each expert's ffn:
+  ``models/transformer.py``). It reads each layer's parameters through
+  a ``ModelCall`` (``distributed/sharding.py``): gathered over the FSDP
+  axes, this rank's ``model`` block kept. Each rank runs its own shard
+  of the batch (``dp_axes``), the same on every rank of a ``model``
+  group. The gradients come back summed over the batch's axes into
+  each parameter's layout (a reduce-scatter where it is sharded, an
   all-reduce where it is not), and the step divides them by the number
-  of batch shards. An LM gathers one layer at a time
-  (``models/transformer.py``); DIEN and the GNNs gather every parameter
-  at the start of the loss. The ``model`` axis shards storage, not
-  compute: every rank of a ``model`` group runs the same micro-batch.
-* LM and DIEN: each rank runs its own shard of the batch (``dp_axes``).
-  An LM's batch is laid out by micro-batch under ``grad_accum``
-  (``NamedSharding.micro``), so each rank's micro-batch i is its share
-  of the global micro-batch i, and an MoE routes its share as part of
-  that micro-batch (``models/moe.py``).
+  of batch shards. An LM's batch is laid out by micro-batch under
+  ``grad_accum`` (``NamedSharding.micro``), so each rank's micro-batch i
+  is its share of the global micro-batch i, and an MoE routes its share
+  as part of that micro-batch (``models/moe.py``). The prefill and
+  decode cache [L, B, S, KV, Dh] takes ``repro``'s layout ``(None, dp,
+  "model", None, None)``: the batch over ``dp``, the sequence over
+  ``model``; the logits ``(dp, None, "model")``, each rank's block of
+  the vocabulary.
+* DIEN: each rank runs its batch shard and reads every parameter whole
+  at the start of the loss (its item table too).
 * GNNs: the batch (sharded over every axis) is gathered whole and every
   rank computes the same step (the parameters are replicated).
 * ``compress_pods``: the parameters are gathered whole before the model
-  call and the gradients go through ``distributed/compression``.
+  call, every rank computes the whole model (``ModelCall.model`` None),
+  and the gradients go through ``distributed/compression``.
 * ``islabel`` query: each rank gathers the label rows and core
   positions of every query from its own block of rows (a masked local
   gather and one all-reduce), the core edges are gathered whole, and
@@ -166,17 +172,17 @@ def build_lm_bundle(spec: ArchSpec, shape_name: str, device=None,
     name = f"{spec.arch_id}:{shape_name}:{shp.kind}"
     shardings = {}
     dist = None
+    ov = overrides or {}
+    compress = shp.kind == "train" and bool(ov.get("compress_pods")) and \
+        mesh is not None and "pod" in axis_names(mesh)
     if mesh is not None:
         dp = dp_axes(mesh)
         param_sh = _lm_param_shardings(spec, mesh)
-        dist = SHD.ModelCall(mesh, dp)
+        dist = SHD.ModelCall(mesh, dp, None if compress else "model")
 
     if shp.kind == "train":
-        ov = overrides or {}
         opt = make_optimizer(spec.optimizer,
                              warmup=int(ov.get("warmup", 2000)))
-        compress = bool(ov.get("compress_pods")) and mesh is not None \
-            and "pod" in axis_names(mesh)
 
         def loss_fn(params, batch):
             return T.lm_loss(params, cfg, batch["tokens"], batch["targets"],
@@ -211,11 +217,14 @@ def build_lm_bundle(spec: ArchSpec, shape_name: str, device=None,
                           static_meta=meta, mesh=mesh, shardings=shardings)
 
     if mesh is not None:
-        # the cache [L, B, S, KV, Dh] is sharded over dp on the batch and
-        # kept whole along the sequence: repro lays S over "model", which
-        # a step of this port's attention would gather back every call
-        cache_sh = {"k": _ns(mesh, None, dp), "v": _ns(mesh, None, dp),
+        # repro's cache_sh: the batch over dp, the sequence over "model"
+        cache_sh = {"k": _ns(mesh, None, dp, "model", None, None),
+                    "v": _ns(mesh, None, dp, "model", None, None),
                     "len": _ns(mesh)}
+        logits_sh = _ns(mesh, dp, None, "model")
+
+        def logits_out(logits, b):
+            return SHD.from_local(logits, logits_sh, (b, 1, cfg.vocab))
     if shp.kind == "prefill":
         def prefill_step(params, batch):
             with torch.no_grad():
@@ -230,8 +239,11 @@ def build_lm_bundle(spec: ArchSpec, shape_name: str, device=None,
                     logits, cache = T.prefill(
                         params, cfg, SHD.local(batch["tokens"]), shp.seq_len,
                         dist)
-                return (SHD.from_local(logits, _ns(mesh, dp)),
-                        {k: SHD.from_local(v, cache_sh[k])
+                b = batch["tokens"].shape[0]
+                kv = (cfg.n_layers, b, shp.seq_len, cfg.n_kv_heads, cfg.hd)
+                return (logits_out(logits, b),
+                        {k: SHD.from_local(v, cache_sh[k],
+                                           kv if k != "len" else ())
                          for k, v in cache.items()})
         return StepBundle(name=name, fn=fn, device=device,
                           static_meta={"cfg": cfg}, mesh=mesh,
@@ -252,9 +264,11 @@ def build_lm_bundle(spec: ArchSpec, shape_name: str, device=None,
                     logits, new = T.decode_step(
                         params, cfg, {k: SHD.local(v) for k, v in
                                       cache.items()},
-                        SHD.local(last_tokens), dist)
-                return (SHD.from_local(logits, _ns(mesh, dp)),
-                        {k: SHD.from_local(v, cache_sh[k])
+                        SHD.local(last_tokens), dist,
+                        max_len=cache["k"].shape[2])
+                return (logits_out(logits, last_tokens.shape[0]),
+                        {k: SHD.from_local(v, cache_sh[k],
+                                           tuple(cache[k].shape))
                          for k, v in new.items()})
         return StepBundle(name=name, fn=fn, device=device,
                           static_meta={"cfg": cfg}, mesh=mesh,
@@ -445,11 +459,24 @@ def _train_step(opt: Optimizer, grad_fn, dist=None, local_batch=None):
             grads = tree_map(lambda g: g / n_dp, grads)
         new_p, new_opt, gnorm = opt.update(grads, state["opt"],
                                            state["params"], state["step"])
-        return ({"params": new_p, "opt": new_opt, "step": state["step"] + 1},
+        return ({"params": _as_before(new_p, state["params"]),
+                 "opt": _as_before(new_opt, state["opt"]),
+                 "step": state["step"] + 1},
                 {"loss": SHD.mean_over(loss, mesh, dp, n_dp),
                  "gnorm": SHD.gather(gnorm)})
 
     return train_step
+
+
+def _as_before(new, old):
+    """Each DTensor of ``new`` in the placements of its leaf in ``old``:
+    DTensor's strategies may lay an optimizer's result out otherwise
+    (Adafactor's factored product, ``rfac ⊗ vc``)."""
+    def one(n, o):
+        if isinstance(n, DTensor) and n.placements != o.placements:
+            return n.redistribute(o.device_mesh, o.placements)
+        return n
+    return tree_map(one, new, old)
 
 
 def _compressed_train_step(opt: Optimizer, grad_fn, mesh, local_batch):
@@ -475,7 +502,8 @@ def _compressed_train_step(opt: Optimizer, grad_fn, mesh, local_batch):
                 mesh, old.placements), new_err, state["err"])
         new_p, new_opt, gnorm = opt.update(grads, state["opt"],
                                            state["params"], state["step"])
-        return ({"params": new_p, "opt": new_opt, "err": new_err,
+        return ({"params": _as_before(new_p, state["params"]),
+                 "opt": _as_before(new_opt, state["opt"]), "err": new_err,
                  "step": state["step"] + 1},
                 {"loss": loss, "gnorm": SHD.gather(gnorm)})
 

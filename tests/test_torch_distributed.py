@@ -14,11 +14,24 @@ step and to ``repro``'s own step jitted without shardings at rtol and
 atol 1e-5 (``tests/test_torch_lm_train.py``'s ``FP32``): the mesh sums
 the gradients of the two data shards in another order. The elastic
 restore is bitwise.
+
+On the mesh an LM splits its compute over ``model`` as ``repro``'s rules
+split its weights (tensor-parallel blocks, the vocabulary-parallel
+embedding and loss, the MoE by experts or by each expert's ffn). The
+step cases cover each split: granite and the ``+heads3`` variant (3
+query heads on 1 KV head, blocks not aligned with heads), qwen2-moe
+(4 experts on ``model`` 2: experts split), ``+experts3`` (3 experts:
+each expert's ffn split) and ``+dispatch`` (``dispatch_shard``: the
+buffer's capacity over ``data`` too), kimi-k2 (experts split,
+Adafactor). The
+serving case holds a 16-token prefill and 8 greedy decode steps over
+the sequence-sharded cache to the unsharded bundles.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import inspect
 import json
 import os
 import subprocess
@@ -58,6 +71,15 @@ SRC = str(Path(__file__).resolve().parents[1] / "src")
 FP32 = dict(rtol=1e-5, atol=1e-5)
 STEP_ARCHS = ("granite-8b", "qwen2-moe-a2.7b")
 ACCUM_ARCH = "qwen2-moe-a2.7b"      # its routing sees each micro-batch
+# the splits' other layouts: (arch, variant); a variant's fields are
+# replaced alike in both packages' smoke configs (``_smoke``)
+VARIANTS = {"": {}, "experts3": {"moe": {"n_experts": 3}},
+            "heads3": {"n_heads": 3, "n_kv_heads": 1},
+            "dispatch": {"moe": {"dispatch_shard": True}}}
+SPLIT_CASES = (("kimi-k2-1t-a32b", ""), ("qwen2-moe-a2.7b", "experts3"),
+               ("granite-8b", "heads3"), ("qwen2-moe-a2.7b", "dispatch"))
+SERVE_CASES = (("granite-8b", ""), ("granite-8b", "heads3"),
+               ("qwen2-moe-a2.7b", "experts3"), ("kimi-k2-1t-a32b", ""))
 ODD_IDS = [0, 1, 2, 5, 9, 10, 11, 13, 19, 20, 21, -1, -2, -3, -9, -10, -11,
            -12, -20, -21]
 
@@ -175,23 +197,33 @@ from repro_torch.launch import train as tr
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.embedding import lookup_mod_sharded
 from repro_torch.train.steps import build_bundle
+from repro_torch.tree import flatten_with_paths
 import dataclasses
 
 torch.set_num_threads(1)
 mode, out = sys.argv[1], sys.argv[2]
 mesh = make_host_mesh(2, "cpu")
 rank = dist.get_rank()
+VARIANTS = json.load(open(f"{out}/variants.json"))
+SMOKE
+
+
+
+
+def gathered(x):
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
 if mode == "steps":
     res = {}
-    for case in sys.argv[3:]:
-        arch, accum = case.split(":")
-        key = arch if accum == "1" else f"{arch}+accum{accum}"
-        spec = tr.smoke_spec(registry.get_spec(arch))
-        spec = dataclasses.replace(spec, model_cfg=dataclasses.replace(
-            spec.model_cfg, dtype="float32"))
+    for case in sys.argv[4:]:
+        arch, accum, var = case.split(":")
+        key = arch + (f"+{var}" if var else "") + (
+            f"+accum{accum}" if accum != "1" else "")
+        spec = _smoke(registry, tr, arch, var)
         bundle = build_bundle(spec, "train_4k", "cpu",
                               {"warmup": 1, "grad_accum": int(accum)}, mesh)
-        state0, _ = ck.restore_checkpoint(f"{out}/{arch}_init",
+        state0, _ = ck.restore_checkpoint(f"{out}/{key.split('+accum')[0]}_init",
             tr.init_state(spec, build_bundle(spec, "train_4k", "cpu")))
         st = bundle.place_state(state0)
         mb = tr.make_batch_fn(spec, "train_4k", device="cpu")
@@ -201,6 +233,71 @@ if mode == "steps":
             losses.append([float(m["loss"]), float(m["gnorm"])])
         ck.save_checkpoint(f"{out}/{key}_mesh", 2, st)
         res[key] = losses
+    # prefill and greedy decode over the sequence-sharded cache, against
+    # the unsharded bundles
+    from repro_torch.configs.shapes import LMShape
+    from repro_torch.models import transformer as T
+    serve = {}
+    for case in sys.argv[3].split(","):
+        arch, var = case.split(":")
+        spec = _smoke(registry, tr, arch, var)
+        spec = dataclasses.replace(spec, shapes={
+            "p": LMShape("p", "prefill", 32, 4),
+            "d": LMShape("d", "decode", 32, 4)})
+        cfg = spec.model_cfg
+        params = T.init_lm(cfg, 1, "cpu")
+        toks = torch.randint(0, cfg.vocab, (4, 16),
+                             generator=torch.Generator().manual_seed(5))
+        got = {}
+        for tag, m in (("plain", None), ("mesh", mesh)):
+            pre = build_bundle(spec, "p", "cpu", mesh=m)
+            dec = build_bundle(spec, "d", "cpu", mesh=m)
+            p = params if m is None else pre.place_state(
+                {"params": params})["params"]
+            logits, cache = pre.fn(p, pre.place_batch({"tokens": toks}))
+            lg, tk = [], []
+            for i in range(9):
+                full = gathered(logits)
+                nxt = full.argmax(-1)
+                lg.append(full.numpy())
+                tk.append(nxt.numpy())
+                if i == 8:
+                    break
+                last = nxt if m is None else shd.place(
+                    nxt, dec.shardings["batch"]["last_tokens"])
+                logits, cache = dec.fn(p, cache, last)
+            got[tag] = (lg, tk, gathered(cache["k"]).numpy())
+        if rank == 0:
+            np.savez(f"{out}/serve_{arch}_{var}.npz",
+                     **{f"{t}_{n}": np.stack(v[j]) if j < 2 else v[j]
+                        for t, v in got.items()
+                        for j, n in enumerate(("logits", "tokens", "cache_k"))})
+    # the vocabulary-parallel embedding and loss on ids past both ends,
+    # every rank on the whole batch (dp = ())
+    from repro_torch.train.steps import _value_and_grad
+    spec = _smoke(registry, tr, "granite-8b")
+    cfg = spec.model_cfg
+    v = cfg.vocab
+    params = T.init_lm(cfg, 2, "cpu")
+    ids = torch.tensor([[v, v + 3, -1, -v, -v - 1, 0, 1, v - 1]] * 2)
+    tgt = torch.tensor([[1, 2, v - 1, 0, 5, 63 % v, 7, 30]] * 2)
+    call = shd.ModelCall(mesh, ())
+    bsh = build_bundle(spec, "train_4k", "cpu", mesh=mesh)
+    ps = bsh.place_state({"params": params})["params"]
+    emb = {"plain": T._embed(params, cfg, ids, torch.float32),
+           "mesh": T._embed(ps, cfg, ids, torch.float32, call)}
+    vg = {"plain": _value_and_grad(lambda p_, b_: T.lm_loss(
+              p_, cfg, b_["t"], b_["y"]))(params, {"t": ids, "y": tgt}),
+          "mesh": _value_and_grad(lambda p_, b_: T.lm_loss(
+              p_, cfg, b_["t"], b_["y"], dist=call))(ps, {"t": ids, "y": tgt})}
+    flat = {}                       # gathered on every rank
+    for tag in ("plain", "mesh"):
+        flat[f"{tag}_embed"] = emb[tag].detach().numpy()
+        flat[f"{tag}_loss"] = gathered(vg[tag][0]).numpy()
+        for k, g in flatten_with_paths(vg[tag][1]):
+            flat[f"{tag}_grad_{k}"] = gathered(g).numpy()
+    if rank == 0:
+        np.savez(f"{out}/vocab.npz", **flat)
     # int8 across the pod axis and the mod-sharded lookup over "model"
     pm = init_device_mesh("cpu", (2, 2), mesh_dim_names=("pod", "model"))
     pod, col = pm.get_coordinate()
@@ -263,9 +360,21 @@ dist.destroy_process_group()
 '''
 
 
+def _smoke(registry, train, arch, variant=""):
+    """The fp32 smoke spec of ``arch`` (fp32 parameters too) with
+    ``VARIANTS[variant]``'s fields replaced."""
+    spec = train.smoke_spec(registry.get_spec(arch))
+    cfg = dataclasses.replace(spec.model_cfg, dtype="float32")
+    for k, v in VARIANTS[variant].items():
+        cfg = dataclasses.replace(cfg, **{k: dataclasses.replace(
+            getattr(cfg, k), **v) if isinstance(v, dict) else v})
+    return dataclasses.replace(spec, model_cfg=cfg, param_dtype="float32")
+
+
 def _torchrun(tmp_path, n: int, *args):
     script = tmp_path / "worker.py"
-    script.write_text(WORKER)
+    (tmp_path / "variants.json").write_text(json.dumps(VARIANTS))
+    script.write_text(WORKER.replace("SMOKE", inspect.getsource(_smoke)))
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep +
                os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
     r = subprocess.run([sys.executable, "-m", "torch.distributed.run",
@@ -307,13 +416,21 @@ def _repro_collectives(tmp_path):
     return np.load(f"{tmp_path}/repro_out.npz")
 
 
-def _specs(arch):
-    out = []
-    for registry, train in ((j_registry, j_train), (t_registry, t_train)):
-        spec = train.smoke_spec(registry.get_spec(arch))
-        out.append(dataclasses.replace(spec, model_cfg=dataclasses.replace(
-            spec.model_cfg, dtype="float32")))
-    return out
+def _specs(arch, variant=""):
+    return [_smoke(registry, train, arch, variant)
+            for registry, train in ((j_registry, j_train),
+                                    (t_registry, t_train))]
+
+
+def _case_key(arch, accum=1, variant=""):
+    return arch + (f"+{variant}" if variant else "") + (
+        f"+accum{accum}" if accum != 1 else "")
+
+
+def _parse_key(key):
+    """(arch, variant) of a step case's key."""
+    parts = [x for x in key.split("+") if not x.startswith("accum")]
+    return parts[0], (parts[1] if len(parts) > 1 else "")
 
 
 def _values(tree):
@@ -374,12 +491,18 @@ def mesh_run(tmp_path_factory):
     fields, batch = _islabel_batch(r)
     np.savez(tmp / "isl_in.npz", fields=json.dumps(fields), **batch)
     refs = {}
-    cases = [(arch, 1) for arch in STEP_ARCHS] + [(ACCUM_ARCH, 2)]
-    for arch, accum in cases:
-        jspec, tspec = _specs(arch)
+    cases = [(arch, 1, "") for arch in STEP_ARCHS] + [(ACCUM_ARCH, 2, "")] + [
+        (arch, 1, var) for arch, var in SPLIT_CASES]
+    for arch, accum, var in cases:
+        jspec, tspec = _specs(arch, var)
+        if var == "dispatch":
+            # repro's flag is a layout constraint only, and its jitted step
+            # on this (1, 1) mesh of explicit axes refuses it
+            # (with_sharding_constraint): its reference is the step without
+            jspec = _specs(arch)[0]
         state0 = t_ckpt.snapshot(t_train.init_state(
             tspec, t_steps.build_bundle(tspec, "train_4k", "cpu")))
-        t_ckpt.save_checkpoint(tmp / f"{arch}_init", 0,
+        t_ckpt.save_checkpoint(tmp / f"{_case_key(arch, 1, var)}_init", 0,
                                t_ckpt.state_from_tree(state0, "cpu"))
         ov = {"warmup": 1, "grad_accum": accum}
         bundle = t_steps.build_bundle(tspec, "train_4k", "cpu", ov)
@@ -395,23 +518,26 @@ def mesh_run(tmp_path_factory):
             js, jm = jfn(js, jb(i))
             tl.append([float(tm["loss"]), float(tm["gnorm"])])
             jl.append([float(jm["loss"]), float(jm["gnorm"])])
-        key = arch if accum == 1 else f"{arch}+accum{accum}"
-        refs[key] = {"port": (_values(t_ckpt.snapshot(ts)), tl),
-                     "repro": (_values(jax.tree.map(np.asarray, js)), jl)}
+        refs[_case_key(arch, accum, var)] = {
+            "port": (_values(t_ckpt.snapshot(ts)), tl),
+            "repro": (_values(jax.tree.map(np.asarray, js)), jl)}
     _torchrun(tmp, 4, "steps", str(tmp),
-              *(f"{arch}:{accum}" for arch, accum in cases))
+              ",".join(f"{a}:{v}" for a, v in SERVE_CASES),
+              *(f"{arch}:{accum}:{var}" for arch, accum, var in cases))
     return tmp, refs
 
 
-@pytest.mark.parametrize("arch", STEP_ARCHS + (f"{ACCUM_ARCH}+accum2",))
+@pytest.mark.parametrize("arch", STEP_ARCHS + (f"{ACCUM_ARCH}+accum2",) + tuple(
+    _case_key(a, 1, v) for a, v in SPLIT_CASES))
 @pytest.mark.parametrize("ref", ["port", "repro"])
 def test_sharded_step_matches_unsharded(mesh_run, arch, ref):
     """Two steps on the (2, 2) mesh against the unsharded ``ref`` run's,
     at ``FP32``; ``+accum2`` at ``grad_accum`` 2, the batch laid out by
     micro-batch, so each rank routes its share of each global
-    micro-batch as the unsharded step routes that micro-batch."""
+    micro-batch as the unsharded step routes that micro-batch. The
+    model's compute is split over ``model`` (the module docstring)."""
     tmp, refs = mesh_run
-    spec = _specs(arch.split("+")[0])[1]
+    spec = _specs(*_parse_key(arch))[1]
     got_state, _ = t_ckpt.restore_checkpoint(
         tmp / f"{arch}_mesh", t_ckpt.state_from_tree(
             t_ckpt.snapshot(t_train.init_state(
@@ -424,6 +550,111 @@ def test_sharded_step_matches_unsharded(mesh_run, arch, ref):
         np.testing.assert_allclose(got[k], want[k], err_msg=k, **FP32)
     losses = json.load(open(tmp / "losses.json"))[arch]
     np.testing.assert_allclose(losses, want_losses, **FP32)
+
+
+@pytest.mark.parametrize("case", [_case_key(a, 1, v) for a, v in SERVE_CASES])
+def test_mesh_serving_matches_unsharded(mesh_run, case):
+    """A 16-token prefill into a cache of 32 (positions 16–31 on the
+    second ``model`` rank) and 8 greedy decode steps on the (2, 2) mesh,
+    the cache's sequence over ``model``: every step's logits and the
+    final cache within ``FP32`` of the unsharded bundles', the greedy
+    tokens equal."""
+    tmp, _ = mesh_run
+    arch, var = _parse_key(case)
+    got = np.load(tmp / f"serve_{arch}_{var}.npz")
+    np.testing.assert_array_equal(got["mesh_tokens"], got["plain_tokens"])
+    np.testing.assert_allclose(got["mesh_logits"], got["plain_logits"],
+                               **FP32)
+    np.testing.assert_allclose(got["mesh_cache_k"], got["plain_cache_k"],
+                               **FP32)
+    assert got["plain_logits"].shape[0] == 9
+
+
+def test_vocab_parallel_embed_and_loss(mesh_run):
+    """The embedding on ids V, V+3, -1, -V and -V-1 (read as jnp's gather
+    reads them) from each rank's vocabulary block: bitwise the unsharded
+    rows; the loss over vocabulary-sharded logits and every gradient
+    within ``FP32`` of the unsharded ones."""
+    tmp, _ = mesh_run
+    got = np.load(tmp / "vocab.npz")
+    np.testing.assert_array_equal(got["mesh_embed"], got["plain_embed"])
+    np.testing.assert_allclose(got["mesh_loss"], got["plain_loss"], **FP32)
+    grads = [k[len("plain_grad_"):] for k in got.files
+             if k.startswith("plain_grad_")]
+    assert "embed" in grads and "unembed" in grads
+    for k in grads:
+        np.testing.assert_allclose(got[f"mesh_grad_{k}"],
+                                   got[f"plain_grad_{k}"], err_msg=k, **FP32)
+
+
+def _entry(axes):
+    """A ``PartitionSpec`` entry as jax keeps it (one axis: its name)."""
+    axes = tuple(axes) if isinstance(axes, (tuple, list)) else axes
+    return axes[0] if isinstance(axes, tuple) and len(axes) == 1 else axes
+
+
+def _spec(spec) -> tuple:
+    return tuple(_entry(e) for e in spec)
+
+
+@pytest.mark.parametrize("arch", [a for a in j_registry.ASSIGNED
+                                  if j_registry.get_spec(a).family == "lm"])
+@pytest.mark.parametrize("multi", [False, True], ids=["single", "multi"])
+def test_serving_shardings_equal_repro(arch, multi):
+    """The port's prefill and decode bundles on the production mesh lay
+    the cache out as ``repro``'s ``cache_sh`` (``(None, dp, "model",
+    None, None)``) and every parameter by ``repro``'s ``lm_rules``."""
+    jm, tm = _meshes(multi)
+    jspec, tspec = j_registry.get_spec(arch), t_registry.get_spec(arch)
+    names = jm.axis_names
+    jmesh = jax.make_mesh((1,) * len(names), names)
+    rules = j_steps.lm_rules(jspec, jm)
+    want_params = {k: tuple(j_shd.spec_for_axes(ax, rules))
+                   for k, ax in flatten_with_paths(j_tf.lm_axes(
+                       jspec.model_cfg))}
+    jdec = j_steps.build_lm_bundle(jspec, "decode_32k", jmesh)
+    want_cache = {k: tuple(v.spec) for k, v in jdec.in_shardings[1].items()}
+    assert want_cache["k"][:3] == (None, _entry(names[:-1]), "model")
+    for shape in ("prefill_32k", "decode_32k"):
+        b = t_steps.build_lm_bundle(tspec, shape, "cpu", mesh=tm)
+        got = {k: _spec(v.spec) for k, v in flatten_with_paths(
+            b.shardings["state"]["params"])}
+        assert got == want_params
+    cache = b.shardings["batch"]["cache"]
+    assert {k: _spec(v.spec) for k, v in cache.items()} == want_cache
+
+
+def test_dryrun_model_axis_splits_flops():
+    """A granite-like train_4k step traced on a fake group: its FLOPs a
+    device on (2, 4) (8 ranks, compute split over ``model`` 4) at most
+    0.4x those on (2, 1) (2 ranks), each rank on the same batch share."""
+    code = '''
+        import dataclasses, json
+        from torch.distributed.device_mesh import init_device_mesh
+        from repro_torch.configs import registry
+        from repro_torch.launch import dryrun
+        from repro_torch.launch.train import smoke_spec
+        spec = smoke_spec(registry.get_spec("granite-8b"))
+        spec = dataclasses.replace(spec, model_cfg=dataclasses.replace(
+            spec.model_cfg, n_heads=8, n_kv_heads=2, d_model=64, d_ff=256,
+            vocab=512))
+        flops = {}
+        for world, shape in ((8, (2, 4)), (2, (2, 1))):
+            dryrun.fake_world(world)
+            dryrun.make_production_mesh = lambda **kw: init_device_mesh(
+                "cpu", shape, mesh_dim_names=("data", "model"))
+            rec = dryrun.trace_cell(spec, "train_4k", False)
+            flops[rec["mesh"]] = rec["flops_per_device"]
+        print(json.dumps(flops))
+    '''
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep +
+               os.environ.get("PYTHONPATH", ""))
+    r = subprocess.run([sys.executable, "-c", textwrap.dedent(code)],
+                       capture_output=True, text=True, timeout=300, env=env)
+    assert r.returncode == 0, r.stderr[-4000:]
+    flops = json.loads(r.stdout.strip().splitlines()[-1])
+    assert flops["2x4"] > 0 and flops["2x1"] > 0
+    assert flops["2x4"] <= 0.4 * flops["2x1"], flops
 
 
 def test_compressed_psum_pod_and_mod_lookup_bitwise(mesh_run, tmp_path):
