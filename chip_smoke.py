@@ -228,10 +228,15 @@ Phases, one JSON line each (with its seconds):
 18. distributed — ``torchrun --nproc-per-node=<cards> chip_smoke.py
    --distributed`` (NCCL): granite-8b's smoke step over
    ``make_host_mesh`` against the unsharded step (bitwise at one card),
-   ``compressed_psum_pod`` and ``lookup_mod_sharded`` against their
-   one-device forms; then ``torchrun ... -m repro_torch.launch.train
-   --arch granite-8b --smoke --steps 20``. On a one-card machine the
-   world is 1.
+   granite-8b at full width through the split mesh path, the GNNs and
+   DIEN through theirs (``MESH_GRAPH``: ``gcn-cora`` on
+   ``full_graph_sm``, ``egnn`` and ``dimenet`` on ``molecule`` at their
+   published shapes; DIEN at its published widths and tables,
+   ``MESH_DIEN_BATCH``; 3 steps each, DIEN's ``serve`` and
+   ``retrieval`` once), ``compressed_psum_pod`` and
+   ``lookup_mod_sharded`` against their one-device forms; then
+   ``torchrun ... -m repro_torch.launch.train --arch granite-8b --smoke
+   --steps 20``. On a one-card machine the world is 1.
 19. dryrun — started in the background right after ``build`` (CPU only,
    the fake process group, no card): ``python -m
    repro_torch.launch.dryrun --all --include-islabel --multipod single``
@@ -259,6 +264,7 @@ from __future__ import annotations
 
 import atexit
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -4073,6 +4079,13 @@ MESH_TRAIN_STEPS = 3
 MESH_PROMPT = 256                # prefill into the decode_32k cache
 MESH_DECODE_BATCH = 8
 MESH_DECODE_STEPS = 8
+# the GNN and DIEN mesh steps: (arch, shape) at the published configs
+MESH_GRAPH = (("gcn-cora", "full_graph_sm"), ("egnn", "molecule"),
+              ("dimenet", "molecule"))
+MESH_GRAPH_STEPS = 3
+# train_dien's batch: at 65,536 one run needs ~80 GB; the unsharded
+# run's final state waits on the host while the mesh run takes the card
+MESH_DIEN_BATCH = 32768
 
 
 def islabel_inputs(shp, device, seed: int) -> dict:
@@ -4480,13 +4493,10 @@ def mesh_lm_train(mesh, dev) -> dict:
     unsharded bundle, then of the mesh bundle (the compute split over
     ``model``) from the same state; the losses and the final states
     compared on the card, leaf by leaf (each rank's block of a DTensor
-    against the same block of the unsharded leaf)."""
+    against the same block of the unsharded leaf: ``unequal_leaves``)."""
     import torch
-    from torch.distributed.tensor import DTensor
-    from repro_torch.distributed import sharding as shd
     from repro_torch.launch.train import init_state, make_batch_fn
     from repro_torch.train.steps import build_bundle
-    from repro_torch.tree import flatten_with_paths
     arch, layers, batch, accum = MESH_TRAIN
     spec = lm_train_spec(arch, layers, batch)
     ov = {"grad_accum": accum, "warmup": 1}
@@ -4511,12 +4521,9 @@ def mesh_lm_train(mesh, dev) -> dict:
     del state0
     (la, sa), (lb, sb) = out["plain"], out["mesh"]
     t0 = time.perf_counter()
-    placed = sharded.place_state(sa)        # the unsharded state's blocks
-    unequal = [k for (k, a), (_, b) in zip(flatten_with_paths(placed),
-                                            flatten_with_paths(sb))
-               if not torch.equal(shd.local(a), shd.local(b))]
+    unequal = unequal_leaves(sharded, sa, sb, dev)
     secs["compare"] = time.perf_counter() - t0
-    del placed, out, sa, sb
+    del out, sa, sb
     torch.cuda.empty_cache()
     return {"arch": arch, "layers": layers, "batch": batch, "accum": accum,
             "losses_plain": la, "losses_mesh": lb, "seconds": secs,
@@ -4583,13 +4590,160 @@ def mesh_lm_serve(mesh, dev) -> dict:
             "seconds": secs}
 
 
+def unequal_leaves(sharded, plain_state, mesh_state, dev) -> list:
+    """The leaves of ``mesh_state`` (``sharded``'s, a mesh bundle's) that
+    differ from the unsharded ``plain_state``'s: each rank's block
+    against the same block of the unsharded leaf, compared on the card
+    (``torch.equal``), one leaf at a time (a leaf on the host is
+    uploaded for its compare)."""
+    import torch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.tree import flatten_with_paths
+    out = []
+    for (k, a), (_, sh), (_, b) in zip(
+            flatten_with_paths(plain_state),
+            flatten_with_paths(sharded.shardings["state"]),
+            flatten_with_paths(mesh_state)):
+        if not torch.equal(shd.local(shd.place(a.to(dev), sh)),
+                           shd.local(b)):
+            out.append(k)
+    return out
+
+
+def mesh_graph_step(mesh, dev, arch: str, shape: str) -> dict:
+    """``arch`` on ``shape`` at its published config: ``MESH_GRAPH_STEPS``
+    steps of the unsharded bundle, then of the mesh bundle (the nodes
+    and edges in blocks over every axis) from the same state on the
+    same batches; the losses and the final states compared on the card;
+    each run's seconds and peak device bytes above what it started
+    with."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.launch.train import init_state, make_batch_fn
+    from repro_torch.train.steps import build_bundle
+    spec = registry.get_spec(arch)
+    plain = build_bundle(spec, shape, dev)
+    sharded = build_bundle(spec, shape, dev, None, mesh)
+    state0 = init_state(spec, plain)
+    make = make_batch_fn(spec, shape, device=dev)
+    batches = [make(i) for i in range(MESH_GRAPH_STEPS)]
+    rec = {"arch": arch, "shape": shape, "steps": MESH_GRAPH_STEPS}
+    states = {}
+    for tag, bundle in (("plain", plain), ("mesh", sharded)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        st = state0 if tag == "plain" else sharded.place_state(state0)
+        losses = []
+        for b in batches:
+            st, m = bundle.fn(st, b if tag == "plain" else
+                              sharded.place_batch(b))
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        rec[f"seconds_{tag}"] = time.perf_counter() - t0
+        rec[f"peak_bytes_{tag}"] = torch.cuda.max_memory_allocated() - base
+        rec[f"losses_{tag}"] = losses
+        states[tag] = st
+    rec["unequal_leaves"] = unequal_leaves(sharded, states["plain"],
+                                           states["mesh"], dev)
+    rec["bitwise"] = rec["losses_plain"] == rec["losses_mesh"] and not \
+        rec["unequal_leaves"]
+    rec["finite"] = all(math.isfinite(x) for x in rec["losses_mesh"])
+    del states, state0, batches
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_dien(mesh, dev) -> dict:
+    """DIEN at its published widths and tables (2^26 / 10,000 / 2^22
+    rows), ``MESH_DIEN_BATCH`` a step: one ``serve_p99`` and one
+    ``retrieval_cand`` call through the unsharded and the mesh bundles
+    (each table read from its ``model`` blocks) on the initial
+    parameters, outputs compared on the card; then ``MESH_GRAPH_STEPS``
+    train steps of each from the same state on the same batches, the
+    unsharded run's final state kept on the host while the mesh run
+    holds the card; losses and final states compared on the card."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.configs.shapes import RecShape
+    from repro_torch.launch.train import init_state, make_batch_fn
+    from repro_torch.train.steps import build_bundle
+    from repro_torch.tree import tree_map
+    spec = registry.get_spec("dien")
+    spec = dataclasses.replace(spec, shapes={
+        **spec.shapes, "train_batch": RecShape("train_batch", "train",
+                                               MESH_DIEN_BATCH)})
+    cfg = spec.model_cfg
+    rec = {"batch": MESH_DIEN_BATCH, "steps": MESH_GRAPH_STEPS}
+    plain = build_bundle(spec, "train_batch", dev)
+    sharded = build_bundle(spec, "train_batch", dev, None, mesh)
+    state0 = init_state(spec, plain)
+    for shape, kind in (("serve_p99", "serve"),
+                        ("retrieval_cand", "retrieval")):
+        req = dien_request(cfg, kind, spec.shapes[shape].batch, dev)
+        outs = {}
+        for tag, m in (("plain", None), ("mesh", mesh)):
+            sb = build_bundle(spec, shape, dev, None, m)
+            p = state0["params"] if m is None else \
+                sb.place_state({"params": state0["params"]})["params"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = sb.fn(p, sb.place_batch(req))
+            torch.cuda.synchronize()
+            rec[f"{kind}_ms_{tag}"] = (time.perf_counter() - t0) * 1e3
+            outs[tag] = out.full_tensor() if m is not None else out
+        rec[f"{kind}_equal"] = bool(torch.equal(outs["plain"], outs["mesh"]))
+        rec[f"{kind}_finite"] = bool(torch.isfinite(outs["plain"]).all())
+        del outs, req
+    make = make_batch_fn(spec, "train_batch", device=dev)
+    final = {}
+    for tag, bundle in (("plain", plain), ("mesh", sharded)):
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        st = state0 if tag == "plain" else sharded.place_state(state0)
+        losses = []
+        for i in range(MESH_GRAPH_STEPS):
+            b = make(i)
+            st, m = bundle.fn(st, b if tag == "plain" else
+                              sharded.place_batch(b))
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        rec[f"seconds_{tag}"] = time.perf_counter() - t0
+        rec[f"peak_bytes_{tag}"] = torch.cuda.max_memory_allocated() - base
+        rec[f"losses_{tag}"] = losses
+        # the unsharded run's state waits on the host
+        final[tag] = tree_map(lambda x: x.cpu(), st) if tag == "plain" \
+            else st
+        del st, m, b
+    t0 = time.perf_counter()
+    rec["unequal_leaves"] = unequal_leaves(sharded, final["plain"],
+                                           final["mesh"], dev)
+    rec["compare_s"] = time.perf_counter() - t0
+    rec["bitwise"] = rec["losses_plain"] == rec["losses_mesh"] and not \
+        rec["unequal_leaves"] and rec["serve_equal"] and \
+        rec["retrieval_equal"]
+    rec["finite"] = all(math.isfinite(x) for x in rec["losses_mesh"]) and \
+        rec["serve_finite"] and rec["retrieval_finite"]
+    del final, state0
+    torch.cuda.empty_cache()
+    return rec
+
+
 def dist_main() -> int:
     """``chip_smoke.py --distributed`` under ``torchrun`` (one process a
     card, NCCL, deterministic algorithms): granite-8b's smoke train step
     over ``make_host_mesh`` against the unsharded step from the same
     state (bitwise at one rank, rtol 1e-5 above), granite-8b at full
     width through the mesh path (``mesh_lm_train``: bitwise at one rank;
-    ``mesh_lm_serve``: greedy tokens equal), ``compressed_psum_pod`` over
+    ``mesh_lm_serve``: greedy tokens equal), the GNNs and DIEN through
+    theirs (``mesh_graph_step``, ``mesh_dien``: bitwise at one rank,
+    losses within 1e-4 above), ``compressed_psum_pod`` over
     a ``pod`` mesh of every rank against its one-device form, and
     ``lookup_mod_sharded`` against the same arithmetic on the whole
     table. Rank 0 prints one line."""
@@ -4646,6 +4800,13 @@ def dist_main() -> int:
         full_train["bitwise"] if world == 1 else np.allclose(
             full_train["losses_plain"], full_train["losses_mesh"],
             rtol=1e-3))
+    # the GNNs (nodes and edges in blocks) and DIEN (tables by row block)
+    graph = [mesh_graph_step(mesh, dev, a, sh) for a, sh in MESH_GRAPH]
+    graph.append(mesh_dien(mesh, dev))
+    graph_ok = all(r["finite"] and (r["bitwise"] if world == 1 else
+                                    np.allclose(r["losses_plain"],
+                                                r["losses_mesh"], rtol=1e-4))
+                   for r in graph)
     # int8 across a pod axis of every rank, against its one-device form
     pm = init_device_mesh("cuda", (world,), mesh_dim_names=("pod",))
     r = np.random.default_rng(5)
@@ -4677,7 +4838,7 @@ def dist_main() -> int:
     look_ok = torch.equal(torch.nan_to_num(got, nan=-1.0),
                           torch.nan_to_num(want, nan=-1.0))
     flags = torch.tensor([int(step_ok), int(comp_ok), int(look_ok),
-                          int(full_ok)], device=dev)
+                          int(full_ok), int(graph_ok)], device=dev)
     dist.all_reduce(flags, dist.ReduceOp.MIN)
     if rank == 0:
         emit({"world": world, "backend": dist.get_backend(),
@@ -4686,7 +4847,8 @@ def dist_main() -> int:
               "compressed_equal": bool(flags[1]),
               "mod_lookup_equal": bool(flags[2]),
               "full_width_ok": bool(flags[3]), "full_train": full_train,
-              "full_serve": full_serve,
+              "full_serve": full_serve, "graph_ok": bool(flags[4]),
+              "graph": graph,
               "seconds": time.perf_counter() - t0})
     dist.destroy_process_group()
     return 0 if bool(flags.all()) else 1

@@ -273,7 +273,7 @@ class _ToModel(torch.autograd.Function):
         return all_reduce(g, ctx.group), None
 
 
-class _FromModel(torch.autograd.Function):
+class _AllReduce(torch.autograd.Function):
     """All-reduce forward, identity backward: the ranks' partial results
     summed into the replicated one."""
 
@@ -327,24 +327,27 @@ def chunk_range(n: int, parts: int, index: int) -> tuple:
 class ModelCall:
     """How a model call runs on this rank of a mesh step: the models'
     ``dist`` argument (``models/transformer.py``, ``models/moe.py``,
-    ``models/attention.py``). ``dp`` are the mesh axes the call's batch
-    is split over (empty: every rank runs the whole batch); an MoE
-    routes its shard as part of the whole batch over them. ``model`` is
-    the mesh axis the model's compute is split over (``repro``'s
-    tensor, vocabulary and expert parallelism; ``tp``), or None: every
-    rank computes the whole model (``compress_pods``, DIEN, the GNNs).
+    ``models/attention.py``, ``models/dien.py``; a GNN's ``GraphSplit``
+    holds one). ``dp`` are the mesh axes the call's batch is split over
+    (empty: every rank runs the whole batch); an MoE routes its shard as
+    part of the whole batch over them, a GNN's node and edge arrays are
+    split in row blocks over every axis. ``model`` is the mesh axis the
+    model's compute is split over (``repro``'s tensor, vocabulary and
+    expert parallelism, DIEN's tables by row block; ``tp``), or None:
+    every rank computes the whole model on its part of the batch
+    (``compress_pods``, the GNNs).
 
     The model receives its parameters as DTensors laid out by the rules
     and reads each one where it uses it, per layer for a stacked LM:
 
     * ``whole``: every axis gathered (FSDP's all-gather), for what every
-      rank of a ``model`` group computes alike (norms, routers, the
-      DIEN and GNN parameters). Its gradient is taken as the same on
+      rank of a ``model`` group computes alike (norms, routers, DIEN's
+      towers, the GNN parameters). Its gradient is taken as the same on
       every ``model`` rank.
     * ``shard``: the FSDP axes gathered, this rank's ``model`` block
       left in place (a column or row block of a tensor-parallel matrix,
-      a vocabulary block, an expert block). Its gradient is this rank's
-      block's.
+      a vocabulary block, an expert block, a block of a DIEN table's
+      rows). Its gradient is this rank's block's.
     * ``gathered``: every axis gathered for a rank that uses a part of
       it only (the KV projections, query heads not aligned with the
       blocks: ``models/attention.py``). Its gradient is summed over the
@@ -354,9 +357,11 @@ class ModelCall:
     contribution summed over ``dp`` into the parameter's layout (a
     reduce-scatter where the layout shards it, an all-reduce where it
     does not): a sum, which the step divides by the number of batch
-    shards. The region operators (``to_model``, ``from_model``,
-    ``gather_model``; ``scatter_dp``, ``gather_dp`` over the batch axes)
-    carry activations into and out of the parts."""
+    shards (a loss over the whole batch, ``total``'s, is divided by
+    nothing). The region operators (``to_model``, ``from_model``,
+    ``gather_model``; ``scatter_dp``, ``gather_dp``, ``total``,
+    ``roll_dp`` over the batch axes) carry activations into and out of
+    the parts."""
     mesh: object
     dp: tuple = ()
     model: str | None = "model"
@@ -425,7 +430,7 @@ class ModelCall:
     def from_model(self, x):
         """The ``model`` ranks' partial ``x`` summed: all-reduce forward,
         identity backward."""
-        return _FromModel.apply(x, self.model_group())
+        return _AllReduce.apply(x, self.model_group())
 
     def gather_model(self, x, dim: int = 0):
         """The ``model`` ranks' blocks of ``x`` concatenated along
@@ -453,6 +458,26 @@ class ModelCall:
         for group, n in reversed(self._dp_groups()):
             x = _Gather.apply(x, group, n, dim)
         return x
+
+    def total(self, x):
+        """The sum over the ``dp`` ranks of each one's ``x``, on every
+        rank: all-reduce forward over each ``dp`` axis, identity backward
+        (a rank's part of a loss over the whole batch: its gradient
+        reaches the rank's own terms only)."""
+        for group, _ in self._dp_groups():
+            x = _AllReduce.apply(x, group)
+        return x
+
+    def roll_dp(self, x):
+        """``torch.roll(x, 1, 0)`` of the whole batch that the ``dp`` axes
+        split in equal blocks (``x``: this rank's): the first row is the
+        previous shard's last (every shard's last row all-gathered; its
+        gradient goes back to its shard)."""
+        count, index = self.shard_index()
+        if count == 1:
+            return torch.roll(x, 1, 0)
+        last = self.gather_dp(x[-1:], 0)
+        return torch.cat([last[(index - 1) % count][None], x[:-1]], 0)
 
     def max_over_model(self, x):
         """The elementwise max over the ``model`` ranks; no gradient."""
@@ -492,6 +517,48 @@ class ModelCall:
                   for a in self.mesh.mesh_dim_names]
         return DTensor.from_local(x.detach()[None], self.mesh, layout,
                                   run_check=False).full_tensor()
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphSplit:
+    """A GNN batch as its model call sees it: ``nodes`` rows of every
+    node array, ``edges`` rows of every edge array. On a mesh
+    (``call``: a ``ModelCall`` whose ``dp`` is every mesh axis, as
+    ``repro``'s ``GNN_RULES`` lay the batch out) this rank holds one
+    contiguous block of each node, edge and triplet array (``Shard(0)``
+    on every axis, major first; the arrays are padded to a multiple of
+    512, so the blocks are equal), the edge and triplet ids global. A
+    layer that reads rows by edge gathers the node (or, DimeNet's
+    triplets, edge) array whole (``whole``: ``ModelCall.gather_dp``),
+    computes its own edges' messages, and sums them into a partial of
+    whole rows that ``to_block`` reduce-scatters back to this rank's
+    block (``scatter_dp``); ``total`` sums a loss's terms over the
+    ranks. Off a mesh (``call`` None) each of these is the identity;
+    ``whole`` returns a view, so autograd sums a read's gradients before
+    adding them to the array's other uses' as it does past the mesh's
+    gather (at one rank the mesh step is then bitwise the unsharded
+    one)."""
+    nodes: int
+    edges: int
+    call: ModelCall | None = None
+
+    def __post_init__(self):
+        if self.call is not None:
+            count = self.call.shard_index()[0]
+            if self.nodes % count or self.edges % count:
+                raise ValueError(f"{self.nodes} nodes and {self.edges} "
+                                 f"edges do not split into {count} equal "
+                                 "blocks")
+
+    def whole(self, x):
+        return x.view_as(x) if self.call is None else self.call.gather_dp(
+            x, 0)
+
+    def to_block(self, x):
+        return x if self.call is None else self.call.scatter_dp(x, 0)
+
+    def total(self, x):
+        return x if self.call is None else self.call.total(x)
 
 
 def tp(dist) -> bool:

@@ -14,6 +14,15 @@ as the scan's backward does). ``DIEN``'s parameter names are
 ``att.l0.w``, ``head.l2.b``). ``jnp.clip`` on a parameter-dependent
 value is ``torch.minimum(torch.maximum(x, lo), hi)``: both split a tie's
 gradient in half, where ``torch.clamp`` passes it whole.
+
+On a mesh (``dist``, a ``distributed.sharding.ModelCall``) each table
+parameter is this rank's ``model`` block of rows, read by
+``embedding.lookup_split`` (``lookup_owned`` for retrieval's
+candidates); the towers run on this rank's batch shard. The loss is the
+whole batch's: its sums (the cross-entropy's and the auxiliary loss's
+terms and mask) are summed over the batch shards (``ModelCall.total``),
+and the auxiliary loss's negatives roll over the whole batch
+(``ModelCall.roll_dp``).
 """
 from __future__ import annotations
 
@@ -24,8 +33,10 @@ from torch import nn
 from torch.func import functional_call
 from torch.nn import functional as F
 
+from repro_torch.distributed import sharding as SHD
 from repro_torch.models import layers as L
-from repro_torch.models.embedding import Table, lookup, table_axes
+from repro_torch.models.embedding import (Table, lookup, lookup_owned,
+                                          lookup_split, table_axes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,25 +117,38 @@ class DIEN(nn.Module):
         self.head = L.MLP([d_head, cfg.mlp_dims[0], cfg.mlp_dims[1], 1],
                           generator=generator)
 
-    def behavior_embed(self, item_ids, cat_ids):
-        return torch.cat([lookup(self.item.table, item_ids),
-                          lookup(self.cat.table, cat_ids)], -1)
+    def rows(self, name: str, ids, dist=None):
+        """``lookup`` in table ``name`` (``item``, ``cat``, ``user``); on a
+        mesh the parameter is this rank's ``model`` block of rows."""
+        table = getattr(self, name).table
+        if not SHD.tp(dist):
+            return lookup(table, ids)
+        n = {"item": self.cfg.n_items, "cat": self.cfg.n_cats,
+             "user": self.cfg.n_users}[name]
+        return lookup_split(table, ids, n, dist)
 
-    def forward(self, batch, kind: str = "train"):
+    def behavior_embed(self, item_ids, cat_ids, dist=None):
+        return torch.cat([self.rows("item", item_ids, dist),
+                          self.rows("cat", cat_ids, dist)], -1)
+
+    def forward(self, batch, kind: str = "train", dist=None):
         """batch: user int32[B], hist_items int32[B,S], hist_cats [B,S],
         hist_mask f32[B,S], target_item [B], target_cat [B]. ``kind``
         "train": (logit [B], aux_loss); "serve": the logit alone (the
         auxiliary loss, which ``repro``'s jitted serve step drops, is not
         computed); "retrieval": ``retrieval_scores`` [B, C] against
-        ``batch["cand_items"]``."""
+        ``batch["cand_items"]``. ``dist``: the mesh's ``ModelCall`` (the
+        module docstring)."""
         if kind == "retrieval":
-            return self.retrieval_scores(batch)
+            return self.retrieval_scores(batch, dist)
         cfg = self.cfg
-        hist = self.behavior_embed(batch["hist_items"], batch["hist_cats"])
+        total = (lambda x: x) if dist is None else dist.total
+        hist = self.behavior_embed(batch["hist_items"], batch["hist_cats"],
+                                   dist)
         mask = batch["hist_mask"]
         target = self.behavior_embed(batch["target_item"],
-                                     batch["target_cat"])
-        user = lookup(self.user.table, batch["user"])
+                                     batch["target_cat"], dist)
+        user = self.rows("user", batch["user"], dist)
 
         # ---- interest extraction GRU (repro's first scan) ---------------
         # the scans read time steps through unbind: its backward stacks
@@ -144,7 +168,8 @@ class DIEN(nn.Module):
             # (negatives = shifted batch — standard sampled approximation)
             h_t = states[:, :-1]
             e_pos = hist[:, 1:]
-            e_neg = torch.roll(e_pos, 1, 0)
+            e_neg = torch.roll(e_pos, 1, 0) if dist is None else \
+                dist.roll_dp(e_pos)
             m_t = mask[:, 1:]
 
             def binlog(hh, e):
@@ -152,7 +177,8 @@ class DIEN(nn.Module):
                 return F.logsigmoid(sim)
             aux = -(binlog(h_t, e_pos) + torch.log1p(
                 -_clip(torch.exp(binlog(h_t, e_neg)), 0.0, 1 - 1e-6)))
-            aux = torch.sum(aux * m_t) / torch.clamp(torch.sum(m_t), min=1.0)
+            aux = total(torch.sum(aux * m_t)) / torch.clamp(
+                total(torch.sum(m_t)), min=1.0)
 
         # ---- attention scores vs target ----------------------------------
         tgt = target[:, None, :].expand(hist.shape)
@@ -180,13 +206,19 @@ class DIEN(nn.Module):
             return logit
         return logit, cfg.aux_weight * aux
 
-    def retrieval_scores(self, batch):
+    def retrieval_scores(self, batch, dist=None):
         """retrieval_cand shape: one query state scored against C
         candidates as a batched dot (no loop): score = <user interest,
-        item_emb>."""
-        hist = self.behavior_embed(batch["hist_items"], batch["hist_cats"])
+        item_emb>. On a mesh ``batch["cand_items"]`` is the DTensor of
+        the candidates, and the scores are this rank's candidates'."""
+        hist = self.behavior_embed(batch["hist_items"], batch["hist_cats"],
+                                   dist)
         user_vec = torch.mean(hist * batch["hist_mask"][..., None], 1)
-        cand = lookup(self.item.table, batch["cand_items"])      # [C, D]
+        if SHD.tp(dist):
+            cand = lookup_owned(self.item.table, batch["cand_items"],
+                                self.cfg.n_items, dist)
+        else:
+            cand = lookup(self.item.table, batch["cand_items"])  # [C, D]
         u = user_vec[..., : self.cfg.embed_dim]                  # [B, D]
         return u @ cand.T                                        # [B, C]
 
@@ -197,19 +229,25 @@ def init_dien(cfg: DIENConfig, generator: torch.Generator) -> dict:
         return L.params_tree(DIEN(cfg, generator))
 
 
-def dien_forward(model: DIEN, params: dict, batch, kind: str = "train"):
+def dien_forward(model: DIEN, params: dict, batch, kind: str = "train",
+                 dist=None):
     """``model``'s forward on ``params`` (the flat dotted dict
     ``functional_call`` takes)."""
-    return functional_call(model, params, (batch,), {"kind": kind})
+    return functional_call(model, params, (batch,),
+                           {"kind": kind, "dist": dist})
 
 
-def dien_loss(model: DIEN, params: dict, batch):
-    logit, aux = dien_forward(model, params, batch)
+def dien_loss(model: DIEN, params: dict, batch, dist=None):
+    """The batch's mean cross-entropy plus the auxiliary loss; on a mesh
+    the whole batch's, on every rank (the module docstring)."""
+    logit, aux = dien_forward(model, params, batch, dist=dist)
     y = batch["label"].to(torch.float32)
-    bce = -torch.mean(y * F.logsigmoid(logit) +
-                      (1 - y) * F.logsigmoid(-logit))
-    return bce + aux
+    terms = y * F.logsigmoid(logit) + (1 - y) * F.logsigmoid(-logit)
+    if dist is None:
+        return -(torch.sum(terms) / logit.shape[0]) + aux
+    rows = logit.shape[0] * dist.shard_index()[0]
+    return -(dist.total(torch.sum(terms)) / rows) + aux
 
 
-def retrieval_scores(model: DIEN, params: dict, batch):
-    return dien_forward(model, params, batch, kind="retrieval")
+def retrieval_scores(model: DIEN, params: dict, batch, dist=None):
+    return dien_forward(model, params, batch, kind="retrieval", dist=dist)

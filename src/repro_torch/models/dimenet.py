@@ -16,7 +16,12 @@ integer frequencies, as in ``repro``.
 ``emb_rbf.w``, ``emb_msg.l0.w``, ``blk0.w_kj.w``, ``blk0.bilinear``,
 ``blk0.mlp.l1.b``, ``out0.l1.w``, ...). Every sentinel id is clamped
 where ``repro`` clamps it (triplets at ``e``, atomic numbers at 94), so
-no gather or scatter sees an id past its table. ``jnp.maximum``,
+no gather or scatter sees an id past its table. On a mesh (a
+``GraphSplit``, ``distributed/sharding.py``) the messages are
+edge-sharded like the edges, the triplets split in blocks of their own:
+a block gathers ``m @ w_kj`` whole, reads its own triplets' rows, and
+reduce-scatters the ``segment_sum`` over ``trip_ji`` back to edge
+blocks; the atom sum is reduce-scattered to node blocks. ``jnp.maximum``,
 ``jnp.minimum`` and ``jnp.clip`` on floats are ``torch.maximum`` and
 ``torch.minimum`` (both split a tie's gradient in half, as jnp does).
 """
@@ -30,6 +35,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from repro_torch.distributed.sharding import GraphSplit
 from repro_torch.graphs import segment_ops as sops
 from repro_torch.models import layers as L
 
@@ -141,56 +147,62 @@ class DimeNet(nn.Module):
             setattr(self, f"out{i}", L.MLP([h, h, cfg.n_out],
                                            generator=generator))
 
-    def forward(self, z, coords, edge_src, edge_dst, trip_kj, trip_ji):
+    def forward(self, z, coords, edge_src, edge_dst, trip_kj, trip_ji,
+                split=None):
         """z: int32[n+1] atomic numbers; coords: [n+1, 3]. edge_*:
         int32[E] (sentinel n). trip_kj/trip_ji: int32[T] indices into
         the edge list: message (k->j) feeds message (j->i) (sentinel E).
-        Returns (node_out [n+1, n_out], messages) — callers pool."""
+        Returns (node_out [n+1, n_out], messages) — callers pool.
+        ``split``: the ``GraphSplit`` of a mesh step (the module
+        docstring)."""
         cfg = self.cfg
-        n1 = z.shape[0]
-        e = edge_src.shape[0]
+        split = split or GraphSplit(z.shape[0], edge_src.shape[0])
+        n1, e = split.nodes, split.edges
         act = F.silu
         es, ed = edge_src.long(), edge_dst.long()
         kj = torch.clamp(trip_kj.long(), max=e - 1)
         ji = torch.clamp(trip_ji.long(), max=e - 1)
 
-        diff = coords.index_select(0, es) - coords.index_select(0, ed)
+        xa = split.whole(coords)
+        diff = xa.index_select(0, es) - xa.index_select(0, ed)
         dist = torch.sqrt(_max(torch.sum(diff * diff, -1), 1e-12))
         rbf = rbf_basis(dist, cfg)                          # [E, R]
 
         # triplet angle between edge (k->j) and (j->i)
-        d1 = diff.index_select(0, kj)
-        d2 = -diff.index_select(0, ji)
+        diff_all, dist_all = split.whole(diff), split.whole(dist)
+        d1 = diff_all.index_select(0, kj)
+        d2 = -diff_all.index_select(0, ji)
         cosang = torch.sum(d1 * d2, -1) / _max(
             torch.linalg.norm(d1, dim=-1) * torch.linalg.norm(d2, dim=-1),
             1e-9)
         angle = torch.arccos(_min(_max(cosang, -1 + 1e-7), 1 - 1e-7))
-        d_kj = dist.index_select(0, kj)
+        d_kj = dist_all.index_select(0, kj)
         sbf = sbf_basis(d_kj, angle, cfg)                   # [T, S*R]
         trip_ok = (trip_kj < e) & (trip_ji < e)
         sbf = torch.where(trip_ok[:, None], sbf, 0.0)
 
-        hz = self.emb_atom.index_select(0, torch.clamp(z.long(), max=94))
+        za = split.whole(z)
+        hz = self.emb_atom.index_select(0, torch.clamp(za.long(), max=94))
         m = self.emb_msg(torch.cat(
             [hz.index_select(0, es), hz.index_select(0, ed),
              self.emb_rbf(rbf)], -1), act=act)              # [E, H]
 
         seg_ji = torch.clamp(trip_ji.long(), max=e)
-        out = torch.zeros((n1, cfg.n_out), dtype=torch.float32,
+        out = torch.zeros((z.shape[0], cfg.n_out), dtype=torch.float32,
                           device=coords.device)
         for i in range(cfg.n_blocks):
             blk = getattr(self, f"blk{i}")
             # directional interaction: m_kj -> (j->i), modulated by sbf
-            m_kj = (m @ blk.w_kj.w).index_select(0, kj)     # [T, H]
+            m_kj = split.whole(m @ blk.w_kj.w).index_select(0, kj)
             sb = sbf @ blk.w_sbf.w                          # [T, B]
             inter = bilinear_interaction(sb, blk.bilinear, m_kj)
-            agg = sops.segment_sum(
+            agg = split.to_block(sops.segment_sum(
                 torch.where(trip_ok[:, None], inter, 0.0), seg_ji,
-                e + 1)[:e]                                  # [E, H]
+                e + 1)[:e])                                 # [E, H]
             m = act(m @ blk.w_ji.w + agg * (rbf @ blk.w_rbf.w))
             m = m + blk.mlp(m, act=act)
             # per-block output: aggregate messages to atoms
-            atom = sops.segment_sum(m, ed, n1)
+            atom = split.to_block(sops.segment_sum(m, ed, n1))
             out = out + getattr(self, f"out{i}")(atom, act=act)
         return out, m
 

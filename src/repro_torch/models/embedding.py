@@ -8,6 +8,18 @@ of NaN (its gradient is dropped). The ids are mapped into [0, n) before
 is an ``index_add_``), and the rows of out-of-range ids are filled
 afterwards.
 
+On a mesh whose ``model`` axis shards a table's rows in contiguous
+blocks (``repro``'s ``RECSYS_RULES``), ``lookup_split`` reads ids that
+every ``model`` rank holds alike: each rank gathers the rows its block
+holds, 0 for the rest, and the rows are summed over ``model`` (the
+LM's vocabulary-parallel embedding, ``models/transformer.py``); the
+gradient is this rank's block's ``index_add_``, and no rank holds the
+whole table or its whole gradient. ``lookup_owned`` reads ids that are
+themselves split over ``model`` (retrieval's candidates): the ids of a
+``model`` group are all-gathered, each rank reads its rows, and the
+rows are reduce-scattered back to the ranks that hold the ids. Both
+keep ``lookup``'s rule.
+
 ``lookup_mod_sharded`` is ``repro``'s explicit mod-sharded lookup over a
 mesh axis: row r lives on shard r % S at local index r // S; each shard
 looks up the rows it owns (``lookup``'s rule on its local block), zeroes
@@ -24,6 +36,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from repro_torch.distributed.sharding import contiguous_stride
 from repro_torch.graphs import segment_ops as sops
 
 
@@ -61,6 +76,56 @@ def lookup(table, ids):
     vals = table.index_select(0, rows)
     vals = torch.where(ok[:, None], vals, float("nan"))
     return vals.reshape(tuple(ids.shape) + (table.shape[1],))
+
+
+def _block_rows(block, ids, n: int, dist) -> tuple:
+    """``(rows, ok)`` of flat ``ids`` over a table of ``n`` rows whose
+    ``model`` block on this rank is ``block``: the rows the block holds,
+    0 for the others; ``ok`` where an id lies in [-n, n)."""
+    if any(a >= b for a, b in (dist.model_range(n, r)
+                               for r in range(dist.model_size()))):
+        raise ValueError(f"a table of {n} rows leaves a model rank no row")
+    lo, hi = dist.model_range(n)
+    ok = (ids >= -n) & (ids < n)
+    local = torch.where(ids < 0, ids + n, ids) - lo
+    mine = ok & (local >= 0) & (local < hi - lo)
+    vals = block.index_select(0, torch.where(mine, local, 0))
+    return torch.where(mine[:, None], vals, vals.new_zeros(())), ok
+
+
+def lookup_split(block, ids, n: int, dist):
+    """``lookup(table, ids)`` of a table of ``n`` rows from this rank's
+    ``model`` block ``block`` (``dist``: a tensor-parallel
+    ``distributed.sharding.ModelCall``; ``ids`` the same on every
+    ``model`` rank): masked local rows summed over ``model`` (the module
+    docstring)."""
+    flat = ids.reshape(-1).long()
+    vals, ok = _block_rows(block, flat, n, dist)
+    vals = torch.where(ok[:, None], dist.from_model(vals), float("nan"))
+    return vals.reshape(tuple(ids.shape) + (block.shape[1],))
+
+
+def lookup_owned(block, ids, n: int, dist):
+    """The rows of this rank's ids of ``ids``, a 1-D DTensor of ids split
+    over mesh axes that ``model`` is among (each rank's ids its own), by
+    ``lookup``'s rule, from this rank's ``model`` block ``block`` of a
+    table of ``n`` rows (the module docstring; no gradient)."""
+    mesh = dist.mesh
+    i = tuple(mesh.mesh_dim_names).index(dist.model)
+    group = list(ids.placements)
+    group[i] = Replicate()
+    rows, _ = _block_rows(block, ids.redistribute(mesh, group).to_local()
+                          .long(), n, dist)
+    part = list(group)
+    part[i] = Partial()
+    shape = (ids.shape[0], block.shape[1])
+    rows = DTensor.from_local(
+        rows, mesh, part, run_check=False, shape=torch.Size(shape),
+        stride=contiguous_stride(shape)).redistribute(
+        mesh, ids.placements).to_local()
+    own = ids.to_local().long()
+    return torch.where(((own >= -n) & (own < n))[:, None], rows,
+                       float("nan"))
 
 
 def lookup_mod_sharded(table, ids, mesh, axis: str = "model"):

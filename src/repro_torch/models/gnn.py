@@ -15,6 +15,15 @@ paths (``w0``; ``self0``/``nbr0``; ``embed``, ``phi_e0.l0.w``,
 ``out.l1.b``). Built without a generator it is a structure for ``torch.func.functional_call``; with one, its
 parameters are drawn in the order ``repro`` initialises them, at the
 same scale (the values differ from ``jax.random``'s).
+
+On a mesh each forward takes a ``GraphSplit``
+(``distributed/sharding.py``): the arrays are this rank's blocks of
+nodes and edges (``repro``'s ``GNN_RULES``), the dense products run on
+the node block, and a layer gathers the node rows its edges read whole,
+computes its own edges' messages, and reduce-scatters their
+``segment_sum`` (every node row, the sentinel's too) back to node
+blocks. Off a mesh the split is the identity, and the arithmetic is the
+unsharded one.
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from repro_torch.distributed.sharding import GraphSplit
 from repro_torch.graphs import segment_ops as sops
 from repro_torch.models import layers as L
 
@@ -69,17 +79,20 @@ class GCN(nn.Module):
         for i, (di, do) in enumerate(zip(dims[:-1], dims[1:])):
             setattr(self, f"w{i}", L._dense_init((di, do), generator))
 
-    def forward(self, x, edge_src, edge_dst, deg):
+    def forward(self, x, edge_src, edge_dst, deg, split=None):
         """x: [n+1, d_in] (sentinel row 0s); edges sentinel-padded to n.
         deg: [n+1] degrees (>=1). Symmetric normalization
-        D^-1/2 A D^-1/2."""
-        n1 = x.shape[0]
+        D^-1/2 A D^-1/2. ``split``: the ``GraphSplit`` of a mesh step
+        (the module docstring)."""
+        split = split or GraphSplit(x.shape[0], edge_src.shape[0])
+        n1 = split.nodes
         es, ed = edge_src.long(), edge_dst.long()
         inv_sqrt = torch.rsqrt(torch.clamp(deg.to(torch.float32), min=1.0))
+        inv_all = split.whole(inv_sqrt)
         for i in range(self.cfg.n_layers):
-            h = x @ getattr(self, f"w{i}")
-            msg = h.index_select(0, es) * inv_sqrt.index_select(0, es)[:, None]
-            agg = sops.segment_sum(msg, ed, n1)
+            h = split.whole(x @ getattr(self, f"w{i}"))
+            msg = h.index_select(0, es) * inv_all.index_select(0, es)[:, None]
+            agg = split.to_block(sops.segment_sum(msg, ed, n1))
             x = agg * inv_sqrt[:, None]
             if i < self.cfg.n_layers - 1:
                 x = torch.relu(x)
@@ -109,22 +122,32 @@ class SAGE(nn.Module):
             setattr(self, f"self{i}", L._dense_init((di, do), generator))
             setattr(self, f"nbr{i}", L._dense_init((di, do), generator))
 
-    def layer(self, i, x_src, x_dst, es, ed, n_dst1):
+    def layer(self, i, x_src, x_dst, es, ed, split, cnt):
+        """``split``: the graph's ``GraphSplit`` (``x_src`` whole, ``x_dst``
+        this rank's node block); ``cnt``: the block's in-degrees (the
+        mean aggregator's, ``in_degrees``)."""
         msg = x_src.index_select(0, es)
         if self.cfg.aggregator == "mean":
-            agg = sops.segment_mean(msg, ed, n_dst1)
+            agg = split.to_block(sops.segment_sum(msg, ed, split.nodes)) \
+                / cnt.clamp(min=1.0)[:, None]
         else:
-            agg = sops.segment_max(msg, ed, n_dst1)
+            agg = sops.segment_max(msg, ed, split.nodes)
             agg = torch.where(torch.isfinite(agg), agg, 0.0)
         return x_dst @ getattr(self, f"self{i}") \
             + agg @ getattr(self, f"nbr{i}")
 
-    def forward(self, x, edge_src, edge_dst):
-        """Full-graph SAGE (ogb_products-style full-batch)."""
-        n1 = x.shape[0]
+    def forward(self, x, edge_src, edge_dst, split=None):
+        """Full-graph SAGE (ogb_products-style full-batch); ``split``: the
+        ``GraphSplit`` of a mesh step, where the mean aggregator's sums
+        and counts are reduce-scattered (the max aggregator has no mesh
+        form)."""
+        split = split or GraphSplit(x.shape[0], edge_src.shape[0])
+        if split.call is not None and self.cfg.aggregator != "mean":
+            raise ValueError("SAGE on a mesh aggregates by mean only")
         es, ed = edge_src.long(), edge_dst.long()
+        cnt = in_degrees(split, ed)
         for i in range(self.cfg.n_layers):
-            x = self.layer(i, x, x, es, ed, n1)
+            x = self.layer(i, split.whole(x), x, es, ed, split, cnt)
             if i < self.cfg.n_layers - 1:
                 x = torch.relu(x)
         return x
@@ -145,11 +168,21 @@ class SAGE(nn.Module):
                                             device=x.device)])
             x_dst = x_pad.index_select(0, torch.clamp(map_dst, max=last))
             es = torch.clamp(blk["edge_src"].long(), max=last)
-            x = self.layer(i, x_pad, x_dst, es, blk["edge_dst"].long(),
-                           blk["n_dst"] + 1)[: blk["n_dst"]]
+            ed = blk["edge_dst"].long()
+            split = GraphSplit(blk["n_dst"] + 1, es.shape[0])
+            x = self.layer(i, x_pad, x_dst, es, ed, split,
+                           in_degrees(split, ed))[: blk["n_dst"]]
             if i < self.cfg.n_layers - 1:
                 x = torch.relu(x)
         return x
+
+
+def in_degrees(split, edge_dst):
+    """Each node's in-degree on this rank's node block (``split``: a
+    ``GraphSplit``), as float32: ``segment_mean``'s count."""
+    ones = torch.ones(edge_dst.shape, dtype=torch.float32,
+                      device=edge_dst.device)
+    return split.to_block(sops.segment_sum(ones, edge_dst, split.nodes))
 
 
 # -------------------------------------------------------------------- EGNN
@@ -176,26 +209,31 @@ class EGNN(nn.Module):
                                              generator=generator))
         self.out = L.MLP([h, h, cfg.n_out], generator=generator)
 
-    def forward(self, h_feat, coords, edge_src, edge_dst):
+    def forward(self, h_feat, coords, edge_src, edge_dst, split=None):
         """h_feat: [n+1, d_in]; coords: [n+1, 3]; edges sentinel-padded.
         Returns (node_out [n+1, n_out], node feats h) — callers pool for
-        graph-level targets (segment_sum over graph_ids)."""
-        n1 = h_feat.shape[0]
+        graph-level targets (segment_sum over graph_ids). ``split``: the
+        ``GraphSplit`` of a mesh step (the module docstring)."""
+        split = split or GraphSplit(h_feat.shape[0], edge_src.shape[0])
+        n1 = split.nodes
         es, ed = edge_src.long(), edge_dst.long()
         h = h_feat @ self.embed
         x = coords
         act = F.silu
+        # segment_mean's count, an empty segment counting 1
+        cnt = in_degrees(split, ed).clamp(min=1.0)[:, None]
         for i in range(self.cfg.n_layers):
-            diff = x.index_select(0, es) - x.index_select(0, ed)
+            xa, ha = split.whole(x), split.whole(h)
+            diff = xa.index_select(0, es) - xa.index_select(0, ed)
             d2 = torch.sum(diff * diff, dim=-1, keepdim=True)
             m = getattr(self, f"phi_e{i}")(
-                torch.cat([h.index_select(0, es), h.index_select(0, ed), d2],
-                          -1), act=act)
+                torch.cat([ha.index_select(0, es), ha.index_select(0, ed),
+                           d2], -1), act=act)
             # coordinate update (E(n)-equivariant)
             cx = getattr(self, f"phi_x{i}")(m, act=act)
-            x = x + sops.segment_mean(diff * cx, ed, n1)
+            x = x + split.to_block(sops.segment_sum(diff * cx, ed, n1)) / cnt
             # feature update
-            agg = sops.segment_sum(m, ed, n1)
+            agg = split.to_block(sops.segment_sum(m, ed, n1))
             h = h + getattr(self, f"phi_h{i}")(torch.cat([h, agg], -1),
                                                act=act)
         node_out = self.out(h, act=act)

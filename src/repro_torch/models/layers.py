@@ -185,13 +185,26 @@ def apply_rope(x, positions, theta: float = 10000.0):
     return out.to(x.dtype)
 
 
+def target_index(labels, vocab: int) -> tuple:
+    """``(ok, idx)``: the labels read by ``jnp.take_along_axis``'s rule
+    over a last dim of ``vocab`` (``models/embedding.lookup``'s rule for
+    rows). A label in [-vocab, 0) counts from the end; ``ok`` is False
+    for a label past either end (its logit reads NaN), whose ``idx``
+    (every label modulo ``vocab``) the caller masks."""
+    t = labels.long()
+    return (t >= -vocab) & (t < vocab), torch.remainder(t, vocab)
+
+
 def softmax_cross_entropy(logits, labels, z_loss: float = 0.0,
                           impl: str = "gather"):
     """logits [..., V]; labels int [...]. Returns the per-token loss.
 
-    ``impl="gather"`` reads the label logit with ``torch.gather``;
-    ``impl="iota"`` selects it with an iota compare and a sum (``repro``'s
-    vocabulary-sharding-safe form; the same arithmetic on one card)."""
+    ``impl="gather"`` reads the label logit by ``jnp.take_along_axis``'s
+    rule (``target_index``: a label in [-V, 0) wraps, one past either end
+    gives a NaN loss) with ``torch.gather``; ``impl="iota"`` selects it
+    with an iota compare and a sum (``repro``'s vocabulary-sharding-safe
+    form; the same arithmetic on one card, and lse for a label outside
+    [0, V), as in ``repro``)."""
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     if impl == "iota":
@@ -199,41 +212,49 @@ def softmax_cross_entropy(logits, labels, z_loss: float = 0.0,
         onehot = labels[..., None].long() == iota
         ll = torch.sum(torch.where(onehot, logits, 0.0), dim=-1)
     else:
-        ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        ok, idx = target_index(labels, logits.shape[-1])
+        ll = torch.gather(logits, -1, idx[..., None])[..., 0]
+        ll = torch.where(ok, ll, float("nan"))
     loss = lse - ll
     if z_loss:
         loss = loss + z_loss * torch.square(lse)
     return loss
 
 
-def vocab_cross_entropy(logits, labels, start: int, dist, z_loss: float = 0.0,
-                        impl: str = "gather"):
+def vocab_cross_entropy(logits, labels, start: int, dist, vocab: int,
+                        z_loss: float = 0.0, impl: str = "gather"):
     """``softmax_cross_entropy`` of logits whose last dim is this rank's
-    vocabulary block ``[start, start + n)`` (``dist``: a tensor-parallel
-    ``distributed.sharding.ModelCall``; no rank holds [..., V] whole).
+    block ``[start, start + n)`` of a vocabulary of ``vocab`` (``dist``: a
+    tensor-parallel ``distributed.sharding.ModelCall``; no rank holds
+    [..., V] whole).
 
     Each rank takes its block's ``logsumexp``; the max of those over the
     ``model`` ranks (no gradient), the sum of their exponentials
     relative to it, and the target's logit (read by the rank whose block
-    holds it, 0 elsewhere) are all-reduced over ``model``. On one rank
-    the arithmetic is ``softmax_cross_entropy``'s (the block's lse plus
-    log 1)."""
+    holds it, 0 elsewhere) are all-reduced over ``model``. ``"gather"``
+    maps the labels by ``target_index`` first, so a wrapped label is
+    read by the rank that holds it and one past either end gives NaN on
+    every rank. On one rank the arithmetic is ``softmax_cross_entropy``'s
+    (the block's lse plus log 1)."""
     logits = logits.to(torch.float32)
     part = torch.logsumexp(logits, dim=-1)
     top = dist.max_over_model(part)
     lse = top + torch.log(dist.from_model(torch.exp(part - top)))
     n = logits.shape[-1]
-    local = labels.long() - start
     if impl == "iota":
+        local = labels.long() - start
         iota = torch.arange(n, device=logits.device)
-        ll = torch.sum(torch.where(local[..., None] == iota, logits, 0.0),
-                       dim=-1)
+        ll = dist.from_model(torch.sum(
+            torch.where(local[..., None] == iota, logits, 0.0), dim=-1))
     else:
+        ok, idx = target_index(labels, vocab)
+        local = idx - start
         mine = (local >= 0) & (local < n)
         ll = torch.gather(logits, -1,
                           torch.where(mine, local, 0)[..., None])[..., 0]
-        ll = torch.where(mine, ll, 0.0)
-    loss = lse - dist.from_model(ll)
+        ll = dist.from_model(torch.where(mine, ll, 0.0))
+        ll = torch.where(ok, ll, float("nan"))
+    loss = lse - ll
     if z_loss:
         loss = loss + z_loss * torch.square(lse)
     return loss

@@ -434,7 +434,7 @@ def lm_loss(params, cfg: LMConfig, tokens, targets, mask=None, dist=None):
     if SHD.tp(dist):
         loss = L.vocab_cross_entropy(logits, targets,
                                      _vocab_block(cfg, dist)[0], dist,
-                                     impl=cfg.ce_impl)
+                                     cfg.vocab, impl=cfg.ce_impl)
     else:
         loss = L.softmax_cross_entropy(logits, targets, impl=cfg.ce_impl)
     if mask is not None:

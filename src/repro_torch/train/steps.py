@@ -63,10 +63,20 @@ plain tensors, with explicit collectives around it:
   "model", None, None)``: the batch over ``dp``, the sequence over
   ``model``; the logits ``(dp, None, "model")``, each rank's block of
   the vocabulary.
-* DIEN: each rank runs its batch shard and reads every parameter whole
-  at the start of the loss (its item table too).
-* GNNs: the batch (sharded over every axis) is gathered whole and every
-  rank computes the same step (the parameters are replicated).
+* DIEN: each rank runs its batch shard (``dp_axes``) and reads each
+  table from its own ``model`` block of rows (a masked local gather
+  summed over ``model``: ``models/embedding.lookup_split``); no rank
+  holds a table or its gradient whole. The towers are read whole. The
+  loss is the whole batch's on every rank (its sums over the batch
+  shards), so the gradients are summed, not averaged. Retrieval's
+  candidates (over every axis) are read by their ``model`` group and
+  reduce-scattered back to their ranks.
+* GNNs: the node and edge arrays stay in their blocks over every axis
+  (``distributed/sharding.GraphSplit``): each rank runs the dense
+  products on its node block and the messages of its edges, gathering
+  the node rows its edges read and reduce-scattering their sums back to
+  node blocks; the loss's sums are summed over the ranks. The
+  parameters are replicated and read whole.
 * ``compress_pods``: the parameters are gathered whole before the model
   call, every rank computes the whole model (``ModelCall.model`` None),
   and the gradients go through ``distributed/compression``.
@@ -309,8 +319,9 @@ def _gnn_init(cfg, generator: torch.Generator) -> dict:
     return L.params_tree(_gnn_model(cfg, generator))
 
 
-def _gnn_node_out(model, params, batch):
-    """``params``: the flat dotted dict ``functional_call`` takes."""
+def _gnn_node_out(model, params, batch, split=None):
+    """``params``: the flat dotted dict ``functional_call`` takes;
+    ``split``: the ``GraphSplit`` of a mesh step."""
     if isinstance(model, G.GCN):
         args = (batch["feats"], batch["edge_src"], batch["edge_dst"],
                 batch["deg"])
@@ -322,25 +333,31 @@ def _gnn_node_out(model, params, batch):
     else:
         args = (batch["atom_z"], batch["coords"], batch["edge_src"],
                 batch["edge_dst"], batch["trip_kj"], batch["trip_ji"])
-    out = functional_call(model, params, args)
+    out = functional_call(model, params, args, {"split": split})
     return out[0] if isinstance(model, (G.EGNN, DN.DimeNet)) else out
 
 
-def gnn_loss(model, params, batch, kind: str):
-    node_out = _gnn_node_out(model, params, batch)
+def gnn_loss(model, params, batch, kind: str, split=None):
+    """The loss over the whole graph. On a mesh (``split``) the node
+    outputs are this rank's block: the masked terms and the mask, or the
+    graphs' pooled sums, are summed over the ranks (``split.total``), so
+    every rank holds the whole loss and its gradient reaches this rank's
+    terms only."""
+    total = (lambda x: x) if split is None else split.total
+    node_out = _gnn_node_out(model, params, batch, split)
     if kind in ("full", "minibatch"):
         if isinstance(model, DN.DimeNet):
             # DimeNet emits n_out=1: repro's regression-on-label proxy
             pred = node_out[..., 0]
             per = torch.square(pred - batch["labels"].to(torch.float32))
-            return torch.sum(per * batch["mask"]) / torch.clamp(
-                torch.sum(batch["mask"]), min=1.0)
-        ce = L.softmax_cross_entropy(node_out, batch["labels"])
-        return torch.sum(ce * batch["mask"]) / torch.clamp(
-            torch.sum(batch["mask"]), min=1.0)
+        else:
+            per = L.softmax_cross_entropy(node_out, batch["labels"])
+        return total(torch.sum(per * batch["mask"])) / torch.clamp(
+            total(torch.sum(batch["mask"])), min=1.0)
     # molecule: graph-level regression (sum-pool over graph_ids)
     b = batch["targets"].shape[0]
-    pooled = sops.segment_sum(node_out[..., 0], batch["graph_ids"], b + 1)[:b]
+    pooled = total(sops.segment_sum(node_out[..., 0], batch["graph_ids"],
+                                    b + 1))[:b]
     return torch.mean(torch.square(pooled - batch["targets"]))
 
 
@@ -353,10 +370,12 @@ def build_gnn_bundle(spec: ArchSpec, shape_name: str, device=None,
         model = _gnn_model(cfg)
     opt = make_optimizer(spec.optimizer)
     shardings = {}
+    dist = split = None
     if mesh is not None:
         allx = axis_names(mesh)
+        specs = spec.input_specs(shape_name)
         batch_sh = {k: _ns(mesh, allx, *([None] * (len(v.shape) - 1)))
-                    for k, v in spec.input_specs(shape_name).items()}
+                    for k, v in specs.items()}
         if shp.kind == "molecule":
             # the molecule batch's own keys (make_batch_fn), read or not
             batch_sh.update(targets=_ns(mesh, None), coords=_ns(mesh, allx),
@@ -368,12 +387,14 @@ def build_gnn_bundle(spec: ArchSpec, shape_name: str, device=None,
                                                     _ns(mesh)),
                                "step": _ns(mesh)},
                      "batch": batch_sh}
-    # on a mesh every rank runs the whole batch on whole parameters
-    dist = SHD.ModelCall(mesh) if mesh is not None else None
+        # node and edge arrays in blocks over every axis (GraphSplit)
+        dist = SHD.ModelCall(mesh, allx, None)
+        split = SHD.GraphSplit(specs["feats"].shape[0],
+                               specs["edge_src"].shape[0], dist)
     train_step = _train_step(opt, _value_and_grad(
         lambda params, batch: gnn_loss(model, L.dotted(_whole(dist, params)),
-                                       batch, shp.kind)), dist,
-        lambda batch: tree_map(SHD.gather, batch))
+                                       batch, shp.kind, split)), dist,
+        lambda batch: tree_map(SHD.local, batch), whole_loss=True)
     return StepBundle(name=f"{spec.arch_id}:{shape_name}:train",
                       fn=train_step, device=device, optimizer=opt,
                       static_meta={"cfg": cfg}, mesh=mesh,
@@ -433,13 +454,17 @@ def _whole(dist, params):
     return params if dist is None else tree_map(dist.whole, params)
 
 
-def _train_step(opt: Optimizer, grad_fn, dist=None, local_batch=None):
+def _train_step(opt: Optimizer, grad_fn, dist=None, local_batch=None,
+                whole_loss: bool = False):
     """``train_step(state, batch)`` over ``grad_fn(params, batch) ->
     (loss, grads)``. On a mesh (``dist``, the module docstring) the
     model gets the parameters as DTensors and ``local_batch(batch)``,
     this rank's plain batch; the gradients come back summed over
     ``dist.dp`` in each parameter's layout and are divided by the shard
-    count before the optimizer runs on the shards."""
+    count before the optimizer runs on the shards. With ``whole_loss``
+    every rank's loss is the whole batch's (its terms summed over
+    ``dp``: the GNNs, DIEN), so the summed gradients are the whole
+    gradient and nothing is divided."""
     if dist is None:
         def train_step(state, batch):
             loss, grads = grad_fn(state["params"], batch)
@@ -451,7 +476,7 @@ def _train_step(opt: Optimizer, grad_fn, dist=None, local_batch=None):
         return train_step
 
     mesh, dp = dist.mesh, dist.dp
-    n_dp = axis_size(mesh, dp)
+    n_dp = 1 if whole_loss else axis_size(mesh, dp)
 
     def train_step(state, batch):
         loss, grads = grad_fn(state["params"], local_batch(batch))
@@ -462,7 +487,8 @@ def _train_step(opt: Optimizer, grad_fn, dist=None, local_batch=None):
         return ({"params": _as_before(new_p, state["params"]),
                  "opt": _as_before(new_opt, state["opt"]),
                  "step": state["step"] + 1},
-                {"loss": SHD.mean_over(loss, mesh, dp, n_dp),
+                {"loss": loss if whole_loss else
+                 SHD.mean_over(loss, mesh, dp, n_dp),
                  "gnorm": SHD.gather(gnorm)})
 
     return train_step
@@ -511,11 +537,23 @@ def _compressed_train_step(opt: Optimizer, grad_fn, mesh, local_batch):
 
 
 # ======================================================== recsys family
+def _recsys_reads(dist, params, axes):
+    """Each DIEN parameter as the model reads it on a mesh: a table's rows
+    this rank's ``model`` block (``ModelCall.shard``), the towers whole;
+    as they are off a mesh."""
+    if dist is None:
+        return params
+    return tree_map(lambda p, ax: dist.shard(p) if ax[0] == "table_rows"
+                    else dist.whole(p), params, axes)
+
+
 def build_recsys_bundle(spec: ArchSpec, shape_name: str, device=None,
                         mesh=None) -> StepBundle:
     """DIEN: ``train`` (``dien_loss``, AdamW), ``serve``
     (``sigmoid(logit)``) or ``retrieval`` (``retrieval_scores``), on one
-    device or over ``mesh`` (the tables' rows over ``model``)."""
+    device or over ``mesh``: the tables' rows over ``model``, each rank
+    reading its own block (``models/dien.py``), the batch over the data
+    axes where it divides among them (replicated where it does not)."""
     device = resolve_device(device)
     shp = spec.shape(shape_name)
     cfg = spec.model_cfg
@@ -523,22 +561,22 @@ def build_recsys_bundle(spec: ArchSpec, shape_name: str, device=None,
         model = D.DIEN(cfg)
     name = f"{spec.arch_id}:{shape_name}:{shp.kind}"
     shardings = {}
+    dist = None
+    axes = D.dien_axes(cfg)
     if mesh is not None:
         dp = dp_axes(mesh)
         allx = axis_names(mesh)
-        dp_size = axis_size(mesh, dp)
-        param_sh = SHD.tree_shardings(D.dien_axes(cfg), SHD.RECSYS_RULES,
-                                      mesh)
-
-        def bsh(v, key):
-            if key == "cand_items":
-                return _ns(mesh, allx)
-            if v.shape[0] % dp_size:      # tiny batch (retrieval): replicate
-                return _ns(mesh, *([None] * len(v.shape)))
-            return _ns(mesh, dp, *([None] * (len(v.shape) - 1)))
-        batch_sh = {k: bsh(v, k)
-                    for k, v in spec.input_specs(shape_name).items()}
+        specs = spec.input_specs(shape_name)
+        # a batch that does not divide over dp (retrieval's one query)
+        # is replicated, and every rank runs all of it
+        if shp.batch % axis_size(mesh, dp):
+            dp = ()
+        param_sh = SHD.tree_shardings(axes, SHD.RECSYS_RULES, mesh)
+        batch_sh = {k: _ns(mesh, allx) if k == "cand_items" else
+                    _ns(mesh, dp or None, *([None] * (len(v.shape) - 1)))
+                    for k, v in specs.items()}
         shardings = {"state": {"params": param_sh}, "batch": batch_sh}
+        dist = SHD.ModelCall(mesh, dp)
 
     if shp.kind == "train":
         opt = make_optimizer(spec.optimizer)
@@ -548,33 +586,43 @@ def build_recsys_bundle(spec: ArchSpec, shape_name: str, device=None,
                 "params": param_sh, "step": _ns(mesh),
                 "opt": SHD.opt_state_shardings(spec.optimizer, params,
                                                param_sh, mesh)}
-        dist = SHD.ModelCall(mesh, dp) if mesh is not None else None
         train_step = _train_step(opt, _value_and_grad(
             lambda params, batch: D.dien_loss(
-                model, L.dotted(_whole(dist, params)), batch)), dist,
-            lambda batch: tree_map(SHD.local, batch))
+                model, L.dotted(_recsys_reads(dist, params, axes)), batch,
+                dist)), dist, lambda batch: tree_map(SHD.local, batch),
+            whole_loss=True)
         return StepBundle(name=name, fn=train_step, device=device,
                           optimizer=opt, static_meta={"cfg": cfg}, mesh=mesh,
                           shardings=shardings)
 
     if shp.kind == "serve":
         def step(params, batch):
-            with torch.no_grad():
-                return torch.sigmoid(D.dien_forward(
-                    model, L.dotted(params), batch, kind="serve"))
-        out_sh = _ns(mesh, dp) if mesh is not None else None
+            return torch.sigmoid(D.dien_forward(model, params, batch,
+                                                kind="serve", dist=dist))
     elif shp.kind == "retrieval":
         def step(params, batch):
-            with torch.no_grad():
-                return D.retrieval_scores(model, L.dotted(params), batch)
-        out_sh = _ns(mesh, None, allx) if mesh is not None else None
+            return D.retrieval_scores(model, params, batch, dist)
     else:
         raise KeyError(shp.kind)
-    fn = step
+
+    def fn(params, batch):
+        with torch.no_grad():
+            return step(L.dotted(_recsys_reads(dist, params, axes)), batch)
     if mesh is not None:
+        out_sh = _ns(mesh, dp or None) if shp.kind == "serve" else \
+            _ns(mesh, None, allx)
+
         def fn(params, batch):
-            return SHD.from_local(step(tree_map(SHD.gather, params),
-                                       tree_map(SHD.local, batch)), out_sh)
+            # retrieval's candidates stay a DTensor (lookup_owned)
+            local = {k: v if k == "cand_items" else SHD.local(v)
+                     for k, v in batch.items()}
+            with torch.no_grad():
+                res = step(L.dotted(_recsys_reads(dist, params, axes)),
+                           local)
+            shape = (batch["user"].shape[0],) + (
+                tuple(batch["cand_items"].shape) if "cand_items" in batch
+                else ())
+            return SHD.from_local(res, out_sh, shape)
     return StepBundle(name=name, fn=fn, device=device,
                       static_meta={"cfg": cfg}, mesh=mesh,
                       shardings=shardings)

@@ -26,6 +26,17 @@ buffer's capacity over ``data`` too), kimi-k2 (experts split,
 Adafactor). The
 serving case holds a 16-token prefill and 8 greedy decode steps over
 the sequence-sharded cache to the unsharded bundles.
+
+The GNNs split their compute as ``repro``'s rules split their arrays:
+each rank runs its block of nodes and edges (``GRAPH_CASES``: the smoke
+full graph, whose last edge block holds padding only, and a molecule
+batch of 40 graphs, whose last node block does), from ``repro``'s
+initial state carried across as ``tests/test_torch_train.py`` carries
+it. DIEN reads each table from its ``model`` blocks, its batch over
+``data``; its serve and retrieval outputs (candidates split over every
+axis, in uneven blocks, ids past both ends among them) are held to the
+unsharded bundles'. The vocabulary-parallel loss takes targets past
+both ends of the vocabulary as the unsharded loss does.
 """
 from __future__ import annotations
 
@@ -82,6 +93,11 @@ SERVE_CASES = (("granite-8b", ""), ("granite-8b", "heads3"),
                ("qwen2-moe-a2.7b", "experts3"), ("kimi-k2-1t-a32b", ""))
 ODD_IDS = [0, 1, 2, 5, 9, 10, 11, 13, 19, 20, 21, -1, -2, -3, -9, -10, -11,
            -12, -20, -21]
+# (arch, shape) of the GNN and DIEN mesh steps (``_graph_spec``)
+GRAPH_CASES = (("gcn-cora", "full_graph_sm"),
+               ("graphsage-reddit", "full_graph_sm"),
+               ("egnn", "full_graph_sm"), ("egnn", "molecule"),
+               ("dimenet", "molecule"), ("dien", "train_batch"))
 
 
 # ------------------------------------------------------------ the rules
@@ -296,8 +312,56 @@ if mode == "steps":
         flat[f"{tag}_loss"] = gathered(vg[tag][0]).numpy()
         for k, g in flatten_with_paths(vg[tag][1]):
             flat[f"{tag}_grad_{k}"] = gathered(g).numpy()
+    # the loss on targets past both ends, each impl, on vocabulary blocks
+    from repro_torch.models import layers as L
+    full = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (2, 8, v)).astype(np.float32) * 3)
+    lo, hi = T._vocab_block(cfg, call)
+    for impl in ("gather", "iota"):
+        flat[f"plain_odd_{impl}"] = L.softmax_cross_entropy(
+            full, ids, impl=impl).numpy()
+        flat[f"mesh_odd_{impl}"] = L.vocab_cross_entropy(
+            full[..., lo:hi], ids, lo, call, v, impl=impl).numpy()
     if rank == 0:
         np.savez(f"{out}/vocab.npz", **flat)
+    # the GNNs' and DIEN's mesh steps from repro's initial state
+    for arch, shape in json.load(open(f"{out}/graph_cases.json")):
+        spec = _graph_spec(registry, tr, arch)
+        bundle = build_bundle(spec, shape, "cpu", mesh=mesh)
+        state0, _ = ck.restore_checkpoint(f"{out}/{arch}_{shape}_init",
+            tr.init_state(spec, build_bundle(spec, shape, "cpu")))
+        st = bundle.place_state(state0)
+        mb = tr.make_batch_fn(spec, shape, device="cpu")
+        losses = []
+        for i in range(2):
+            st, m = bundle.fn(st, bundle.place_batch(mb(i)))
+            losses.append([float(m["loss"]), float(m["gnorm"])])
+        ck.save_checkpoint(f"{out}/{arch}_{shape}_mesh", 2, st)
+        res[f"{arch}:{shape}"] = losses
+    # DIEN's serve and retrieval bundles, mesh against unsharded
+    from repro_torch.configs.shapes import RecShape
+    d = dict(np.load(f"{out}/dien_serve_in.npz"))
+    dspec = _graph_spec(registry, tr, "dien")
+    state0, _ = ck.restore_checkpoint(f"{out}/dien_train_batch_init",
+        tr.init_state(dspec, build_bundle(dspec, "train_batch", "cpu")))
+    params = state0["params"]
+    spec = dataclasses.replace(dspec, shapes={
+        "s": RecShape("s", "serve", len(d["user"])),
+        "r": RecShape("r", "retrieval", 1, n_candidates=len(d["cand"]))})
+    serve_in = {k: torch.from_numpy(d[k]) for k in (
+        "user", "hist_items", "hist_cats", "hist_mask", "target_item",
+        "target_cat")}
+    retr_in = {k: v[:1] for k, v in serve_in.items()}
+    retr_in["cand_items"] = torch.from_numpy(d["cand"])
+    got = {}
+    for tag, m in (("plain", None), ("mesh", mesh)):
+        for shape, b in (("s", serve_in), ("r", retr_in)):
+            bd = build_bundle(spec, shape, "cpu", mesh=m)
+            p = params if m is None else bd.place_state(
+                {"params": params})["params"]
+            got[f"{tag}_{shape}"] = gathered(bd.fn(p, bd.place_batch(b))).numpy()
+    if rank == 0:
+        np.savez(f"{out}/dien_serve_out.npz", **got)
     # int8 across the pod axis and the mod-sharded lookup over "model"
     pm = init_device_mesh("cpu", (2, 2), mesh_dim_names=("pod", "model"))
     pod, col = pm.get_coordinate()
@@ -371,10 +435,21 @@ def _smoke(registry, train, arch, variant=""):
     return dataclasses.replace(spec, model_cfg=cfg, param_dtype="float32")
 
 
+def _graph_spec(registry, train, arch):
+    """The smoke spec of a GNN or of DIEN; a GNN's molecule batch holds
+    40 graphs (real atoms on three of the four ranks' node blocks)."""
+    spec = train.smoke_spec(registry.get_spec(arch))
+    if spec.family != "gnn":
+        return spec
+    mol = dataclasses.replace(spec.shapes["molecule"], batch_graphs=40)
+    return dataclasses.replace(spec, shapes=dict(spec.shapes, molecule=mol))
+
+
 def _torchrun(tmp_path, n: int, *args):
     script = tmp_path / "worker.py"
     (tmp_path / "variants.json").write_text(json.dumps(VARIANTS))
-    script.write_text(WORKER.replace("SMOKE", inspect.getsource(_smoke)))
+    script.write_text(WORKER.replace("SMOKE", inspect.getsource(_smoke) +
+                                     "\n\n" + inspect.getsource(_graph_spec)))
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep +
                os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
     r = subprocess.run([sys.executable, "-m", "torch.distributed.run",
@@ -477,6 +552,98 @@ def _islabel_batch(r):
     return fields, batch
 
 
+def _dien_repro(spec):
+    """``repro``'s initial DIEN state and its eager train step jitted
+    without a mesh (``tests/test_torch_recsys.py``: ``repro``'s jitted
+    bundle fails under a mesh)."""
+    cfg = spec.model_cfg
+    opt = j_steps.make_optimizer(spec.optimizer)
+
+    @jax.jit
+    def step(state, batch):
+        loss, grads = jax.value_and_grad(
+            lambda p: j_dien.dien_loss(p, cfg, batch))(state["params"])
+        new_p, new_opt, gnorm = opt.update(grads, state["opt"],
+                                           state["params"], state["step"])
+        return ({"params": new_p, "opt": new_opt, "step": state["step"] + 1},
+                {"loss": loss, "gnorm": gnorm})
+
+    params = j_dien.init_dien(jax.random.PRNGKey(0), cfg)[0]
+    state = {"params": params, "opt": opt.init(params),
+             "step": jax.numpy.zeros((), jax.numpy.int32)}
+    return jax.tree.map(np.asarray, state), step
+
+
+def _graph_refs(tmp) -> dict:
+    """``GRAPH_CASES``: ``repro``'s initial state, saved for the worker,
+    and two unsharded steps of the port's bundle and of ``repro``'s
+    jitted step from it, on the port's batches."""
+    refs = {}
+    jmesh = jax.make_mesh((1, 1), ("data", "model"))
+    for arch, shape in GRAPH_CASES:
+        jspec = _graph_spec(j_registry, j_train, arch)
+        tspec = _graph_spec(t_registry, t_train, arch)
+        tb = t_train.make_batch_fn(tspec, shape, device="cpu")
+        batches = [tb(i) for i in range(2)]
+        with jmesh:
+            if arch == "dien":
+                state0, jstep = _dien_repro(jspec)
+            else:
+                jb = j_steps.build_bundle(jspec, shape, jmesh)
+                jstep = jb.jitted()
+                state0 = jax.tree.map(np.asarray,
+                                      j_train.init_state(jspec, jmesh, jb))
+            keys = jspec.input_specs(shape)
+            js, jl = state0, []
+            for b in batches:
+                js, jm = jstep(js, {k: b[k].numpy() for k in keys})
+                jl.append([float(jm["loss"]), float(jm["gnorm"])])
+        t_ckpt.save_checkpoint(tmp / f"{arch}_{shape}_init", 0,
+                               t_ckpt.state_from_tree(state0, "cpu"))
+        bundle = t_steps.build_bundle(tspec, shape, "cpu")
+        ts, tl = t_ckpt.state_from_tree(state0, "cpu"), []
+        for b in batches:
+            ts, tm = bundle.fn(ts, b)
+            tl.append([float(tm["loss"]), float(tm["gnorm"])])
+        refs[f"{arch}:{shape}"] = {
+            "port": (_values(t_ckpt.snapshot(ts)), tl),
+            "repro": (_values(jax.tree.map(np.asarray, js)), jl)}
+    # the blocks of 4 ranks: the full graph's last edge block and the
+    # molecule batch's last node block hold padding only
+    full = t_train.make_batch_fn(_graph_spec(t_registry, t_train, "gcn-cora"),
+                                 "full_graph_sm", device="cpu")(0)
+    n = int(full["edge_src"].max())
+    assert (full["edge_src"][-len(full["edge_src"]) // 4:] == n).all()
+    assert (full["edge_src"][: len(full["edge_src"]) // 2] < n).all()
+    mol = t_train.make_batch_fn(_graph_spec(t_registry, t_train, "egnn"),
+                                "molecule", device="cpu")(0)
+    rows = len(mol["graph_ids"]) // 4
+    assert (mol["graph_ids"][-rows:] == 40).all()
+    assert (mol["graph_ids"][-2 * rows:-rows] < 40).any()
+    return refs
+
+
+def _dien_serve_batch(r):
+    """16 DIEN requests and 510 retrieval candidates (uneven blocks on 4
+    ranks) of the smoke config, ids past both ends among them."""
+    cfg = t_train.smoke_spec(t_registry.get_spec("dien")).model_cfg
+    b, s = 16, cfg.seq_len
+    d = {"user": r.integers(0, cfg.n_users, b),
+         "hist_items": r.integers(0, cfg.n_items, (b, s)),
+         "hist_cats": r.integers(0, cfg.n_cats, (b, s)),
+         "hist_mask": (r.random((b, s)) > 0.1).astype(np.float32),
+         "target_item": r.integers(0, cfg.n_items, b),
+         "target_cat": r.integers(0, cfg.n_cats, b),
+         "cand": r.integers(0, cfg.n_items, 510)}
+    d["user"][3] = cfg.n_users
+    d["target_item"][5] = -1
+    d["hist_items"][7, 2] = -cfg.n_items
+    d["cand"][[7, 300, 301, 509]] = [cfg.n_items, -1, -cfg.n_items,
+                                     -cfg.n_items - 1]
+    return {k: v if v.dtype == np.float32 else v.astype(np.int32)
+            for k, v in d.items()}
+
+
 @pytest.fixture(scope="module")
 def mesh_run(tmp_path_factory):
     """The 4-rank run (``steps``) and both unsharded references."""
@@ -521,6 +688,9 @@ def mesh_run(tmp_path_factory):
         refs[_case_key(arch, accum, var)] = {
             "port": (_values(t_ckpt.snapshot(ts)), tl),
             "repro": (_values(jax.tree.map(np.asarray, js)), jl)}
+    refs.update(_graph_refs(tmp))
+    (tmp / "graph_cases.json").write_text(json.dumps(GRAPH_CASES))
+    np.savez(tmp / "dien_serve_in.npz", **_dien_serve_batch(r))
     _torchrun(tmp, 4, "steps", str(tmp),
               ",".join(f"{a}:{v}" for a, v in SERVE_CASES),
               *(f"{arch}:{accum}:{var}" for arch, accum, var in cases))
@@ -585,6 +755,58 @@ def test_vocab_parallel_embed_and_loss(mesh_run):
     for k in grads:
         np.testing.assert_allclose(got[f"mesh_grad_{k}"],
                                    got[f"plain_grad_{k}"], err_msg=k, **FP32)
+
+
+@pytest.mark.parametrize("impl", ["gather", "iota"])
+def test_vocab_parallel_loss_odd_targets(mesh_run, impl):
+    """``vocab_cross_entropy`` on each rank's vocabulary block with
+    targets V, V+3, -1, -V and -V-1 beside in-range ones: the unsharded
+    loss, NaN where it is NaN (past either end, ``gather`` only)."""
+    tmp, _ = mesh_run
+    got = np.load(tmp / "vocab.npz")
+    want = got[f"plain_odd_{impl}"]
+    np.testing.assert_allclose(got[f"mesh_odd_{impl}"], want, equal_nan=True,
+                               **FP32)
+    assert np.isnan(want).any() == (impl == "gather")
+    assert np.isfinite(want).any()
+
+
+@pytest.mark.parametrize("case", [f"{a}:{s}" for a, s in GRAPH_CASES])
+@pytest.mark.parametrize("ref", ["port", "repro"])
+def test_sharded_graph_step_matches_unsharded(mesh_run, case, ref):
+    """Two steps on the (2, 2) mesh, the GNN's nodes and edges split over
+    both axes or DIEN's tables over ``model``, against the unsharded
+    ``ref`` run's at ``FP32``: losses, gradient norms and every array of
+    the state."""
+    tmp, refs = mesh_run
+    arch, shape = case.split(":")
+    spec = _graph_spec(t_registry, t_train, arch)
+    got_state, _ = t_ckpt.restore_checkpoint(
+        tmp / f"{arch}_{shape}_mesh", t_ckpt.state_from_tree(
+            t_ckpt.snapshot(t_train.init_state(
+                spec, t_steps.build_bundle(spec, shape, "cpu"))), "cpu"))
+    got = _values(t_ckpt.snapshot(got_state))
+    want, want_losses = refs[case][ref]
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], err_msg=k, **FP32)
+    losses = json.load(open(tmp / "losses.json"))[case]
+    np.testing.assert_allclose(losses, want_losses, **FP32)
+
+
+@pytest.mark.parametrize("shape", ["s", "r"], ids=["serve", "retrieval"])
+def test_dien_serve_and_retrieval_on_mesh(mesh_run, shape):
+    """DIEN's serve bundle (the batch over ``data``) and retrieval bundle
+    (510 candidates over every axis) on the (2, 2) mesh, each table read
+    from its ``model`` blocks, within ``FP32`` of the unsharded bundles;
+    ids past either end give NaN where they do there."""
+    tmp, _ = mesh_run
+    got = np.load(tmp / "dien_serve_out.npz")
+    want = got[f"plain_{shape}"]
+    np.testing.assert_allclose(got[f"mesh_{shape}"], want, equal_nan=True,
+                               **FP32)
+    assert want.shape == ((16,) if shape == "s" else (1, 510))
+    assert np.isnan(want).any() and np.isfinite(want).any()
 
 
 def _entry(axes):
@@ -657,6 +879,47 @@ def test_dryrun_model_axis_splits_flops():
     assert flops["2x4"] <= 0.4 * flops["2x1"], flops
 
 
+def test_dryrun_graph_and_table_splits():
+    """``gcn-cora`` and ``egnn`` at ``ogb_products`` and DIEN at
+    ``train_batch``, traced on fake groups of 2 ranks (mesh (2, 1)) and
+    of 8 (mesh (4, 2)): a GNN's nodes and edges split over every axis,
+    so its FLOPs a device at 8 ranks are at most 0.3x those at 2; DIEN's
+    batch splits over ``data`` and its tables' rows over ``model``, so
+    its FLOPs and its collective bytes a device both fall (at most 0.6x
+    and 0.7x)."""
+    code = '''
+        import json
+        from torch.distributed.device_mesh import init_device_mesh
+        from repro_torch.configs import registry
+        from repro_torch.launch import dryrun
+        out = {}
+        for world, shape in ((8, (4, 2)), (2, (2, 1))):
+            dryrun.fake_world(world)
+            dryrun.make_production_mesh = lambda **kw: init_device_mesh(
+                "cpu", shape, mesh_dim_names=("data", "model"))
+            for arch, cell in (("gcn-cora", "ogb_products"),
+                               ("egnn", "ogb_products"),
+                               ("dien", "train_batch")):
+                rec = dryrun.trace_cell(registry.get_spec(arch), cell, False)
+                out[f"{arch}:{rec['mesh']}"] = [
+                    rec["flops_per_device"],
+                    rec["collective_bytes_per_device"]["total"]]
+        print(json.dumps(out))
+    '''
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep +
+               os.environ.get("PYTHONPATH", ""))
+    r = subprocess.run([sys.executable, "-c", textwrap.dedent(code)],
+                       capture_output=True, text=True, timeout=300, env=env)
+    assert r.returncode == 0, r.stderr[-4000:]
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    for arch in ("gcn-cora", "egnn"):
+        big, small = got[f"{arch}:4x2"], got[f"{arch}:2x1"]
+        assert 0 < big[0] <= 0.3 * small[0], (arch, got)
+    big, small = got["dien:4x2"], got["dien:2x1"]
+    assert 0 < big[0] <= 0.6 * small[0], got
+    assert 0 < big[1] <= 0.7 * small[1], got
+
+
 def test_compressed_psum_pod_and_mod_lookup_bitwise(mesh_run, tmp_path):
     """Both pods' mean and residual, and the mod-sharded lookup on ids
     past both ends of the table, as ``repro`` computes them."""
@@ -691,6 +954,51 @@ def test_islabel_on_mesh_bitwise(mesh_run):
     assert np.isfinite(want).any() and np.isinf(want).any()
     for i, x in enumerate(lvl):
         np.testing.assert_array_equal(got[f"lvl{i}"], x.numpy())
+
+
+def test_world_one_graph_and_recsys_steps_bitwise():
+    """At a world of one every collective of the GNNs' and DIEN's mesh
+    steps is a copy: two steps of each ``GRAPH_CASES`` case through the
+    mesh bundle equal the unsharded bundle's bitwise, losses and every
+    leaf (what ``chip_smoke.py``'s ``distributed`` phase holds on the
+    card at the published configs)."""
+    code = '''
+        import dataclasses, json
+        import torch
+        from repro_torch.checkpoint.checkpoint import snapshot
+        from repro_torch.configs import registry
+        from repro_torch.launch import train as tr
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.train.steps import build_bundle
+        from repro_torch.tree import flatten_with_paths
+        torch.use_deterministic_algorithms(True)
+        mesh = make_host_mesh(1, "cpu")
+        out = {}
+        for arch, shape in CASES:
+            spec = tr.smoke_spec(registry.get_spec(arch))
+            plain = build_bundle(spec, shape, "cpu")
+            sharded = build_bundle(spec, shape, "cpu", None, mesh)
+            state = tr.init_state(spec, plain)
+            make = tr.make_batch_fn(spec, shape, device="cpu")
+            a, b, la, lb = state, sharded.place_state(state), [], []
+            for i in range(2):
+                a, ma = plain.fn(a, make(i))
+                b, mb = sharded.fn(b, sharded.place_batch(make(i)))
+                la.append(float(ma["loss"]))
+                lb.append(float(mb["loss"]))
+            sa = dict(flatten_with_paths(snapshot(a)))
+            sb = dict(flatten_with_paths(snapshot(b)))
+            out[f"{arch}:{shape}"] = la == lb and all(
+                (sa[k] == sb[k]).all() for k in sa)
+        print(json.dumps(out))
+    '''.replace("CASES", repr(GRAPH_CASES))
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep +
+               os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, "-c", textwrap.dedent(code)],
+                       capture_output=True, text=True, timeout=300, env=env)
+    assert r.returncode == 0, r.stderr[-4000:]
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    assert got == {f"{a}:{s}": True for a, s in GRAPH_CASES}, got
 
 
 def test_elastic_restore_bitwise(tmp_path):
