@@ -233,17 +233,26 @@ Phases, one JSON line each (with its seconds):
    ``full_graph_sm``, ``egnn`` and ``dimenet`` on ``molecule`` at their
    published shapes; DIEN at its published widths and tables,
    ``MESH_DIEN_BATCH``; 3 steps each, DIEN's ``serve`` and
-   ``retrieval`` once), ``compressed_psum_pod`` and
+   ``retrieval`` once), ``compress_pods`` on a ``(pod, data, model)``
+   mesh at full width (``MESH_COMPRESSED``: granite-8b at 4 layers and 8
+   x 4,096 tokens, qwen2-moe at 2 layers and 2 x 4,096; 3 steps,
+   bitwise at one pod the unsharded step through quantize ->
+   dequantize, seconds and peak beside the plain mesh step's),
+   ``compressed_psum_pod`` and
    ``lookup_mod_sharded`` against their one-device forms; then
    ``torchrun ... -m repro_torch.launch.train --arch granite-8b --smoke
    --steps 20``. On a one-card machine the world is 1.
-19. dryrun — started in the background right after ``build`` (CPU only,
-   the fake process group, no card): ``python -m
+19. dryrun — after every timed phase, its processes on the host's
+   cores (CPU only, the fake process group, no card): ``python -m
    repro_torch.launch.dryrun --all --include-islabel --multipod single``
    and ``--multipod multi`` on ``perf.py``'s ``:mp`` cells, every cell
    ``ok``; per cell FLOPs, bytes, collective bytes, argument and peak
-   bytes per device and the dominant term on the H100 model; and
-   ``python -m repro_torch.launch.perf --cell islabel:serve_128m``.
+   bytes per device and the dominant term on the H100 model; the
+   granite-8b and qwen2-moe ``train_4k`` cells with ``--compress-pods``
+   on the 512 ranks (``DRYRUN_INT8``: FLOPs, peak, ``fits_80gb`` and
+   collective bytes beside the plain cell's; each must fit a card with
+   FLOPs within 10% of the plain cell's or below); and ``python -m
+   repro_torch.launch.perf --cell islabel:serve_128m``.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script
@@ -2483,30 +2492,56 @@ def phase_dien(tables, device="cuda") -> dict:
     return rec
 
 
+def start_launchers(runs, tmp: str | None, env,
+                    module: str = "repro_torch.launch.train") -> tuple:
+    """Each ``(name, args)`` of ``runs`` as ``python -m <module> *args``
+    on the card (with ``tmp``: ``--ckpt-dir <tmp>/<args[1]>`` appended),
+    all started together (independent runs; ``wait_launchers`` collects
+    them)."""
+    procs = [(name, args, subprocess.Popen(
+        [sys.executable, "-m", module, *args] + (
+            ["--ckpt-dir", f"{tmp}/{args[1]}"] if tmp else []), cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)) for name, args in runs]
+    atexit.register(stop_groups, [p for *_, p in procs])
+    return time.perf_counter(), procs, module
+
+
+def wait_launchers(started) -> dict:
+    """``start_launchers``'s runs, each of which must exit 0: ``{name:
+    {"args", "seconds" (from their common start), "lines"}}``."""
+    t0, procs, module = started
+    out = {}
+    for name, args, p in procs:
+        try:
+            stdout, stderr = p.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            stop_groups([p])
+            fail(f"{module} {' '.join(args)} ran past 600 s")
+        if p.returncode:
+            fail(f"{module} {' '.join(args)} exited "
+                 f"{p.returncode}:\n{stdout[-3000:]}\n{stderr[-3000:]}")
+        out[name] = {"args": args, "seconds": time.perf_counter() - t0,
+                     "lines": stdout.strip().splitlines()}
+    return out
+
+
 def phase_train_launcher() -> dict:
     """``python -m repro_torch.launch.train`` on the card as a subprocess
     (``TRAIN_LAUNCHER``), then again with ``--resume`` from its
-    checkpoints (``TRAIN_LAUNCHER_RESUME``), then each of
+    checkpoints (``TRAIN_LAUNCHER_RESUME``), and beside those each of
     ``TRAIN_LAUNCHER_MORE`` (DimeNet, DIEN); all must exit 0."""
     import os
     import tempfile
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = {}
-    runs = [("first", TRAIN_LAUNCHER), ("resume", TRAIN_LAUNCHER_RESUME)]
-    runs += [(args[1], args) for args in TRAIN_LAUNCHER_MORE]
     with tempfile.TemporaryDirectory() as tmp:
-        for name, args in runs:
-            t0 = time.perf_counter()
-            run = subprocess.run(
-                [sys.executable, "-m", "repro_torch.launch.train", *args,
-                 "--ckpt-dir", f"{tmp}/{args[1]}"], cwd=ROOT, env=env,
-                capture_output=True, text=True, timeout=600)
-            if run.returncode:
-                fail(f"launch/train.py {' '.join(args)} exited "
-                     f"{run.returncode}:\n{run.stdout[-3000:]}\n"
-                     f"{run.stderr[-3000:]}")
-            out[name] = {"args": args, "seconds": time.perf_counter() - t0,
-                         "lines": run.stdout.strip().splitlines()}
+        more = start_launchers([(args[1], args)
+                                for args in TRAIN_LAUNCHER_MORE], tmp, env)
+        out = wait_launchers(start_launchers([("first", TRAIN_LAUNCHER)],
+                                             tmp, env))
+        out.update(wait_launchers(start_launchers(
+            [("resume", TRAIN_LAUNCHER_RESUME)], tmp, env)))
+        out.update(wait_launchers(more))
     if "resumed at step 20" not in out["resume"]["lines"]:
         fail(f"launch/train.py --resume: {out['resume']['lines']}")
     return out
@@ -3019,21 +3054,13 @@ def phase_lm_cpu(tables) -> dict:
 def phase_lm_launcher() -> dict:
     """``python -m repro_torch.launch.serve`` with each of
     ``LM_LAUNCHER`` (the launcher's defaults otherwise: batch 256,
-    gen-len 32, the smoke config) on the card; each must exit 0."""
+    gen-len 32, the smoke config) on the card, started together; each
+    must exit 0."""
     import os
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = {}
-    for args in LM_LAUNCHER:
-        t0 = time.perf_counter()
-        run = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.serve", *args],
-            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-        if run.returncode:
-            fail(f"launch/serve.py {' '.join(args)} exited {run.returncode}:"
-                 f"\n{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
-        out[args[args.index("--arch") + 1]] = {"args": args, "seconds": time.perf_counter() - t0,
-                         "lines": run.stdout.strip().splitlines()}
-    return out
+    return wait_launchers(start_launchers(
+        [(args[args.index("--arch") + 1], args) for args in LM_LAUNCHER],
+        None, env, "repro_torch.launch.serve"))
 
 
 # ------------------------------------------------------------ LM training
@@ -3343,7 +3370,7 @@ def phase_lm_train_smoke(tables, device="cuda") -> dict:
     Adafactor) through ``phase_train``: steps, the card against the CPU,
     restore, resume, one injected failure (kimi-k2 under deterministic
     algorithms: its resume and rollback bitwise); then ``LM_TRAIN_LAUNCHER`` as
-    subprocesses, each exiting 0."""
+    subprocesses started together, each exiting 0."""
     import dataclasses
     import os
     import tempfile
@@ -3377,19 +3404,9 @@ def phase_lm_train_smoke(tables, device="cuda") -> dict:
                          "injected_failure", "launches")}}
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     with tempfile.TemporaryDirectory() as tmp:
-        for args in LM_TRAIN_LAUNCHER:
-            t0 = time.perf_counter()
-            run = subprocess.run(
-                [sys.executable, "-m", "repro_torch.launch.train", *args,
-                 "--ckpt-dir", f"{tmp}/{args[1]}"], cwd=ROOT, env=env,
-                capture_output=True, text=True, timeout=600)
-            if run.returncode:
-                fail(f"launch/train.py {' '.join(args)} exited "
-                     f"{run.returncode}:\n{run.stdout[-3000:]}\n"
-                     f"{run.stderr[-3000:]}")
-            out[f"launcher {args[1]}"] = {
-                "args": args, "seconds": time.perf_counter() - t0,
-                "lines": run.stdout.strip().splitlines()}
+        out.update(wait_launchers(start_launchers(
+            [(f"launcher {args[1]}", args) for args in LM_TRAIN_LAUNCHER],
+            tmp, env)))
     return out
 
 
@@ -4067,7 +4084,10 @@ ISLABEL_STEPS = 3          # timed query steps after one warm-up
 ISLABEL_CHECK_Q = 16       # queries held to the CPU bundle bitwise
 BUILD_LOG2 = 24            # islabel build_16m: n = 2^24, e_cap = 2^26
 DRYRUN_JOBS = 8             # the chip machine's cores
-DRYRUN_MULTI = ["qwen2-moe-a2.7b:train_4k", "kimi-k2-1t-a32b:train_4k"]
+DRYRUN_MULTI = ["qwen2-moe-a2.7b:train_4k", "kimi-k2-1t-a32b:train_4k",
+                "granite-8b:train_4k"]
+# the same cells with compress_pods on the 512 ranks (--compress-pods)
+DRYRUN_INT8 = ["granite-8b:train_4k", "qwen2-moe-a2.7b:train_4k"]
 DRYRUN_TIMEOUT = 700
 DRYRUN_OUT = ROOT / "experiments" / "chip_smoke"   # the script's own records
 PREFETCH_STEPS = 6
@@ -4086,6 +4106,11 @@ MESH_GRAPH_STEPS = 3
 # train_dien's batch: at 65,536 one run needs ~80 GB; the unsharded
 # run's final state waits on the host while the mesh run takes the card
 MESH_DIEN_BATCH = 32768
+# compress_pods at full width: (arch, layers, batch); granite as
+# MESH_TRAIN's cell (grad_accum ignored: 32,768 tokens in one pass),
+# qwen2-moe at 2 sequences (its update holds state, residual, gradients,
+# mean and new state: ~70 GB at 2 layers)
+MESH_COMPRESSED = (("granite-8b", 4, 8), ("qwen2-moe-a2.7b", 2, 2))
 
 
 def islabel_inputs(shp, device, seed: int) -> dict:
@@ -4735,6 +4760,117 @@ def mesh_dien(mesh, dev) -> dict:
     return rec
 
 
+def mesh_lm_compressed(mesh, dev, arch: str, layers: int,
+                       batch: int) -> dict:
+    """``compress_pods`` at full width: ``arch`` cut to ``layers``, its
+    ``train_4k`` cell at ``batch`` sequences (``grad_accum`` ignored, as
+    ``repro``'s compressed step ignores it), ``MESH_TRAIN_STEPS`` steps
+    on the ``(pod, data, model)`` mesh against the unsharded step whose
+    gradients go through the plain quantize -> dequantize with error
+    feedback (at one pod that is the compressed mean): losses, gradient
+    norms and every leaf of the state, ``err`` included, compared on
+    the card. Beside it the plain mesh step (no ``compress_pods``) on
+    the same mesh. Each run's seconds and peak device bytes above what
+    it started with, and each step's seconds (the first holds the
+    run's first-call costs). Each run draws the initial state anew on
+    the card (the same seeded draw), and the unsharded run's final state
+    waits in host memory while the compressed run holds the card
+    (qwen2-moe's state and residual are 28 GB)."""
+    import torch
+    from repro_torch.distributed.compression import (dequantize_int8,
+                                                     init_error_feedback,
+                                                     quantize_int8)
+    from repro_torch.launch.train import init_state, make_batch_fn
+    from repro_torch.models import transformer as T
+    from repro_torch.train.steps import _value_and_grad, build_bundle
+    from repro_torch.tree import tree_map
+    spec = lm_train_spec(arch, layers, batch)
+    cfg = spec.model_cfg
+    ov = {"warmup": 1, "grad_accum": 4}
+    comp = build_bundle(spec, "train_4k", dev, dict(ov, compress_pods=True),
+                        mesh)
+    plain_mesh = build_bundle(spec, "train_4k", dev, dict(ov, grad_accum=1),
+                              mesh)
+    single = build_bundle(spec, "train_4k", dev, dict(ov, grad_accum=1))
+    opt = single.optimizer
+    grad_fn = _value_and_grad(lambda p, b: T.lm_loss(
+        p, cfg, b["tokens"], b["targets"]))
+
+    def one(g, e):
+        gf = g.to(torch.float32) + e[0]
+        scale = torch.max(torch.abs(gf)) / 127.0 + 1e-12
+        q = quantize_int8(gf, scale)
+        return (torch.mean(dequantize_int8(q[None], scale), dim=0).to(
+            g.dtype), (gf - dequantize_int8(q, scale))[None])
+
+    def reference(state, batch):
+        loss, grads = grad_fn(state["params"], batch)
+        out = tree_map(one, grads, state["err"])
+        del grads
+        new_p, new_opt, gnorm = opt.update(
+            tree_map(lambda o: o[0], out), state["opt"], state["params"],
+            state["step"])
+        return ({"params": new_p, "opt": new_opt,
+                 "err": tree_map(lambda o: o[1], out),
+                 "step": state["step"] + 1}, {"loss": loss, "gnorm": gnorm})
+
+    def initial(err: bool):
+        state = init_state(spec, single)
+        if err:
+            state["err"] = init_error_feedback(state["params"],
+                                               comp.static_meta["n_pods"])
+        return state
+
+    make = make_batch_fn(spec, "train_4k", device=dev)
+    rec = {"arch": arch, "layers": layers, "batch": batch,
+           "steps": MESH_TRAIN_STEPS, "mesh": list(mesh.shape),
+           "grad_accum_asked": ov["grad_accum"],
+           "grad_accum_run": comp.static_meta["grad_accum"]}
+    final = {}
+    for tag, bundle, fn in (("unsharded_int8", None, reference),
+                            ("compressed", comp, comp.fn),
+                            ("plain_mesh", plain_mesh, plain_mesh.fn)):
+        t0 = time.perf_counter()
+        state = initial(tag != "plain_mesh")
+        if bundle is not None:
+            state = bundle.place_state(state)
+        torch.cuda.synchronize()
+        rec[f"setup_s_{tag}"] = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        losses, gnorms, step_s = [], [], []
+        for i in range(MESH_TRAIN_STEPS):
+            b = make(i)
+            state, m = fn(state, b if bundle is None else
+                          bundle.place_batch(b))
+            losses.append(m["loss"])
+            gnorms.append(m["gnorm"])
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0 - sum(step_s))
+        rec[f"seconds_{tag}"] = time.perf_counter() - t0
+        rec[f"step_s_{tag}"] = step_s
+        rec[f"peak_bytes_{tag}"] = torch.cuda.max_memory_allocated() - base
+        rec[f"losses_{tag}"] = [float(x) for x in losses]
+        rec[f"gnorms_{tag}"] = [float(x) for x in gnorms]
+        if tag == "unsharded_int8":       # waits on the host
+            t0 = time.perf_counter()
+            final[tag] = tree_map(lambda x: x.cpu(), state)
+            rec["park_s"] = time.perf_counter() - t0
+        elif tag == "compressed":
+            t0 = time.perf_counter()
+            rec["unequal_leaves"] = unequal_leaves(
+                comp, final.pop("unsharded_int8"), state, dev)
+            rec["compare_s"] = time.perf_counter() - t0
+        del state, m, b, losses, gnorms
+        torch.cuda.empty_cache()
+    rec["bitwise"] = not rec["unequal_leaves"] and all(
+        rec[f"{k}_compressed"] == rec[f"{k}_unsharded_int8"]
+        for k in ("losses", "gnorms"))
+    rec["finite"] = all(math.isfinite(x) for x in rec["losses_compressed"])
+    return rec
+
+
 def dist_main() -> int:
     """``chip_smoke.py --distributed`` under ``torchrun`` (one process a
     card, NCCL, deterministic algorithms): granite-8b's smoke train step
@@ -4743,8 +4879,9 @@ def dist_main() -> int:
     width through the mesh path (``mesh_lm_train``: bitwise at one rank;
     ``mesh_lm_serve``: greedy tokens equal), the GNNs and DIEN through
     theirs (``mesh_graph_step``, ``mesh_dien``: bitwise at one rank,
-    losses within 1e-4 above), ``compressed_psum_pod`` over
-    a ``pod`` mesh of every rank against its one-device form, and
+    losses within 1e-4 above), ``compress_pods`` at full width
+    (``mesh_lm_compressed``: bitwise at one rank), ``compressed_psum_pod``
+    over a ``pod`` mesh of every rank against its one-device form, and
     ``lookup_mod_sharded`` against the same arithmetic on the whole
     table. Rank 0 prints one line."""
     import dataclasses
@@ -4807,6 +4944,14 @@ def dist_main() -> int:
                                     np.allclose(r["losses_plain"],
                                                 r["losses_mesh"], rtol=1e-4))
                    for r in graph)
+    # compress_pods at full width on a (pod, data, model) mesh, one pod a
+    # card: bitwise the unsharded step through quantize -> dequantize at
+    # one pod
+    pm3 = init_device_mesh("cuda", (world, 1, 1),
+                           mesh_dim_names=("pod", "data", "model"))
+    compressed = [mesh_lm_compressed(pm3, dev, *c) for c in MESH_COMPRESSED]
+    compressed_ok = all(r["finite"] and (r["bitwise"] or world > 1)
+                        for r in compressed)
     # int8 across a pod axis of every rank, against its one-device form
     pm = init_device_mesh("cuda", (world,), mesh_dim_names=("pod",))
     r = np.random.default_rng(5)
@@ -4838,7 +4983,8 @@ def dist_main() -> int:
     look_ok = torch.equal(torch.nan_to_num(got, nan=-1.0),
                           torch.nan_to_num(want, nan=-1.0))
     flags = torch.tensor([int(step_ok), int(comp_ok), int(look_ok),
-                          int(full_ok), int(graph_ok)], device=dev)
+                          int(full_ok), int(graph_ok), int(compressed_ok)],
+                         device=dev)
     dist.all_reduce(flags, dist.ReduceOp.MIN)
     if rank == 0:
         emit({"world": world, "backend": dist.get_backend(),
@@ -4848,7 +4994,8 @@ def dist_main() -> int:
               "mod_lookup_equal": bool(flags[2]),
               "full_width_ok": bool(flags[3]), "full_train": full_train,
               "full_serve": full_serve, "graph_ok": bool(flags[4]),
-              "graph": graph,
+              "graph": graph, "compressed_steps_ok": bool(flags[5]),
+              "compressed_steps": compressed,
               "seconds": time.perf_counter() - t0})
     dist.destroy_process_group()
     return 0 if bool(flags.all()) else 1
@@ -4864,8 +5011,11 @@ def phase_distributed() -> dict:
     import torch
     torch.cuda.empty_cache()          # the ranks' NCCL setup needs room
     count = torch.cuda.device_count()
+    # the compressed qwen2-moe step holds ~70 GB: segments that grow
+    # keep the freed ones of earlier checks from fragmenting the card
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               CUBLAS_WORKSPACE_CONFIG=":4096:8")
+               CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
     run = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            f"--nproc-per-node={count}"]
     # the launcher's torchrun beside the checks' (an exit code to check)
@@ -4901,10 +5051,12 @@ def phase_distributed() -> dict:
 
 def start_dryrun() -> list:
     """The dry run's processes, started together (CPU only, on the fake
-    process group, after the timed phases): ``--all --include-islabel --multipod
-    single`` with ``DRYRUN_JOBS`` workers, ``--multipod multi`` on each
-    ``DRYRUN_MULTI`` cell (records under ``DRYRUN_OUT / "dryrun"``), and
-    ``launch.perf --cell islabel:serve_128m`` (``DRYRUN_OUT / "perf"``)."""
+    process group, after the timed phases): ``--all --include-islabel
+    --multipod single`` with ``DRYRUN_JOBS`` workers, ``--multipod
+    multi`` on each ``DRYRUN_MULTI`` cell and ``--multipod multi --compress-pods`` on
+    each ``DRYRUN_INT8`` cell (records under ``DRYRUN_OUT / "dryrun"``),
+    and ``launch.perf --cell islabel:serve_128m`` (``DRYRUN_OUT /
+    "perf"``)."""
     import os
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                CUDA_VISIBLE_DEVICES="")
@@ -4920,6 +5072,10 @@ def start_dryrun() -> list:
         arch, shape = cell.split(":")
         cmds.append(base + ["--arch", arch, "--shape", shape, "--multipod",
                             "multi"])
+    for cell in DRYRUN_INT8:
+        arch, shape = cell.split(":")
+        cmds.append(base + ["--arch", arch, "--shape", shape, "--multipod",
+                            "multi", "--compress-pods"])
     cmds.append([sys.executable, "-m", "repro_torch.launch.perf", "--cell",
                  "islabel:serve_128m", "--out",
                  str(DRYRUN_OUT / "perf")])
@@ -4949,8 +5105,9 @@ def phase_dryrun(procs) -> dict:
     cell ``ok``); per cell FLOPs, bytes, collective bytes by kind,
     argument and peak bytes per device, whether that peak fits 80 GB,
     and the dominant term (``lm_cells``: the LM cells' FLOPs, peak,
-    ``fits_80gb`` and collective bytes by kind); the perf variants'
-    lines."""
+    ``fits_80gb`` and collective bytes by kind; ``int8pods``: each
+    ``DRYRUN_INT8`` cell plain and with ``compress_pods``); the perf
+    variants' lines."""
     cells, secs, outs = [], [], []
     for cmd, t0, p in procs:
         try:
@@ -4972,14 +5129,39 @@ def phase_dryrun(procs) -> dict:
             "argument_bytes_per_device", "peak_bytes_per_device",
             "fits_80gb", "dominant", "t_compute_s", "t_memory_s",
             "t_collective_s", "collective_bytes_per_device")})
-    if len(cells) != 38 + len(DRYRUN_MULTI):
+        cells[-1]["int8pods"] = bool(r["overrides"].get("compress_pods"))
+    if len(cells) != 38 + len(DRYRUN_MULTI) + len(DRYRUN_INT8):
         fail(f"dryrun: {len(cells)} cell records")
+    # compress_pods under the split: within 10% of the plain 512-rank
+    # cell's FLOPs or below, and within a card
+    int8 = []
+    for cell in DRYRUN_INT8:
+        arch, shape = cell.split(":")
+        got = [c for c in cells if (c["arch"], c["shape"]) == (arch, shape)
+               and c["mesh"] == "2x16x16"]
+        plain = [c for c in got if not c["int8pods"]]
+        comp = [c for c in got if c["int8pods"]]
+        if len(plain) != 1 or len(comp) != 1:
+            fail(f"dryrun: {cell} lacks its multipod records")
+        plain, comp = plain[0], comp[0]
+        row = {"arch": arch, "shape": shape,
+               "plain": {k: plain[k] for k in (
+                   "flops_per_device", "peak_bytes_per_device", "fits_80gb",
+                   "collective_bytes_per_device")},
+               "after": {k: comp[k] for k in (
+                   "flops_per_device", "peak_bytes_per_device", "fits_80gb",
+                   "collective_bytes_per_device")}}
+        int8.append(row)
+        if not comp["fits_80gb"] or comp["flops_per_device"] > \
+                1.1 * plain["flops_per_device"]:
+            fail(f"dryrun: {cell} with compress_pods {row}")
     from repro_torch.configs import registry
-    lm = [{k: c[k] for k in ("arch", "shape", "mesh", "flops_per_device",
-                             "peak_bytes_per_device", "fits_80gb",
-                             "collective_bytes_per_device")}
+    lm = [{k: c[k] for k in ("arch", "shape", "mesh", "int8pods",
+                             "flops_per_device", "peak_bytes_per_device",
+                             "fits_80gb", "collective_bytes_per_device")}
           for c in cells if registry.get_spec(c["arch"]).family == "lm"]
-    return {"cells": cells, "lm_cells": lm, "process_s": secs,
+    return {"cells": cells, "lm_cells": lm, "int8pods": int8,
+            "process_s": secs,
             "perf": [ln for ln in outs[-1].splitlines()
                      if ln.startswith("[")]}
 

@@ -7,22 +7,34 @@ all-reduces fp32 gradients across pods; this module replaces that with
 
   1. residual-corrected gradient g' = g + e  (error feedback state e)
   2. per-tensor scale s = max|g'| / 127 shared via a tiny fp32
-     ``all_reduce(MAX)``
+     all-reduce (``MAX``)
   3. q = round(g'/s) as int8 (round half to even, as ``jnp.round``),
-     ``all_gather_into_tensor`` across the pod group
+     all-gathered across the pod group
   4. the dequantized mean becomes the update; e' = g' - dequant(q)
 
-The collectives run over the ``pod`` sub-mesh's process group; the
-reduction inside a pod stays fp32 (``make_compressed_grad_fn``). The
-error-feedback state makes the compression unbiased over time
-(Karimireddy et al., arXiv:1901.09847).
+``repro`` runs this inside a ``shard_map`` over ``pod`` alone, the
+``data`` and ``model`` axes left to GSPMD: inside each pod the model is
+split as the plain mesh step splits it, and the exchange works on
+gradients that are logically whole. The port does the same on each
+rank's block of a gradient and of its residual (the parameter's layout
+inside the pod): steps 1, 3 and 4 are elementwise on the block, the
+int8 all-gather moves the block across pods, and the max of step 2 is
+taken over the whole tensor (over every mesh axis: the block's own
+max, then the pods' and the blocks' ones), so that each element is
+quantized as ``repro`` quantizes it. The reduction inside a pod stays
+fp32 (``make_compressed_grad_fn``). The error-feedback state makes the
+compression unbiased over time (Karimireddy et al., arXiv:1901.09847).
 """
 from __future__ import annotations
 
-import torch
-import torch.distributed as dist
+import math
 
-from repro_torch.tree import tree_map
+import torch
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed import sharding as SHD
+from repro_torch.tree import (flatten_with_paths, leaves, tree_map,
+                              unflatten_paths)
 
 
 def quantize_int8(g, scale):
@@ -33,59 +45,76 @@ def dequantize_int8(q, scale):
     return q.to(torch.float32) * scale
 
 
-def compressed_psum_pod(grads, err, mesh, axis: str = "pod"):
-    """grads/err: trees of local tensors, already reduced within the pod
-    (``err`` without its pod dim). Returns (mean_grads, new_err), the
-    mean the same on every pod."""
-    group = mesh.get_group(axis)
-    n_pods = dist.get_world_size(group)
+def _amax(x):
+    """max|x| of a block (0 for an empty one: |x| >= 0)."""
+    return torch.max(torch.abs(x)) if x.numel() else x.new_zeros(())
 
-    def one(g, e):
-        gf = g.to(torch.float32) + e
-        amax = torch.max(torch.abs(gf))
-        dist.all_reduce(amax, dist.ReduceOp.MAX, group=group)
-        scale = amax / 127.0 + 1e-12
-        q = quantize_int8(gf, scale)
+
+def compressed_psum_pod(grads, err, mesh, axis: str = "pod"):
+    """grads/err: trees of this rank's blocks of each gradient (already
+    reduced within its pod) and of its pod's residual (without the pod
+    dim), the same layout both. Returns (mean_grads, new_err) as blocks
+    of the same layout, the mean the same on every pod. Each leaf's
+    scale is the max over the whole tensor: one ``MAX`` all-reduce over
+    every mesh axis (a leaf's replicated axes hold equal maxima)."""
+    names = tuple(mesh.mesh_dim_names)
+    size = dict(zip(names, mesh.shape))
+    group = mesh.get_group(axis)
+    paths = [k for k, _ in flatten_with_paths(grads)]
+    gs = leaves(grads)
+    gf = [g.to(torch.float32) + e for g, e in zip(gs, leaves(err))]
+    amax = torch.stack([_amax(x) for x in gf])
+    for a in names:
+        if size[a] > 1:
+            amax = SHD.all_reduce(amax, mesh.get_group(a), "max")
+    means, new_err = [], []
+    for g, x, m in zip(gs, gf, amax.unbind(0)):
+        scale = m / 127.0 + 1e-12
+        q = quantize_int8(x, scale)
         # int8 across pods, then a local mean (cross-pod bytes: N int8 a
         # pod against 2N fp32 for a ring all-reduce)
-        allq = q.new_empty(n_pods * q.numel())
-        dist.all_gather_into_tensor(allq, q.reshape(-1), group=group)
-        allq = allq.view((n_pods,) + tuple(q.shape))
-        mean = torch.mean(dequantize_int8(allq, scale), dim=0)
-        new_e = gf - dequantize_int8(q, scale)
-        return mean.to(g.dtype), new_e
-
-    outs = tree_map(one, grads, err)
-    return (tree_map(lambda o: o[0], outs),
-            tree_map(lambda o: o[1], outs))
+        allq = SHD.all_gather(q[None], group, size[axis])
+        means.append(torch.mean(dequantize_int8(allq, scale), dim=0).to(
+            g.dtype))
+        new_err.append(x.sub_(dequantize_int8(q, scale)))    # x is ours
+    return (unflatten_paths(zip(paths, means)),
+            unflatten_paths(zip(paths, new_err)))
 
 
-def make_compressed_grad_fn(loss_and_grad_fn, mesh):
-    """Wrap a per-rank loss/grad fn with the cross-pod compressed
-    reduction. ``fn(params, err, batch) -> (loss, grads, new_err)``:
-    ``params`` this rank's whole parameters, ``batch`` its shard, ``err``
-    its pod's residual (the leading pod dim of ``repro``'s state, of
-    size one here). Inside the pod the loss and the gradients are
-    averaged in fp32 over the ``data`` group; across pods the gradients
-    go through ``compressed_psum_pod`` and the loss through an fp32 mean."""
-    names = tuple(mesh.mesh_dim_names)
-    inner = mesh.get_group("data") if "data" in names else None
-    pods = mesh.get_group("pod")
+def make_compressed_grad_fn(loss_and_grad_fn, mesh, inner=("data",)):
+    """Wrap a pod's loss/grad fn with the cross-pod compressed reduction
+    (``repro``'s ``shard_map`` over ``pod``). ``fn(params, err, batch) ->
+    (loss, grads, new_err)``: ``params`` the state's DTensors (replicated
+    over ``pod``), ``err`` the residual laid out ``("pod", *spec)``,
+    ``batch`` this rank's shard. ``loss_and_grad_fn(params, batch)``
+    returns this rank's loss and each gradient summed over the ``inner``
+    batch axes into its parameter's layout (``sharding.ModelCall``'s
+    reads): a DTensor that says replicated over ``pod`` but holds this
+    pod's value. Its block is taken before anything reads it as a
+    DTensor, divided by the ``inner`` count (the pod's mean, in fp32),
+    and goes through ``compressed_psum_pod`` with the residual's block;
+    the mean, the same on every pod, is wrapped back in the parameter's
+    layout, the new residual in the residual's. The loss is the mean
+    over the ranks of the pod and then over the pods (``pmean``)."""
+    size = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    inner = tuple(a for a in inner if a in size)
+    n_inner = math.prod(size[a] for a in inner)
+    n_all = n_inner * size["pod"]
 
-    def mean_over(x, group):
-        if group is None or dist.get_world_size(group) == 1:
-            return x
-        x = x.clone()
-        dist.all_reduce(x, group=group)
-        return x / dist.get_world_size(group)
+    def wrap(x, like):
+        return DTensor.from_local(x, like.device_mesh, like.placements,
+                                  run_check=False, shape=like.shape,
+                                  stride=like.stride())
 
     def fn(params, err, batch):
         loss, grads = loss_and_grad_fn(params, batch)
-        grads = tree_map(lambda g: mean_over(g, inner), grads)
-        grads, new_err = compressed_psum_pod(
-            grads, tree_map(lambda e: e[0], err), mesh)
-        loss = mean_over(mean_over(loss, inner), pods)
-        return loss, grads, tree_map(lambda e: e[None], new_err)
+        blocks = tree_map(lambda g: SHD.local(g) / n_inner if n_inner > 1
+                          else SHD.local(g), grads)
+        mean, new_err = compressed_psum_pod(
+            blocks, tree_map(lambda e: SHD.local(e)[0], err), mesh)
+        loss = SHD.mean_over(loss, mesh, ("pod",) + inner, n_all)
+        return (loss, tree_map(wrap, mean, params),
+                tree_map(lambda e, old: wrap(e[None], old), new_err, err))
 
     return fn
 

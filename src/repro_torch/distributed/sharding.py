@@ -34,6 +34,7 @@ import torch
 from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
 
+from repro_torch.graphs import segment_ops as sops
 from repro_torch.tree import tree_map
 
 LM_RULES = {
@@ -249,12 +250,12 @@ def all_gather(x, group, n: int, dim: int = 0):
     return out.movedim(0, dim)
 
 
-def reduce_scatter(x, group, n: int, dim: int = 0):
-    """This rank's block along ``dim`` (of ``n`` equal blocks) of the sum
-    of the ranks' ``x``; no gradient."""
+def reduce_scatter(x, group, n: int, dim: int = 0, op: str = "sum"):
+    """This rank's block along ``dim`` (of ``n`` equal blocks) of the
+    ranks' ``x`` reduced (``"sum"`` or ``"max"``); no gradient."""
     c = _c10d()
     out = c.wait_tensor(c.reduce_scatter_tensor(
-        x.movedim(dim, 0).contiguous(), "sum", n, group.group_name))
+        x.movedim(dim, 0).contiguous(), op, n, group.group_name))
     return out.movedim(0, dim)
 
 
@@ -333,9 +334,10 @@ class ModelCall:
     part of the whole batch over them, a GNN's node and edge arrays are
     split in row blocks over every axis. ``model`` is the mesh axis the
     model's compute is split over (``repro``'s tensor, vocabulary and
-    expert parallelism, DIEN's tables by row block; ``tp``), or None:
-    every rank computes the whole model on its part of the batch
-    (``compress_pods``, the GNNs).
+    expert parallelism, DIEN's tables by row block; ``tp``), or None,
+    the GNNs' call only: every rank computes the whole model on its part
+    of the batch. Under ``compress_pods`` ``dp`` leaves ``pod`` out: each pod
+    is a step of its own (``distributed/compression``).
 
     The model receives its parameters as DTensors laid out by the rules
     and reads each one where it uses it, per layer for a stacked LM:
@@ -358,7 +360,11 @@ class ModelCall:
     reduce-scatter where the layout shards it, an all-reduce where it
     does not): a sum, which the step divides by the number of batch
     shards (a loss over the whole batch, ``total``'s, is divided by
-    nothing). The region operators (``to_model``, ``from_model``,
+    nothing). A mesh axis outside ``dp`` and ``model`` keeps its
+    placement in the gradient: with ``compress_pods`` that says
+    replicated over ``pod`` while the value is this pod's, so the step
+    takes the gradient's local block before anything reads it as a
+    DTensor. The region operators (``to_model``, ``from_model``,
     ``gather_model``; ``scatter_dp``, ``gather_dp``, ``total``,
     ``roll_dp`` over the batch axes) carry activations into and out of
     the parts."""
@@ -537,7 +543,8 @@ class GraphSplit:
     ``whole`` returns a view, so autograd sums a read's gradients before
     adding them to the array's other uses' as it does past the mesh's
     gather (at one rank the mesh step is then bitwise the unsharded
-    one)."""
+    one). ``segment_max`` is the max aggregator's form of ``to_block``
+    (``_SegmentMax``)."""
     nodes: int
     edges: int
     call: ModelCall | None = None
@@ -560,8 +567,51 @@ class GraphSplit:
     def total(self, x):
         return x if self.call is None else self.call.total(x)
 
+    def segment_max(self, msg, seg):
+        """``segment_max`` of this rank's edges' ``msg`` [E, d] into node
+        rows ``seg``, this rank's node block of the max over every rank's
+        edges (empty rows the lowest value); off a mesh the unsharded
+        ``segment_ops.segment_max``."""
+        if self.call is None:
+            return sops.segment_max(msg, seg, self.nodes)
+        return _SegmentMax.apply(msg, seg, self)
+
+
+class _SegmentMax(torch.autograd.Function):
+    """A ``GraphSplit``'s segment max: each rank's ``[nodes, d]`` partial
+    of its own edges (``scatter_reduce("amax")`` onto the lowest value),
+    reduce-scattered by ``MAX`` to node blocks. The backward is the
+    unsharded ``scatter_reduce`` backward: each row's gradient split
+    evenly among the messages equal to its max, the tie count summed
+    over every rank's edges (a tie can span ranks), so an edge's
+    message gets ``mask * (g / count)[seg]`` as off the mesh, bitwise."""
+
+    @staticmethod
+    def forward(ctx, msg, seg, split):
+        ctx.split = split
+        out = sops.segment_max(msg, seg, split.nodes)
+        for group, n in split.call._dp_groups():     # scatter_dp's order
+            out = reduce_scatter(out, group, n, 0, "max")
+        ctx.save_for_backward(msg, seg, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        # the region operators run their forwards here (no grad mode)
+        msg, seg, out = ctx.saved_tensors
+        call, nodes = ctx.split.call, ctx.split.nodes
+        mx = call.gather_dp(out, 0)                         # [nodes, d]
+        idx = seg.long().view(-1, *([1] * (msg.dim() - 1))).expand_as(msg)
+        mask = (msg == mx.gather(0, idx)).to(msg.dtype)
+        # the unsharded count starts from the fill's own ties (an empty
+        # row's -inf)
+        count = (mx == float("-inf")).to(msg.dtype) + call.total(
+            sops.segment_sum(mask, seg, nodes))
+        share = call.gather_dp(g, 0) / count
+        return mask * share.gather(0, idx), None, None
+
 
 def tp(dist) -> bool:
     """Whether a model call splits its compute over ``model`` (a mesh
-    call with a ``model`` axis; not ``compress_pods``'s)."""
+    call with a ``model`` axis: an LM's, ``compress_pods``'s too)."""
     return dist is not None and dist.tp

@@ -24,8 +24,12 @@ Usage:
   python -m repro_torch.launch.dryrun --arch granite-8b --shape train_4k
   python -m repro_torch.launch.dryrun --all [--include-islabel] \\
       [--multipod single|multi|both] [--out experiments/dryrun]
+  python -m repro_torch.launch.dryrun --arch granite-8b --shape train_4k \\
+      --multipod multi --compress-pods
 
-Each cell writes ``<out>/<arch>__<shape>__<singlepod|multipod>.json``;
+Each cell writes ``<out>/<arch>__<shape>__<singlepod|multipod>.json``
+(``multipod+int8pods`` with ``--compress-pods``: the LM train step's
+``compress_pods`` override, int8 gradients across pods);
 a failure is recorded there with its trace, and the exit code is 1 if
 any cell failed. ``fits_80gb`` says whether the cell's peak bytes per
 device fit one card's 80 GB: a cell that traces ``ok`` may still need
@@ -216,11 +220,12 @@ def _as_tree(args) -> dict:
 
 
 def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: Path,
-             verbose: bool = True, probes: bool = True) -> dict:
-    rec = {"arch": arch, "shape": shape}
+             verbose: bool = True, probes: bool = True,
+             overrides: dict | None = None) -> dict:
+    rec = {"arch": arch, "shape": shape, "overrides": overrides or {}}
     try:
         rec.update(trace_cell(registry.get_spec(arch), shape, multi_pod,
-                              probes=probes))
+                              overrides, probes=probes))
         rec["ok"] = True
         if verbose:
             print(f"[{arch}/{shape}/{rec['mesh']}] ok "
@@ -238,7 +243,8 @@ def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: Path,
         if verbose:
             print(f"[{arch}/{shape}] FAIL {rec['error'][:300]}", flush=True)
     out_dir.mkdir(parents=True, exist_ok=True)
-    tag = "multipod" if multi_pod else "singlepod"
+    tag = ("multipod" if multi_pod else "singlepod") + (
+        "+int8pods" if (overrides or {}).get("compress_pods") else "")
     (out_dir / f"{arch}__{shape}__{tag}.json").write_text(
         json.dumps(rec, indent=1, default=str))
     return rec
@@ -255,6 +261,8 @@ def main(argv=None):
     ap.add_argument("--out", default="experiments/dryrun")
     ap.add_argument("--no-probes", action="store_true")
     ap.add_argument("--jobs", type=int, default=1)
+    ap.add_argument("--compress-pods", action="store_true",
+                    help="the LM train step's compress_pods override")
     args = ap.parse_args(argv)
     out = Path(args.out)
 
@@ -262,7 +270,8 @@ def main(argv=None):
              if args.all else [(args.arch, args.shape)])
     meshes = {"single": [False], "multi": [True],
               "both": [False, True]}[args.multipod]
-    work = [(arch, shape, mp, out, True, not args.no_probes)
+    ov = {"compress_pods": True} if args.compress_pods else None
+    work = [(arch, shape, mp, out, True, not args.no_probes, ov)
             for arch, shape in cells for mp in meshes]
     if args.jobs > 1:
         import multiprocessing as mproc

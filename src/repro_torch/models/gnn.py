@@ -22,8 +22,9 @@ nodes and edges (``repro``'s ``GNN_RULES``), the dense products run on
 the node block, and a layer gathers the node rows its edges read whole,
 computes its own edges' messages, and reduce-scatters their
 ``segment_sum`` (every node row, the sentinel's too) back to node
-blocks. Off a mesh the split is the identity, and the arithmetic is the
-unsharded one.
+blocks (SAGE's max aggregator: a ``MAX`` reduce-scatter of each
+rank's partial maxima). Off a mesh the split is the identity, and the
+arithmetic is the unsharded one.
 """
 from __future__ import annotations
 
@@ -131,7 +132,7 @@ class SAGE(nn.Module):
             agg = split.to_block(sops.segment_sum(msg, ed, split.nodes)) \
                 / cnt.clamp(min=1.0)[:, None]
         else:
-            agg = sops.segment_max(msg, ed, split.nodes)
+            agg = split.segment_max(msg, ed)
             agg = torch.where(torch.isfinite(agg), agg, 0.0)
         return x_dst @ getattr(self, f"self{i}") \
             + agg @ getattr(self, f"nbr{i}")
@@ -139,11 +140,9 @@ class SAGE(nn.Module):
     def forward(self, x, edge_src, edge_dst, split=None):
         """Full-graph SAGE (ogb_products-style full-batch); ``split``: the
         ``GraphSplit`` of a mesh step, where the mean aggregator's sums
-        and counts are reduce-scattered (the max aggregator has no mesh
-        form)."""
+        and counts are reduce-scattered and the max aggregator's partial
+        maxima reduce-scattered by ``MAX`` (``GraphSplit.segment_max``)."""
         split = split or GraphSplit(x.shape[0], edge_src.shape[0])
-        if split.call is not None and self.cfg.aggregator != "mean":
-            raise ValueError("SAGE on a mesh aggregates by mean only")
         es, ed = edge_src.long(), edge_dst.long()
         cnt = in_degrees(split, ed)
         for i in range(self.cfg.n_layers):

@@ -20,7 +20,9 @@ batch as ``repro`` routes the whole batch: the capacity is that of the
 global token count, a token's rank in its expert is offset by the
 assignments of the shards before it (an all-gather of per-expert counts
 in the batch's shard order), and the load-balance loss takes its means
-over every token. The loss's gradient through this rank's router
+over every token. Under ``compress_pods`` the batch is the pod's
+(``dist.dp`` leaves ``pod`` out), as ``repro``'s ``shard_map`` over
+``pod`` routes it. The loss's gradient through this rank's router
 probabilities is scaled by the shard count, so that the mean over the
 ranks the step takes is the whole batch's gradient. The router is read
 whole and every rank of a ``model`` group routes the same tokens alike.
@@ -175,17 +177,17 @@ def route(p, cfg: MoEConfig, xf, dtype=torch.bfloat16,
 
 def moe_ffn(p, cfg: MoEConfig, x, *, dtype=torch.bfloat16, dist=None):
     """x: [B, S, E] -> ([B, S, E], aux_loss); ``dist`` the mesh call
-    (the module docstring)."""
+    (the module docstring), None off a mesh."""
     if SHD.tp(dist):
         return _tp_moe(p, cfg, x, dtype, dist)
     b, s, e = x.shape
     t = b * s
     xf = x.reshape(t, e)
-    r = route(p, cfg, xf, dtype, dist)
+    r = route(p, cfg, xf, dtype)
     y = _experts(p, cfg, xf, r, r.gate_v, r.slot, cfg.n_total, dtype)
     if cfg.n_shared:
         y = y + L.swiglu(p["shared"], xf.to(dtype), dtype)
-    return y.reshape(b, s, e), _aux(cfg, r, t, dist)
+    return y.reshape(b, s, e), _aux(cfg, r, t, None)
 
 
 def _experts(p, cfg: MoEConfig, xf, r: Routing, gate_v, slot, n: int,

@@ -60,8 +60,8 @@ group; the residual stream is the same on all of them. A split input
 enters through ``ModelCall.to_model`` (identity, its gradient
 all-reduced) and a partial output leaves through ``from_model`` (an
 all-reduce), so each gradient comes back whole on the ranks that
-compute with it. ``compress_pods``'s call (``dist.model`` None) runs the
-whole model on every rank on whole parameters.
+compute with it. ``compress_pods``'s call is the same split inside each
+pod (its batch axes without ``pod``).
 
 Serving on a mesh writes each rank's block of the cache's positions
 (``repro``'s layout ``(None, dp, "model", None, None)``): prefill takes
@@ -283,7 +283,7 @@ def _embed(params, cfg: LMConfig, tokens, dtype, dist=None):
     elsewhere, summed over ``model`` (the module docstring)."""
     rows = token_rows(tokens, cfg.vocab)
     if not SHD.tp(dist):
-        return _whole(dist, params["embed"]).index_select(
+        return params["embed"].index_select(
             0, rows.reshape(-1)).to(dtype).view(*tokens.shape, cfg.d_model)
     w = dist.shard(params["embed"])
     lo, hi = _vocab_block(cfg, dist)
@@ -312,8 +312,7 @@ def _unembed(params, cfg: LMConfig, x, dtype, dist=None):
             dist.shard(params["unembed"])
         x = dist.to_model(x)
     else:
-        w = _whole(dist, params["embed"]).T if cfg.tie_embeddings else \
-            _whole(dist, params["unembed"])
+        w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
     return (x @ w.to(dtype)).to(torch.float32)
 
 
@@ -342,10 +341,7 @@ def _attn_in(lp, x, dist):
 
 def _block(cfg: LMConfig, dtype, dist, lp, x):
     """One layer: ``x`` [B, S, E] -> (x, aux loss or None); each
-    parameter read where it is used on a mesh (the module docstring;
-    whole for ``compress_pods``'s call)."""
-    if not SHD.tp(dist):
-        lp = _whole(dist, lp)
+    parameter read where it is used on a mesh (the module docstring)."""
     h, _ = causal_attention(lp["attn"], cfg.attn_cfg(),
                             _attn_in(lp, x, dist), q_chunk=cfg.q_chunk,
                             dtype=dtype, dist=dist)
@@ -471,8 +467,6 @@ def prefill(params, cfg: LMConfig, tokens, max_len: int, dist=None):
     stop = min(hi, s)
     acfg = cfg.attn_cfg()
     for i, lp in enumerate(_layers(params, cfg.n_layers, dist)):
-        if not SHD.tp(dist):
-            lp = _whole(dist, lp)
         hn = _attn_in(lp, x, dist)
         h, (k, v) = causal_attention(lp["attn"], acfg, hn,
                                      q_chunk=cfg.q_chunk, dtype=dtype,
@@ -500,8 +494,6 @@ def decode_step(params, cfg: LMConfig, cache, last_tokens, dist=None,
     dtype = compute_dtype(cfg)
     x = _embed(params, cfg, last_tokens, dtype, dist)
     for i, lp in enumerate(_layers(params, cfg.n_layers, dist)):
-        if not SHD.tp(dist):
-            lp = _whole(dist, lp)
         h, _, _ = decode_attention(lp["attn"], cfg.attn_cfg(),
                                    _attn_in(lp, x, dist), cache["k"][i],
                                    cache["v"][i], cache["len"], dtype=dtype,

@@ -30,8 +30,12 @@ count (``repro``'s ``micro`` scan, a Python loop here); ``warmup`` is
 the schedule's warm-up; ``accum_unroll`` (a ``lax.scan`` hint) is
 ignored; ``compress_pods`` reduces the gradients across the mesh's
 ``pod`` axis in int8 with error feedback (``distributed/compression``;
-the state gains ``err``), and is ignored without a ``pod`` axis, as in
-``repro``.
+the state gains ``err``, laid out ``("pod", *spec)``), and is ignored
+without a ``pod`` axis, as in ``repro``. With it ``grad_accum`` is
+ignored and the batch laid out ``(dp, None)``, as ``repro``'s compressed
+step has no micro loop (``static_meta["grad_accum"]`` is 1); a rule
+that shards a parameter over ``pod`` (``fsdp_over_pod``) is refused at
+build (``ValueError``), where ``repro`` raises ``DuplicateSpecError``.
 
 **On a mesh** (``mesh=``, a ``DeviceMesh`` from ``launch/mesh.py``) the
 bundle carries ``shardings`` (``{"state": ..., "batch": ...}`` trees of
@@ -77,9 +81,15 @@ plain tensors, with explicit collectives around it:
   the node rows its edges read and reduce-scattering their sums back to
   node blocks; the loss's sums are summed over the ranks. The
   parameters are replicated and read whole.
-* ``compress_pods``: the parameters are gathered whole before the model
-  call, every rank computes the whole model (``ModelCall.model`` None),
-  and the gradients go through ``distributed/compression``.
+* ``compress_pods`` (``repro``'s ``shard_map`` over ``pod``): each pod
+  runs the LM step above on its own batch, the call's batch axes
+  ``dp`` without ``pod``: the model split over ``model``, the parameters
+  read over ``data`` as above (replicated across pods), an MoE routing
+  the pod's batch (its capacity, ranks and load-balance means the
+  pod's), the loss the pod's. Each rank's block of each gradient, its
+  pod's mean, goes through the int8 exchange with its block of the
+  residual (``distributed/compression``); no rank holds a parameter,
+  gradient or residual whole.
 * ``islabel`` query: each rank gathers the label rows and core
   positions of every query from its own block of rows (a masked local
   gather and one all-reduce), the core edges are gathered whole, and
@@ -188,7 +198,11 @@ def build_lm_bundle(spec: ArchSpec, shape_name: str, device=None,
     if mesh is not None:
         dp = dp_axes(mesh)
         param_sh = _lm_param_shardings(spec, mesh)
-        dist = SHD.ModelCall(mesh, dp, None if compress else "model")
+        # compress_pods: each pod runs the plain step's split on its own
+        # batch (repro's shard_map over "pod"), so the call's batch axes
+        # leave "pod" out
+        dist = SHD.ModelCall(mesh, tuple(a for a in dp if a != "pod")
+                             if compress else dp, "model")
 
     if shp.kind == "train":
         opt = make_optimizer(spec.optimizer,
@@ -198,8 +212,9 @@ def build_lm_bundle(spec: ArchSpec, shape_name: str, device=None,
             return T.lm_loss(params, cfg, batch["tokens"], batch["targets"],
                              dist=dist)
 
-        meta = {"cfg": cfg, "compress": compress}
-        accum = int(ov.get("grad_accum", 1))
+        # repro's compressed step has no micro loop: grad_accum is ignored
+        accum = 1 if compress else int(ov.get("grad_accum", 1))
+        meta = {"cfg": cfg, "compress": compress, "grad_accum": accum}
         if mesh is not None:
             state_sh = {"params": param_sh,
                         "opt": SHD.opt_state_shardings(
@@ -207,6 +222,15 @@ def build_lm_bundle(spec: ArchSpec, shape_name: str, device=None,
                             mesh),
                         "step": _ns(mesh)}
             if compress:
+                # a spec that names "pod" already (fsdp_over_pod) would
+                # name it twice in ("pod", *spec): refused here, at build,
+                # as repro's shard_map refuses it
+                if any("pod" in ((e,) if isinstance(e, str) else e or ())
+                       for sh in leaves(param_sh) for e in sh.spec):
+                    raise ValueError("compress_pods lays the residual out "
+                                     "as ('pod', *spec): a parameter spec "
+                                     "that shards over 'pod' names 'pod' "
+                                     "twice")
                 state_sh["err"] = tree_map(
                     lambda sh: _ns(mesh, "pod", *sh.spec), param_sh)
                 meta["n_pods"] = axis_size(mesh, "pod")
@@ -220,7 +244,7 @@ def build_lm_bundle(spec: ArchSpec, shape_name: str, device=None,
         def local_batch(batch):
             return tree_map(lambda v: SHD.local(v).flatten(0, 1)
                             if accum > 1 else SHD.local(v), batch)
-        fn = (_compressed_train_step(opt, grad_fn, mesh, local_batch)
+        fn = (_compressed_train_step(opt, grad_fn, dist, local_batch)
               if compress else _train_step(opt, grad_fn, dist, local_batch))
         return StepBundle(name=name + ("+int8pods" if compress else ""),
                           fn=fn, device=device, optimizer=opt,
@@ -505,27 +529,20 @@ def _as_before(new, old):
     return tree_map(one, new, old)
 
 
-def _compressed_train_step(opt: Optimizer, grad_fn, mesh, local_batch):
+def _compressed_train_step(opt: Optimizer, grad_fn, dist, local_batch):
     """The LM step with ``compress_pods``: ``repro``'s ``train+int8pods``
-    step (``distributed/compression.make_compressed_grad_fn``); the
-    gradients come back the same on every rank, the residual ``err``
-    per pod."""
+    step (``distributed/compression.make_compressed_grad_fn``). Each pod
+    runs the plain mesh step's split compute on its batch (``dist.dp``
+    without ``pod``); each rank's block of each gradient, its pod's mean,
+    goes through the int8 exchange with its block of the residual
+    ``err``, and the optimizer runs on the blocks of the mean, the same
+    on every pod."""
     from repro_torch.distributed.compression import make_compressed_grad_fn
-    cg = make_compressed_grad_fn(grad_fn, mesh)
-    names = axis_names(mesh)
-    per_pod = tuple(Shard(0) if a == "pod" else Replicate() for a in names)
+    cg = make_compressed_grad_fn(grad_fn, dist.mesh, dist.dp)
 
     def train_step(state, batch):
-        params = tree_map(SHD.gather, state["params"])
-        err = tree_map(lambda e: e.redistribute(mesh, per_pod).to_local(),
-                       state["err"])
-        loss, grads, new_err = cg(params, err, local_batch(batch))
-        grads = tree_map(lambda g, p: SHD.sum_to(g, mesh, (), 1,
-                                                 p.placements),
-                         grads, state["params"])
-        new_err = tree_map(
-            lambda e, old: DTensor.from_local(e, mesh, per_pod).redistribute(
-                mesh, old.placements), new_err, state["err"])
+        loss, grads, new_err = cg(state["params"], state["err"],
+                                  local_batch(batch))
         new_p, new_opt, gnorm = opt.update(grads, state["opt"],
                                            state["params"], state["step"])
         return ({"params": _as_before(new_p, state["params"]),

@@ -36,7 +36,19 @@ it. DIEN reads each table from its ``model`` blocks, its batch over
 ``data``; its serve and retrieval outputs (candidates split over every
 axis, in uneven blocks, ids past both ends among them) are held to the
 unsharded bundles'. The vocabulary-parallel loss takes targets past
-both ends of the vocabulary as the unsharded loss does.
+both ends of the vocabulary as the unsharded loss does. SAGE's max
+aggregator (``graphsage-reddit+max``) reduce-scatters its partial
+maxima by ``MAX``; its gradient splits a tie among the tied messages of
+every rank, bitwise the unsharded ``scatter_reduce`` gradient.
+
+``compress_pods`` runs on 8 ranks, a ``(2, 2, 2)`` ``("pod", "data",
+"model")`` mesh: each pod runs the split step on its half of the batch
+(an MoE routes the pod's batch: ``cf05``'s capacity factor 0.5 gives
+each pod a capacity of 33 where the global batch's would be 65), and
+each rank's block of each gradient goes through the int8 exchange. The
+reference is ``repro``'s own ``make_compressed_grad_fn`` on a
+``("pod",)`` mesh of 2 XLA host devices, with its optimizer, jitted
+(``repro``'s ``(pod, data, model)`` bundle fails on its mesh).
 """
 from __future__ import annotations
 
@@ -86,16 +98,19 @@ ACCUM_ARCH = "qwen2-moe-a2.7b"      # its routing sees each micro-batch
 # replaced alike in both packages' smoke configs (``_smoke``)
 VARIANTS = {"": {}, "experts3": {"moe": {"n_experts": 3}},
             "heads3": {"n_heads": 3, "n_kv_heads": 1},
-            "dispatch": {"moe": {"dispatch_shard": True}}}
+            "dispatch": {"moe": {"dispatch_shard": True}},
+            "cf05": {"moe": {"capacity_factor": 0.5}}}
 SPLIT_CASES = (("kimi-k2-1t-a32b", ""), ("qwen2-moe-a2.7b", "experts3"),
                ("granite-8b", "heads3"), ("qwen2-moe-a2.7b", "dispatch"))
 SERVE_CASES = (("granite-8b", ""), ("granite-8b", "heads3"),
                ("qwen2-moe-a2.7b", "experts3"), ("kimi-k2-1t-a32b", ""))
 ODD_IDS = [0, 1, 2, 5, 9, 10, 11, 13, 19, 20, 21, -1, -2, -3, -9, -10, -11,
            -12, -20, -21]
-# (arch, shape) of the GNN and DIEN mesh steps (``_graph_spec``)
+# (arch, shape) of the GNN and DIEN mesh steps (``_graph_spec``;
+# "+max": SAGE's max aggregator)
 GRAPH_CASES = (("gcn-cora", "full_graph_sm"),
                ("graphsage-reddit", "full_graph_sm"),
+               ("graphsage-reddit+max", "full_graph_sm"),
                ("egnn", "full_graph_sm"), ("egnn", "molecule"),
                ("dimenet", "molecule"), ("dien", "train_batch"))
 
@@ -393,8 +408,69 @@ if mode == "steps":
     if rank == 0:
         np.savez(f"{out}/isl_out.npz", dist=dist_q.numpy(),
                  **{f"lvl{i}": x.numpy() for i, x in enumerate(lvl)})
+    # SAGE's max aggregator on node and edge blocks over both axes: ties
+    # within and across ranks, empty rows, against the unsharded one
+    from repro_torch.graphs import segment_ops as sops
+    call = shd.ModelCall(mesh, ("data", "model"), None)
+    split = shd.GraphSplit(40, 64, call)
+    count, index = call.shard_index()
+    g = torch.Generator().manual_seed(9)
+    msg = torch.randint(0, 4, (64, 3), generator=g).float()
+    seg = torch.randint(0, 30, (64,), generator=g)
+    w = torch.randn(40, 3, generator=g)
+    whole = msg.clone().requires_grad_()
+    agg = sops.segment_max(whole, seg, 40)
+    torch.sum(torch.where(torch.isfinite(agg), agg, 0.0) * w).backward()
+    e, n_ = 64 // count, 40 // count
+    mine = msg[index * e:(index + 1) * e].clone().requires_grad_()
+    blk = split.segment_max(mine, seg[index * e:(index + 1) * e])
+    torch.sum(torch.where(torch.isfinite(blk), blk, 0.0)
+              * w[index * n_:(index + 1) * n_]).backward()
+    same = torch.tensor([int(
+        torch.equal(blk.detach(), agg.detach()[index * n_:(index + 1) * n_])
+        and torch.equal(mine.grad, whole.grad[index * e:(index + 1) * e]))])
+    dist.all_reduce(same, dist.ReduceOp.MIN)
+    tied = msg == agg.detach()[seg]
+    owner = torch.arange(64) // e
+    cross = any(len(set(owner[tied[:, c] & (seg == r)].tolist())) > 1
+                for r in range(40) for c in range(3))
+    if rank == 0:
+        json.dump({"equal": int(same), "empty": int(torch.isinf(agg).any()),
+                   "cross_rank_ties": int(cross)},
+                  open(f"{out}/sage_max.json", "w"))
     if rank == 0:
         json.dump(res, open(f"{out}/losses.json", "w"))
+elif mode == "compressed":
+    # compress_pods on (pod, data, model) = (2, 2, 2) from the saved state
+    from repro_torch.distributed.compression import init_error_feedback
+    from repro_torch.tree import unflatten_paths
+    cm = init_device_mesh("cpu", (2, 2, 2),
+                          mesh_dim_names=("pod", "data", "model"))
+    res = {}
+    for case in sys.argv[3:]:
+        arch, accum, var = case.split(":")
+        key = arch + (f"+{var}" if var else "") + (
+            f"+accum{accum}" if accum != "1" else "")
+        spec = _smoke(registry, tr, arch, var)
+        bundle = build_bundle(spec, "train_4k", "cpu", {
+            "warmup": 1, "compress_pods": True, "grad_accum": int(accum)}, cm)
+        d = np.load(f"{out}/{key.split('+accum')[0]}_init.npz")
+        state0 = ck.state_from_tree(unflatten_paths(
+            (k, d[k]) for k in d.files), "cpu")
+        state0["err"] = init_error_feedback(state0["params"], 2)
+        st = bundle.place_state(state0)
+        mb = tr.make_batch_fn(spec, "train_4k", device="cpu")
+        flat, losses = {}, []
+        for i in range(2):
+            st, m = bundle.fn(st, bundle.place_batch(mb(i)))
+            losses.append([float(m["loss"]), float(m["gnorm"])])
+            snap = ck.snapshot(st if i else {"err": st["err"]})
+            flat.update({f"{i}/{k}": v for k, v in flatten_with_paths(snap)})
+        if rank == 0:
+            np.savez(f"{out}/cmp_{key}.npz", **flat)
+        res[key] = [losses, bundle.static_meta["grad_accum"], bundle.name]
+    if rank == 0:
+        json.dump(res, open(f"{out}/cmp_losses.json", "w"))
 elif mode == "elastic":
     a = make_host_mesh(2, "cpu")                               # (4, 2)
     b = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
@@ -437,8 +513,13 @@ def _smoke(registry, train, arch, variant=""):
 
 def _graph_spec(registry, train, arch):
     """The smoke spec of a GNN or of DIEN; a GNN's molecule batch holds
-    40 graphs (real atoms on three of the four ranks' node blocks)."""
+    40 graphs (real atoms on three of the four ranks' node blocks);
+    ``arch+agg``: SAGE with aggregator ``agg``."""
+    arch, _, agg = arch.partition("+")
     spec = train.smoke_spec(registry.get_spec(arch))
+    if agg:
+        spec = dataclasses.replace(spec, model_cfg=dataclasses.replace(
+            spec.model_cfg, aggregator=agg))
     if spec.family != "gnn":
         return spec
     mol = dataclasses.replace(spec.shapes["molecule"], batch_graphs=40)
@@ -794,6 +875,17 @@ def test_sharded_graph_step_matches_unsharded(mesh_run, case, ref):
     np.testing.assert_allclose(losses, want_losses, **FP32)
 
 
+def test_sage_max_aggregator_bitwise(mesh_run):
+    """SAGE's max aggregator on the (2, 2) mesh, 64 edges of integer
+    messages in blocks of 16 into 40 node rows in blocks of 10 (ties
+    within and across ranks, empty rows): each rank's block of the max
+    and its messages' gradient bitwise the unsharded ``segment_max``'s
+    and its ``scatter_reduce`` gradient."""
+    tmp, _ = mesh_run
+    got = json.load(open(tmp / "sage_max.json"))
+    assert got == {"equal": 1, "empty": 1, "cross_rank_ties": 1}
+
+
 @pytest.mark.parametrize("shape", ["s", "r"], ids=["serve", "retrieval"])
 def test_dien_serve_and_retrieval_on_mesh(mesh_run, shape):
     """DIEN's serve bundle (the batch over ``data``) and retrieval bundle
@@ -975,7 +1067,11 @@ def test_world_one_graph_and_recsys_steps_bitwise():
         mesh = make_host_mesh(1, "cpu")
         out = {}
         for arch, shape in CASES:
-            spec = tr.smoke_spec(registry.get_spec(arch))
+            name, _, agg = arch.partition("+")
+            spec = tr.smoke_spec(registry.get_spec(name))
+            if agg:
+                spec = dataclasses.replace(spec, model_cfg=dataclasses.replace(
+                    spec.model_cfg, aggregator=agg))
             plain = build_bundle(spec, shape, "cpu")
             sharded = build_bundle(spec, shape, "cpu", None, mesh)
             state = tr.init_state(spec, plain)
@@ -1039,3 +1135,275 @@ def test_dryrun_cell_on_8_fake_ranks():
     assert rec["collective_bytes_per_device"]["all-gather"] > 0
     assert rec["peak_bytes_per_device"] >= rec["argument_bytes_per_device"] > 0
     assert rec["fits_80gb"] is True
+
+
+# ------------------------------------------------- compress_pods on 8 ranks
+# (arch, grad_accum, variant): grad_accum is ignored under compress_pods
+CMP_CASES = (("granite-8b", 1, ""), ("qwen2-moe-a2.7b", 1, ""),
+             ("qwen2-moe-a2.7b", 1, "experts3"), ("qwen2-moe-a2.7b", 1, "cf05"),
+             ("qwen2-moe-a2.7b", 2, ""))
+MAX_FLIPS = 1e-3          # share of a leaf's elements whose q may flip
+
+
+def _repro_compressed(tmp, cases):
+    """``repro``'s compressed step for each ``(arch, variant)``: its own
+    ``make_compressed_grad_fn`` over ``jax.value_and_grad(lm_loss)`` on a
+    ``("pod",)`` mesh of 2 host devices and its optimizer's update, the
+    step jitted; two steps from ``<case>_init.npz`` on ``repro``'s
+    batches, each leaf's scale (max over both pods of |g + e|, / 127 +
+    1e-12) before each step. Started in the background: returns the
+    process."""
+    code = f'''
+        import dataclasses, json
+        import jax, jax.numpy as jnp, numpy as np
+        from repro.configs import registry
+        from repro.distributed.compression import (init_error_feedback,
+                                                   make_compressed_grad_fn)
+        from repro.launch import train
+        from repro.models import transformer as T
+        from repro.train import steps as S
+        from repro_torch.tree import flatten_with_paths, unflatten_paths
+        VARIANTS = {VARIANTS!r}
+        SMOKE
+        mesh = jax.make_mesh((2,), ("pod",))
+        for arch, var in {list(cases)!r}:
+            key = arch + (f"+{{var}}" if var else "")
+            spec = _smoke(registry, train, arch, var)
+            cfg = spec.model_cfg
+            d = np.load(f"{tmp}/{{key}}_init.npz")
+            state = unflatten_paths((k, jnp.asarray(d[k])) for k in d.files)
+            state["err"] = init_error_feedback(state["params"], 2)
+            opt = S.make_optimizer(spec.optimizer, warmup=1)
+
+            def loss_fn(p, tok, tgt):
+                return T.lm_loss(p, cfg, tok, tgt)
+            cg = make_compressed_grad_fn(lambda p, b: jax.value_and_grad(
+                loss_fn)(p, b["tokens"], b["targets"]), mesh)
+
+            @jax.jit
+            def step(state, batch):
+                loss, grads, new_err = cg(state["params"], state["err"], batch)
+                new_p, new_opt, gnorm = opt.update(
+                    grads, state["opt"], state["params"], state["step"])
+                return ({{"params": new_p, "opt": new_opt, "err": new_err,
+                          "step": state["step"] + 1}},
+                        {{"loss": loss, "gnorm": gnorm}})
+
+            @jax.jit
+            def scales(state, batch):
+                h = batch["tokens"].shape[0] // 2
+                mx = None
+                for p in range(2):
+                    g = jax.grad(loss_fn)(state["params"],
+                                          batch["tokens"][p * h:(p + 1) * h],
+                                          batch["targets"][p * h:(p + 1) * h])
+                    m = jax.tree.map(lambda g_, e: jnp.max(jnp.abs(
+                        g_.astype(jnp.float32) + e[p])), g, state["err"])
+                    mx = m if mx is None else jax.tree.map(jnp.maximum, mx, m)
+                return jax.tree.map(lambda m: m / 127.0 + 1e-12, mx)
+            mb = train.make_batch_fn(spec, "train_4k")
+            flat, losses = {{}}, []
+            for i in range(2):
+                b = mb(i)
+                sc = scales(jax.tree.map(np.asarray, state), b)
+                state, m = step(state, b)
+                losses.append([float(m["loss"]), float(m["gnorm"])])
+                keep = state if i else {{"err": state["err"]}}
+                flat.update({{f"{{i}}/{{k}}": np.asarray(v) for k, v in
+                             flatten_with_paths(jax.tree.map(np.asarray, keep))}})
+                flat.update({{f"{{i}}/scale/{{k}}": np.asarray(v) for k, v in
+                             flatten_with_paths(jax.tree.map(np.asarray, sc))}})
+            np.savez(f"{tmp}/ref_{{key}}.npz", **flat)
+            json.dump(losses, open(f"{tmp}/ref_{{key}}.json", "w"))
+    '''
+    code = textwrap.dedent(code).replace("SMOKE", textwrap.dedent(
+        inspect.getsource(_smoke)))
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=2",
+               PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    return subprocess.Popen([sys.executable, "-c", code], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+@pytest.fixture(scope="module")
+def compressed_run(tmp_path_factory):
+    """The 8-rank compressed steps and ``repro``'s reference, run side by
+    side from one initial state a case (the port's ``init_state`` at the
+    fp32 smoke config)."""
+    tmp = tmp_path_factory.mktemp("compressed")
+    refs = sorted({(a, v) for a, _, v in CMP_CASES})
+    for arch, var in refs:
+        tspec = _specs(arch, var)[1]
+        state0 = t_ckpt.snapshot(t_train.init_state(
+            tspec, t_steps.build_bundle(tspec, "train_4k", "cpu")))
+        np.savez(tmp / f"{_case_key(arch, 1, var)}_init.npz",
+                 **dict(flatten_with_paths(state0)))
+    ref = _repro_compressed(tmp, refs)
+    try:
+        _torchrun(tmp, 8, "compressed", str(tmp),
+                  *(f"{a}:{acc}:{v}" for a, acc, v in CMP_CASES))
+        out, err = ref.communicate(timeout=600)
+    finally:
+        if ref.poll() is None:
+            ref.kill()
+    assert ref.returncode == 0, err[-4000:]
+    return tmp
+
+
+def _q_steps(got, want, p, scales):
+    """Leaf ``p``'s int8 flips against ``repro``'s, from the residuals
+    after each step (``s_t q = g + e_{t-1} - e_t``, so each pod's ``q``
+    differs at step t by ``(de_{t-1} - de_t) / s_t``, ``de`` the port's
+    residual less ``repro``'s): asserts every element's difference is 0
+    or one step, and returns (each step's mean-gradient difference that
+    the flips make, ``[..]`` per step; the elements a flip touched; the
+    most flips at one step)."""
+    prev, touched, most, means = 0.0, False, 0, []
+    for t, s_t in enumerate(scales):
+        de = got[f"{t}/err/{p}"].astype(np.float64) - want[f"{t}/err/{p}"]
+        d = prev - de
+        zero = np.abs(d) <= FP32["atol"] + FP32["rtol"] * np.abs(
+            want[f"{t}/err/{p}"])
+        one = np.abs(np.abs(d) - s_t) <= 1e-5 + 1e-3 * s_t
+        assert np.all(zero | one), (p, t, np.abs(d[~(zero | one)]) / s_t)
+        most = max(most, int((~zero).sum()))
+        touched = touched | (~zero).any(0) | (np.abs(de) > FP32["atol"]).any(0)
+        means.append(np.where(zero, 0.0, d).sum(0) / d.shape[0])
+        prev = de
+    return means, touched, most
+
+
+@pytest.mark.parametrize("case", [_case_key(a, acc, v)
+                                  for a, acc, v in CMP_CASES])
+def test_compressed_step_matches_repro(compressed_run, case):
+    """Two ``compress_pods`` steps on the (2, 2, 2) mesh against
+    ``repro``'s compressed step on 2 pods: losses at rtol 1e-5; each
+    residual, parameter and optimizer leaf at ``FP32`` except the
+    elements whose int8 value flipped by one step against ``repro``'s
+    (detected from the residuals, which then differ by that step's
+    scale), at most ``MAX_FLIPS`` of a leaf's values of ``q`` a step;
+    the gradient norms at rtol 1e-5 plus the norm of what the flips
+    move the mean gradient by. ``+accum2`` is the step without it
+    (``grad_accum`` ignored, as ``repro`` ignores it)."""
+    tmp = compressed_run
+    arch, var = _parse_key(case)
+    ref_key = _case_key(arch, 1, var)
+    got = np.load(tmp / f"cmp_{case}.npz")
+    want = np.load(tmp / f"ref_{ref_key}.npz")
+    losses, accum, name = json.load(open(tmp / "cmp_losses.json"))[case]
+    assert accum == 1 and name.endswith("+int8pods")
+    ref_losses = json.load(open(tmp / f"ref_{ref_key}.json"))
+    np.testing.assert_allclose([x[0] for x in losses],
+                               [x[0] for x in ref_losses], rtol=1e-5)
+    params = [k[len("1/params/"):] for k in want.files
+              if k.startswith("1/params/")]
+    assert params and set(got.files) == {k for k in want.files
+                                         if "/scale/" not in k}
+    moved = np.zeros(2)
+    for p in params:
+        scales = [float(want[f"{t}/scale/{p}"]) for t in range(2)]
+        means, touched, most = _q_steps(got, want, p, scales)
+        moved += [np.sum(m ** 2) for m in means]
+        size = want[f"0/err/{p}"].size
+        assert most <= MAX_FLIPS * size, (p, most, size)
+        for k in [k for k in want.files if k.startswith("1/")
+                  and "/scale/" not in k and k.endswith("/" + p)]:
+            g, w = got[k], want[k]
+            keep = ~touched
+            if k.startswith("1/err/"):
+                keep = np.broadcast_to(keep, g.shape)
+            elif g.shape != keep.shape:
+                keep = np.ones(g.shape, bool)
+            np.testing.assert_allclose(g[keep], w[keep], err_msg=k, **FP32)
+    np.testing.assert_array_equal(got["1/step"], want["1/step"])
+    for t in range(2):
+        gn, wn = losses[t][1], ref_losses[t][1]
+        assert abs(gn - wn) <= 1e-5 * abs(wn) + np.sqrt(moved[t]), (
+            t, gn, wn, np.sqrt(moved[t]))
+
+
+def test_compressed_routing_is_the_pods():
+    """``cf05``'s routing of a pod's batch (2 of the 4 sequences, capacity
+    33) drops assignments, and keeps other ones than the global batch's
+    routing (capacity 65) keeps of those tokens: a step that routed
+    across pods would differ from ``repro``'s."""
+    from repro_torch.models import moe as t_moe
+    spec = _specs("qwen2-moe-a2.7b", "cf05")[1]
+    cfg = spec.model_cfg
+    params = t_train.init_state(spec, t_steps.build_bundle(
+        spec, "train_4k", "cpu"))["params"]
+    batch = t_train.make_batch_fn(spec, "train_4k", device="cpu")(0)
+    calls, route = [], t_moe.route
+
+    def spy(p, mcfg, xf, *a, **kw):
+        r = route(p, mcfg, xf, *a, **kw)
+        kept = torch.empty_like(r.keep)
+        kept[r.order] = r.keep                   # token order [T * K]
+        calls.append((r.cap, kept.view(xf.shape[0], -1)))
+        return r
+    t_moe.route = spy
+    try:
+        with torch.no_grad():
+            for rows in (slice(0, 2), slice(0, 4)):
+                t_tf.lm_loss(params, cfg, batch["tokens"][rows],
+                             batch["targets"][rows])
+    finally:
+        t_moe.route = route
+    n = len(calls) // 2
+    pod, whole = calls[:n], calls[n:]
+    assert n and [c for c, _ in pod] == [33] * n
+    assert [c for c, _ in whole] == [65] * n
+    assert all((~k).any() for _, k in pod)
+    # the first layer sees the same tokens either way
+    t = pod[0][1].shape[0]
+    assert not torch.equal(pod[0][1], whole[0][1][:t])
+
+
+@pytest.mark.parametrize("arch", [a for a in j_registry.ASSIGNED
+                                  if j_registry.get_spec(a).family == "lm"
+                                  and not j_registry.get_spec(a).fsdp_over_pod])
+def test_compressed_shardings_equal_repro(arch):
+    """The ``compress_pods`` bundle's ``state`` and ``batch`` shardings on
+    a ``(pod, data, model)`` mesh are ``repro``'s ``in_shardings``: the
+    parameters and optimizer state by the rules, ``err`` as ``("pod",
+    *spec)``, the batch ``(dp, None)`` with ``grad_accum`` ignored."""
+    names = ("pod", "data", "model")
+    jspec, tspec = j_registry.get_spec(arch), t_registry.get_spec(arch)
+    ov = {"compress_pods": True, "grad_accum": 4}
+    jb = j_steps.build_lm_bundle(jspec, "train_4k", jax.make_mesh(
+        (1, 1, 1), names), ov)
+    tb = t_steps.build_lm_bundle(tspec, "train_4k", "cpu", ov,
+                                 types.SimpleNamespace(mesh_dim_names=names,
+                                                       shape=(1, 1, 1)))
+    for j_tree, t_tree in zip(jb.in_shardings, (tb.shardings["state"],
+                                                tb.shardings["batch"])):
+        want = {k: tuple(v.spec) for k, v in flatten_with_paths(
+            jax.tree.map(lambda x: x, j_tree, is_leaf=lambda x: isinstance(
+                x, jax.sharding.NamedSharding)))}
+        got = {k: _spec(v.spec) for k, v in flatten_with_paths(t_tree)}
+        assert got == want
+    assert tb.shardings["batch"]["tokens"].micro == 1
+    assert any(k.startswith("err/") for k, _ in flatten_with_paths(
+        tb.shardings["state"]))
+    assert tb.static_meta["grad_accum"] == 1
+
+
+def test_compress_pods_with_fsdp_over_pod_raises():
+    """kimi-k2 shards its parameters over ``pod`` (``fsdp_over_pod``), so
+    ``compress_pods``'s residual spec ``("pod", *spec)`` names ``pod``
+    twice: ``build_lm_bundle`` raises ``ValueError`` naming it, as
+    ``repro`` refuses that spec when it builds the step."""
+    arch = "kimi-k2-1t-a32b"
+    assert t_registry.get_spec(arch).fsdp_over_pod
+    _, tm = _meshes(True)
+    with pytest.raises(ValueError, match="'pod'"):
+        t_steps.build_lm_bundle(t_registry.get_spec(arch), "train_4k", "cpu",
+                                {"compress_pods": True}, tm)
+    # without the option the bundle builds
+    t_steps.build_lm_bundle(t_registry.get_spec(arch), "train_4k", "cpu",
+                            None, tm)
+    with pytest.raises(Exception, match="pod"):
+        j_steps.build_lm_bundle(j_registry.get_spec(arch), "train_4k",
+                                jax.make_mesh((1, 1, 1),
+                                              ("pod", "data", "model")),
+                                {"compress_pods": True})
