@@ -103,7 +103,21 @@ Phases, one JSON line each (with its seconds):
    Dijkstra, each index launching exactly the label kernel and its
    route's stage-2 kernel; k, core size, route, rounds, build s, query
    ms and the VC / IS-LABEL query ratio.
-12. train_<arch> — training on the card (no kernel of ``kernels/`` lies
+12. examples — the twins of ``examples/`` and ``scripts/``
+   (``repro_torch.examples``, ``repro_torch.scripts``), each ``main``
+   called in-process with the launch counters zeroed: ``smoke_core`` on
+   each of its four graphs (200 queries against Dijkstra, 5 paths, "ALL
+   OK"), ``quickstart`` (``rmat_graph(12)``, ``l_cap=512``),
+   ``distance_serving`` at ``rmat:17`` with 65,536 requests in batches
+   of 512 and its sharded lane on 4 shards of the card (build s, q/s,
+   batch p50 / p99, peak device bytes), ``gnn_molecules`` (200 EGNN
+   steps) and ``train_lm`` (100 of its 300 steps of the 12 x 768 LM at
+   8 x 256 through the world-1 mesh step, the prefetch pipeline and the
+   runner, a checkpoint at step 100); an index twin must launch exactly
+   the label kernel and its route's stage-2 kernel, the training twins
+   none. Beside ``train_lm``, ``python -m
+   repro_torch.examples.quickstart`` as a user types it must exit 0.
+13. train_<arch> — training on the card (no kernel of ``kernels/`` lies
    on its path: each phase must launch none) at the published configs:
    ``gcn-cora`` and ``graphsage-reddit`` on ``full_graph_sm`` (2,708
    nodes, 1,433 features, 7 classes; 3,072 rows, 21,504 edges),
@@ -131,10 +145,10 @@ Phases, one JSON line each (with its seconds):
    -m repro_torch.launch.train --arch gcn-cora --steps 20``, again
    ``--steps 30 --resume``, ``--arch dimenet --shape molecule --steps
    20`` and ``--arch dien --smoke --steps 20``.
-13. builders — ``er:10000:2.2@1`` built with ``builder="host"`` and
+14. builders — ``er:10000:2.2@1`` built with ``builder="host"`` and
    ``builder="device"`` from one seed must give the same hierarchy and
    labels, bitwise; then whether the 10^6 graph's labels fit delta16.
-14. kernels — each kernel on the card against its plain PyTorch version
+15. kernels — each kernel on the card against its plain PyTorch version
    (``torch.equal``) on the inputs the main path gave it, with
    CUDA-event times and the bound of the same work. The label kernels
    also run at ``repro``'s serving batches (Q = 64, 256, 1024) beside
@@ -149,7 +163,7 @@ Phases, one JSON line each (with its seconds):
    at the SM clock read under its load. Each path's query is profiled
    once (device idle share).
 
-15. lm_<arch> — LM serving (no kernel of ``kernels/`` lies on its path:
+16. lm_<arch> — LM serving (no kernel of ``kernels/`` lies on its path:
    each phase must launch none), run right after ``build`` in a child
    process (``--lm``: its own allocator, expandable segments), under
    ``torch.inference_mode()`` and sync debug mode "error" but for the
@@ -179,7 +193,7 @@ Phases, one JSON line each (with its seconds):
    ``lm_launcher``: ``python -m repro_torch.launch.serve --mode lm
    --arch granite-8b`` and ``--arch qwen2-moe-a2.7b`` at the launcher's
    defaults.
-16. train_lm_<arch> — LM training (no kernel of ``kernels/`` lies on its
+17. train_lm_<arch> — LM training (no kernel of ``kernels/`` lies on its
    path: each phase must launch none), in a child process of its own
    (``--lm-train``) right after the LM serving child, with the same
    allocator: ``train_4k`` at 4,096 tokens and full width through
@@ -204,7 +218,7 @@ Phases, one JSON line each (with its seconds):
    Adafactor, under deterministic algorithms: its resume and rollback
    bitwise) through ``phase_train``'s checks (card against
    CPU, each with a lost step as its control; restore, resume, one
-   injected failure), then ``launch/train.py --arch
+   injected failure), beside them ``launch/train.py --arch
    granite-8b --smoke`` and ``--arch kimi-k2-1t-a32b --smoke``.
    ``prefetch``: granite's cell above (4 layers, 8 x 4,096,
    ``grad_accum`` 4) fed through ``PrefetchPipeline(depth=2)`` from
@@ -212,7 +226,7 @@ Phases, one JSON line each (with its seconds):
    steps fed directly, a ``reset`` seek returning the same batch, and a
    profile whose host-to-device copies run on a stream none of the
    step's kernels use; step ms of both runs.
-17. islabel_serve_1m — the ``islabel`` arch's query step (no kernel of
+18. islabel_serve_1m — the ``islabel`` arch's query step (no kernel of
    ``kernels/`` lies on its path) at ``serve_1m``'s published shape (n
    = 2^20, l_cap 64, n_core 2^17, 2^22 core edges, Q = 4,096) on
    inputs drawn on the card from a seed, at ``relax_chunks`` 64 (the
@@ -225,7 +239,7 @@ Phases, one JSON line each (with its seconds):
    fits the card, the cut recorded): the chosen set independent, and
    the level equal to ``build_hierarchy_device``'s first level on the
    same graph and permutation.
-18. distributed — ``torchrun --nproc-per-node=<cards> chip_smoke.py
+19. distributed — ``torchrun --nproc-per-node=<cards> chip_smoke.py
    --distributed`` (NCCL): granite-8b's smoke step over
    ``make_host_mesh`` against the unsharded step (bitwise at one card),
    granite-8b at full width through the split mesh path, the GNNs and
@@ -242,7 +256,7 @@ Phases, one JSON line each (with its seconds):
    ``lookup_mod_sharded`` against their one-device forms; then
    ``torchrun ... -m repro_torch.launch.train --arch granite-8b --smoke
    --steps 20``. On a one-card machine the world is 1.
-19. dryrun — after every timed phase, its processes on the host's
+20. dryrun — after every timed phase, its processes on the host's
    cores (CPU only, the fake process group, no card): ``python -m
    repro_torch.launch.dryrun --all --include-islabel --multipod single``
    and ``--multipod multi`` on ``perf.py``'s ``:mp`` cells, every cell
@@ -427,6 +441,15 @@ VC_CONFIG = dict(l_cap=1024, label_chunk=2048)
 STAGE2_KERNEL = {"ell_loop": "spmv_relax_kernel",
                  "fused": "fused_relax_kernel",
                  "dense": "minplus_matmul_kernel"}
+# the entry points outside the package (repro_torch.examples and
+# .scripts), each twin's main in-process at its own defaults but two:
+# distance_serving runs at the paper's scale, rmat:17 (131,072 vertices)
+# and 65,536 requests, its sharded lane on 4 shards of this card; train_lm
+# takes 100 of its 300 steps (one checkpoint), since a step of the
+# world-1 mesh took 0.43 s on the host (PERF.md, PR 28)
+EXAMPLES_SMOKE_GRAPHS = ("er", "rmat", "grid", "caveman")
+EXAMPLES_SERVING = ["17", "65536", "--shards", "4"]
+EXAMPLES_LM = ["--steps", "100"]
 # DIEN at the published config: AdamW's state over the 2^26- and 2^22-row
 # tables is ~15 GB, so no checkpoint is written; train_batch's 65,536 is
 # cut to 32,768 (PERF.md §4: the saved GRU activations of 65,536 do not
@@ -491,7 +514,7 @@ LM_FD_RTOL = 1e-2
 LM_GRAD_RTOL = 1e-5              # remat policies: max|d| / max|g|
 LM_ACCUM_RTOL = 1e-5             # grad_accum 4 against 1: loss, gnorm, mu
 # train_lm_smoke: the five smoke configs in fp32 (kimi-k2's parameters in
-# bf16, Adafactor) through phase_train, then the launcher. kimi-k2's
+# bf16, Adafactor) through phase_train, the launcher beside. kimi-k2's
 # gradients are bf16, and the embedding's index_add sums them in bf16 in
 # the atomics' order unless torch.use_deterministic_algorithms is on
 # (then one sorted pass): kimi runs under it, its resume and rollback
@@ -2358,6 +2381,99 @@ def phase_vc(tables, device="cuda") -> dict:
             "launches": total}
 
 
+def phase_examples(tables, device="cuda") -> list:
+    """The twins of ``examples/`` and ``scripts/``: ``smoke_core`` a graph
+    at a time, ``quickstart``, ``distance_serving`` at
+    ``EXAMPLES_SERVING``, ``gnn_molecules`` and ``train_lm`` at
+    ``EXAMPLES_LM`` (checkpoints in a temporary directory), each ``main``
+    called in-process with the launch counters zeroed and the peak
+    memory reset before it and read after it: an index twin must launch
+    exactly the label kernel and its route's stage-2 kernel, the
+    training twins none. Beside ``train_lm`` (host-bound on one core)
+    runs ``python -m repro_torch.examples.quickstart`` as a user types
+    it, which must exit 0. A twin's stdout is kept (its last lines in
+    the record); an exception in a twin fails the run. Returns one
+    record a twin."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    import torch
+    from repro_torch.examples import (distance_serving, gnn_molecules,
+                                      quickstart, train_lm)
+    from repro_torch.scripts import smoke_core
+    out = []
+
+    def run(name, main, argv, keep, route_of=None):
+        zero(tables)
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                res = main(argv + ["--device", device])
+        except BaseException:
+            sys.stderr.write(buf.getvalue())
+            raise
+        seconds = time.perf_counter() - t0
+        launches = launches_of(tables)
+        route = route_of(res) if route_of else None
+        kernels = set() if route is None else {"label_intersect_kernel"} | (
+            {STAGE2_KERNEL[route]} if route in STAGE2_KERNEL else set())
+        check_launches(f"examples {name}", launches, kernels)
+        lines = buf.getvalue().splitlines()
+        out.append({"phase": f"examples_{name}", "seconds": seconds,
+                    "argv": argv, **{k: res[k] for k in keep},
+                    "route": route,
+                    "held_device_bytes": held,
+                    "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                    "launches": launches, "stdout_tail": lines[-3:]})
+        return res, lines
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        env["TMPDIR"] = tmp          # where the CLI run saves its index
+        for g in EXAMPLES_SMOKE_GRAPHS:
+            _, lines = run(f"smoke_core_{g}", smoke_core.main,
+                           ["--graph", g], ["graphs"],
+                           lambda r, g=g: r["graphs"][g]["route"])
+            if lines[-1] != "ALL OK":
+                fail(f"examples smoke_core {g}: {lines[-3:]}")
+        run("quickstart", quickstart.main, ["--out", f"{tmp}/index"],
+            ["n", "m", "k", "n_core", "build_s", "path_dist"],
+            lambda r: r["route"])
+        run("distance_serving", distance_serving.main, EXAMPLES_SERVING,
+            ["n", "m", "k", "n_core", "build_s", "served", "serve_s",
+             "qps", "batch", "batch_p50_ms", "batch_p99_ms", "audited",
+             "mix", "shards", "entries_per_shard", "paths_checked",
+             "paths_overflowed", "paths_s"], lambda r: r["route"])
+        torch.cuda.empty_cache()
+        res, _ = run("gnn_molecules", gnn_molecules.main, [],
+                     ["steps", "final_mse"])
+        out[-1]["first_mse"] = res["losses"][0]
+        cli = start_launchers([("quickstart", [])], None, env,
+                              "repro_torch.examples.quickstart")
+        res, _ = run("train_lm", train_lm.main,
+                     EXAMPLES_LM + ["--ckpt-dir", f"{tmp}/lm"],
+                     ["params", "steps", "batch", "seq", "last_checkpoint"])
+        out[-1].update(first_loss=res["losses"][0],
+                       final_loss=res["losses"][-1])
+        if res["last_checkpoint"] != res["steps"]:
+            fail(f"examples train_lm: last checkpoint "
+                 f"{res['last_checkpoint']}, not {res['steps']}")
+        rec = wait_launchers(cli)["quickstart"]
+        if rec["lines"][-1:] != ["save/load roundtrip ok"]:
+            fail(f"examples quickstart CLI: {rec['lines'][-3:]}")
+        out.append({"phase": "examples_quickstart_cli",
+                    "seconds": rec["seconds"],
+                    "argv": ["python", "-m",
+                             "repro_torch.examples.quickstart"],
+                    "stdout_tail": rec["lines"][-3:]})
+    torch.cuda.empty_cache()
+    return out
+
+
 def dien_request(cfg, kind: str, batch: int, device):
     """A seeded serve or retrieval batch for DIEN on ``device``: the
     launcher's ``dien_batch`` without its label, plus
@@ -3369,8 +3485,9 @@ def phase_lm_train_smoke(tables, device="cuda") -> dict:
     """The five smoke configs in fp32 (kimi-k2's parameters bf16 with
     Adafactor) through ``phase_train``: steps, the card against the CPU,
     restore, resume, one injected failure (kimi-k2 under deterministic
-    algorithms: its resume and rollback bitwise); then ``LM_TRAIN_LAUNCHER`` as
-    subprocesses started together, each exiting 0."""
+    algorithms: its resume and rollback bitwise); beside them
+    ``LM_TRAIN_LAUNCHER`` as subprocesses started together, each exiting
+    0."""
     import dataclasses
     import os
     import tempfile
@@ -3378,6 +3495,11 @@ def phase_lm_train_smoke(tables, device="cuda") -> dict:
     import torch
     from repro_torch.configs import registry
     from repro_torch.launch.train import smoke_spec
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    tmp = tempfile.TemporaryDirectory()
+    launchers = start_launchers(
+        [(f"launcher {args[1]}", args) for args in LM_TRAIN_LAUNCHER],
+        tmp.name, env)
     out = {}
     for arch in ("granite-8b", "qwen2-moe-a2.7b", "kimi-k2-1t-a32b",
                  "yi-34b", "qwen2-72b"):
@@ -3402,11 +3524,8 @@ def phase_lm_train_smoke(tables, device="cuda") -> dict:
                          f"loss_step{LM_SMOKE_RUNS[0]}", "card_vs_cpu",
                          "resume",
                          "injected_failure", "launches")}}
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    with tempfile.TemporaryDirectory() as tmp:
-        out.update(wait_launchers(start_launchers(
-            [(f"launcher {args[1]}", args) for args in LM_TRAIN_LAUNCHER],
-            tmp, env)))
+    with tmp:
+        out.update(wait_launchers(launchers))
     return out
 
 
@@ -5385,6 +5504,15 @@ def main(argv) -> int:
     emit({"phase": "vc_baseline", "seconds": time.perf_counter() - t0, **rec})
     for k, v in rec["launches"].items():
         counters[k] += v
+
+    # the entry points outside the package: the twins of examples/ and
+    # scripts/, each in-process (one line a twin), and one CLI run
+    t0 = time.perf_counter()
+    for rec in phase_examples(tables):
+        emit(rec)
+        for k, v in rec.get("launches", {}).items():
+            counters[k] += v
+    emit({"phase": "examples", "seconds": time.perf_counter() - t0})
 
     # training: the GNNs and DimeNet, then DIEN (no kernel of kernels/
     # lies on their paths), then the launcher as a subprocess
