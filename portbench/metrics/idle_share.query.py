@@ -1,0 +1,9 @@
+"""1 - (union of the device's kernel and copy intervals) / the query
+window's wall time, from the profiler, in %."""
+
+
+def read(run):
+    tr = run.get("trace")
+    if not tr or not tr["device_events"] or "requests" not in run:
+        return None
+    return 100.0 * tr["idle_share"]
