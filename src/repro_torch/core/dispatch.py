@@ -60,6 +60,7 @@ from repro_torch.kernels.spmv_relax.ops import (coo_to_csr, coo_to_sliced,
                                                 ell_width, fused_relax,
                                                 spmv_relax)
 from repro_torch.obs.profiler import record_build
+from repro_torch.obs.trace import count_device, span, spans_on
 
 # The TPU's VMEM budget for the fused kernel's working set, kept from
 # ``repro`` so both packages take the same route on the same index;
@@ -94,7 +95,8 @@ def device_loop(step, state, steps: int, active):
     i = 0
     while i < steps:
         for _ in range(min(CHECK_EVERY, steps - i)):
-            state = step(state, i)
+            with span("relax.round"):
+                state = step(state, i)
             i += 1
         if i < steps and not host_read(active(state).any()):
             break
@@ -214,24 +216,40 @@ def relax_csr_rounds(cur, changed, csr: RelaxCSR, max_rounds: int):
     sets ``flags[i + 1]`` if it improved anything. A round whose flag is
     0 returns at once, leaving both buffers equal, so ``rounds`` (the
     rounds that ran, the last non-improving one included) is
-    ``flags[:done].sum()``, JAX's ``while_loop`` count."""
+    ``flags[:done].sum()``, JAX's ``while_loop`` count.
+
+    With program spans on, each round runs in a ``relax.round`` span and
+    the device counts ``relax.changed`` (the (tile, vertex) pairs set in
+    each counted round's input mask, summed per pair with one launch a
+    round) and ``relax.slots`` (n_tiles x Vp a counted round) accumulate
+    with no read."""
     dev = cur.device
     nxt = torch.empty_like(cur)
     changed_nxt = torch.empty_like(changed)
     flags = torch.zeros(max_rounds + 1, dtype=torch.int32, device=dev)
     flags[:1].fill_(1)
+    hits = (torch.zeros(changed.shape, dtype=torch.int32, device=dev)
+            if spans_on() else None)
     done = 0
     while done < max_rounds:
         for _ in range(min(CHECK_EVERY, max_rounds - done)):
-            spmv_relax(cur, csr, changed, flag_in=flags[done:done + 1],
-                       out=nxt, changed_out=changed_nxt,
-                       flag_out=flags[done + 1:done + 2], backend="cuda")
+            with span("relax.round"):
+                flag_in = flags[done:done + 1]
+                if hits is not None:
+                    hits.addcmul_(changed, flag_in)
+                spmv_relax(cur, csr, changed, flag_in=flag_in,
+                           out=nxt, changed_out=changed_nxt,
+                           flag_out=flags[done + 1:done + 2], backend="cuda")
             cur, nxt = nxt, cur
             changed, changed_nxt = changed_nxt, changed
             done += 1
         if not host_read(flags[done]):
             break
-    return cur, flags[:done].sum(dtype=torch.int32)
+    rounds = flags[:done].sum(dtype=torch.int32)
+    if hits is not None:
+        count_device("relax.changed", hits.sum(dtype=torch.int64))
+        count_device("relax.slots", rounds.long() * changed.numel())
+    return cur, rounds
 
 
 def _core_relax_csr(seeds_s, seeds_t, csr: RelaxCSR, mu, n_core: int,
@@ -241,7 +259,8 @@ def _core_relax_csr(seeds_s, seeds_t, csr: RelaxCSR, mu, n_core: int,
     q = seeds_s[0].shape[0]
     vp = csr.order.shape[0]
     rows = -(-2 * q // bq) * bq
-    d0, changed = seed_vertex_major(seeds_s, seeds_t, vp, rows)
+    with span("relax.seed"):
+        d0, changed = seed_vertex_major(seeds_s, seeds_t, vp, rows)
     d, rounds = relax_csr_rounds(d0, changed, csr, max_rounds)
     return _finish(d.T, q, n_core + 1, mu, n_core, rounds)
 
@@ -252,8 +271,9 @@ def _core_relax_fused(seeds_s, seeds_t, edges: SlicedEdges, mu,
     Batch rounds = max over per-block rounds (all-pad blocks settle in
     one round, real blocks freeze bitwise at their own fixed point)."""
     q, v = seeds_s[0].shape[0], n_core + 1
-    d0 = stack_frontiers(seed_rows(seeds_s, v), seed_rows(seeds_t, v),
-                         edges.order.shape[0], bq)
+    with span("relax.seed"):
+        d0 = stack_frontiers(seed_rows(seeds_s, v), seed_rows(seeds_t, v),
+                             edges.order.shape[0], bq)
     d, blk_rounds = fused_relax(d0, edges, max_rounds=max_rounds, bq=bq)
     rounds = torch.cat([blk_rounds, blk_rounds.new_zeros(1)]).amax()
     return _finish(d, q, v, mu, n_core, rounds)
@@ -265,8 +285,9 @@ def _core_relax_dense(seeds_s, seeds_t, adj, mu, n_core: int,
     (the diagonal supplies the keep-old term, so ``minplus(d, adj)`` IS
     the synchronous round)."""
     q, v = seeds_s[0].shape[0], n_core + 1
-    d0 = stack_frontiers(seed_rows(seeds_s, v), seed_rows(seeds_t, v),
-                         adj.shape[0], bm)
+    with span("relax.seed"):
+        d0 = stack_frontiers(seed_rows(seeds_s, v), seed_rows(seeds_t, v),
+                             adj.shape[0], bm)
     (d,), rounds = relax_rounds(
         lambda d: (minplus_matmul(d, adj, backend="cuda"),), (d0,),
         max_rounds)
@@ -399,8 +420,10 @@ class CoreRelaxer:
         backend = resolve_backend(backend, self.device)
         v = self.n_core + 1
         if backend == "reference":
-            return core_relax(seed_rows(seeds_s, v), seed_rows(seeds_t, v),
-                              *self.coo(), mu, self.n_core, max_rounds)
+            with span("relax.seed"):
+                seed_s, seed_t = seed_rows(seeds_s, v), seed_rows(seeds_t, v)
+            return core_relax(seed_s, seed_t, *self.coo(), mu, self.n_core,
+                              max_rounds)
         mode = self.mode
         if mode == "dense":
             return _core_relax_dense(seeds_s, seeds_t, self.dense_adj(), mu,

@@ -38,6 +38,7 @@ from repro_torch.core.config import IndexConfig
 from repro_torch.core.mis import MISState, torch_permutations
 from repro_torch.graphs import csr as gcsr
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.obs.trace import count, span, spanned
 
 INF = float("inf")
 
@@ -64,6 +65,7 @@ class Hierarchy:
     peel_iters: int = 0         # level-loop iterations
 
 
+@spanned("build.peel_level")
 def peel_level(src, dst, w, via, in_is, n: int, d_cap: int, aug_cap: int):
     """One hierarchy level after its independent set ``in_is`` is known.
 
@@ -105,8 +107,9 @@ def peel_level(src, dst, w, via, in_is, n: int, d_cap: int, aug_cap: int):
     # dedup sort (at e_cap 2^26, d_cap 16, 13 GB of the level's peak)
     del p_ids, p_w, pair_ok, pair_src, pair_dst, pair_w, pair_via
 
-    o_src, o_dst, o_w, o_via, n_unique = gcsr.dedup_min_edges(
-        all_src, all_dst, all_w, all_via, n, e_cap)
+    with span("build.dedup"):
+        o_src, o_dst, o_w, o_via, n_unique = gcsr.dedup_min_edges(
+            all_src, all_dst, all_w, all_via, n, e_cap)
     n_is = in_is.sum(dtype=torch.int32)
     return (o_src, o_dst, o_w, o_via, nbr_ids, nbr_w, nbr_via,
             n_unique, n_is, n_is_edges)
@@ -128,7 +131,8 @@ def build_hierarchy_device(n: int, src, dst, w, cfg: IndexConfig,
     m0 = len(src)
     e_cap = cfg.e_cap(m0)
     aug_cap = cfg.aug_cap(m0)
-    g = gcsr.from_host_edges(src, dst, w, n, e_cap, device=device)
+    with span("build.graph"):
+        g = gcsr.from_host_edges(src, dst, w, n, e_cap, device=device)
     cur = (g.src, g.dst, g.weight, g.via)
     active = torch.ones(n, dtype=torch.bool, device=device)
     level_dev = torch.zeros(n, dtype=torch.int32, device=device)
@@ -146,70 +150,77 @@ def build_hierarchy_device(n: int, src, dst, w, cfg: IndexConfig,
     k = 1
     peel_iters = 0
     guess = 16
-    with hsync.sync_span() as span:
+    with hsync.sync_span() as syncs:
         for i in range(1, cfg.k_max + 1):
-            peel_iters = i
-            perm = hsync.upload(next(perms), device, torch.int32)
-            mis = MISState.start(cur[0], cur[1], cur[0] < n, active, perm,
-                                 n, cfg.d_cap)
-            budget = guess
-            while True:
-                mis.advance(budget)
-                out = peel_level(*cur, mis.in_is, n, cfg.d_cap, aug_cap)
-                stats = torch.stack([out[8], out[7], out[9], mis.rounds,
-                                     mis.pool_left().to(torch.int32)])
-                # the level's blocking read: stop-rule scalars, overflow
-                # flags and the MIS fixed-point flag in one int32[5]
-                n_is, n_unique, n_is_edges, rounds, left = (
-                    int(x) for x in hsync.host_read(stats))
-                if not left:
+            with span("build.level"):
+                peel_iters = i
+                perm = hsync.upload(next(perms), device, torch.int32)
+                mis = MISState.start(cur[0], cur[1], cur[0] < n, active,
+                                     perm, n, cfg.d_cap)
+                budget = guess
+                while True:
+                    mis.advance(budget)
+                    out = peel_level(*cur, mis.in_is, n, cfg.d_cap,
+                                     aug_cap)
+                    stats = torch.stack([out[8], out[7], out[9],
+                                         mis.rounds,
+                                         mis.pool_left().to(torch.int32)])
+                    # the level's blocking read: stop-rule scalars,
+                    # overflow flags and the MIS fixed-point flag in one
+                    # int32[5]
+                    n_is, n_unique, n_is_edges, rounds, left = (
+                        int(x) for x in hsync.host_read(stats))
+                    if not left:
+                        break
+                    budget = 8
+                guess = max(8, 2 * rounds)
+                if n_unique > e_cap:
+                    raise RuntimeError(
+                        f"edge capacity overflow at level {i}: {n_unique} "
+                        f"> {e_cap}; raise IndexConfig.e_cap_factor")
+                if n_is_edges > aug_cap:
+                    raise RuntimeError(
+                        f"augmentation buffer overflow at level {i}; raise "
+                        f"aug_cap_factor")
+                if n_is == 0:
+                    k = i
                     break
-                budget = 8
-            guess = max(8, 2 * rounds)
-            if n_unique > e_cap:
-                raise RuntimeError(
-                    f"edge capacity overflow at level {i}: {n_unique} > "
-                    f"{e_cap}; raise IndexConfig.e_cap_factor")
-            if n_is_edges > aug_cap:
-                raise RuntimeError(
-                    f"augmentation buffer overflow at level {i}; raise "
-                    f"aug_cap_factor")
-            if n_is == 0:
-                k = i
-                break
-            # record level + up-edges under the IS mask (row n of up_* is
-            # the sentinel row — never in the set); level and active are
-            # updated in place, where JAX donated their buffers
-            in_is = mis.in_is
-            rec = torch.cat([in_is, no_row])[:, None]
-            level_dev.masked_fill_(in_is, i)
-            up_ids = torch.where(rec, out[4], up_ids)
-            up_w = torch.where(rec, out[5], up_w)
-            up_via = torch.where(rec, out[6], up_via)
-            active &= ~in_is
-            cur = out[:4]
-            n_verts -= n_is
-            new_size = n_verts + n_unique // 2
-            level_sizes.append(n_is)
-            mis_rounds.append(rounds)
-            k = i + 1
-            graph_sizes.append(new_size)
-            if cfg.k_force:
-                if k >= cfg.k_force:
+                # record level + up-edges under the IS mask (row n of up_*
+                # is the sentinel row — never in the set); level and active
+                # are updated in place, where JAX donated their buffers
+                with span("build.record"):
+                    in_is = mis.in_is
+                    rec = torch.cat([in_is, no_row])[:, None]
+                    level_dev.masked_fill_(in_is, i)
+                    up_ids = torch.where(rec, out[4], up_ids)
+                    up_w = torch.where(rec, out[5], up_w)
+                    up_via = torch.where(rec, out[6], up_via)
+                    active &= ~in_is
+                cur = out[:4]
+                n_verts -= n_is
+                new_size = n_verts + n_unique // 2
+                level_sizes.append(n_is)
+                mis_rounds.append(rounds)
+                count("build.mis_rounds", rounds)
+                k = i + 1
+                graph_sizes.append(new_size)
+                if cfg.k_force:
+                    if k >= cfg.k_force:
+                        break
+                elif new_size > cfg.sigma * graph_sizes[-2]:
                     break
-            elif new_size > cfg.sigma * graph_sizes[-2]:
-                break
-    loop_syncs = span.count
+    loop_syncs = syncs.count
 
     # one final pull of the whole hierarchy state
-    level, up_ids_h, up_w_h, up_via_h, c_src, c_dst, c_w, c_via = (
-        hsync.host_read((level_dev, up_ids, up_w, up_via, *cur)))
-    level[level == 0] = k
-    mask = c_src < n
+    with span("build.pull"):
+        level, up_ids_h, up_w_h, up_via_h, c_src, c_dst, c_w, c_via = (
+            hsync.host_read((level_dev, up_ids, up_w, up_via, *cur)))
+        level[level == 0] = k
+        mask = c_src < n
+        core = (c_src[mask], c_dst[mask], c_w[mask], c_via[mask])
     return Hierarchy(n=n, k=k, level=level, up_ids=up_ids_h, up_w=up_w_h,
-                     up_via=up_via_h, core_src=c_src[mask],
-                     core_dst=c_dst[mask], core_w=c_w[mask],
-                     core_via=c_via[mask], level_sizes=level_sizes,
+                     up_via=up_via_h, core_src=core[0], core_dst=core[1],
+                     core_w=core[2], core_via=core[3], level_sizes=level_sizes,
                      graph_sizes=graph_sizes, mis_rounds=mis_rounds,
                      host_syncs=loop_syncs, peel_iters=peel_iters)
 
@@ -240,48 +251,50 @@ def build_hierarchy_host(n: int, src, dst, w, cfg: IndexConfig,
     level_sizes, mis_rounds = [], []
     k = 1
     peel_iters = 0
-    with hsync.sync_span() as span:
+    with hsync.sync_span() as syncs:
         for i in range(1, cfg.k_max + 1):
-            peel_iters = i
-            perm = hsync.upload(next(perms), device, torch.int32)
-            mis = MISState.start(cur[0], cur[1], cur[0] < n, active, perm,
-                                 n, cfg.d_cap)
-            while hsync.host_read(mis.advance(1).pool_left()):
-                pass
-            out = peel_level(*cur, mis.in_is, n, cfg.d_cap, aug_cap)
-            n_is = int(hsync.host_read(out[8]))
-            n_unique = int(hsync.host_read(out[7]))
-            if n_unique > e_cap:
-                raise RuntimeError(
-                    f"edge capacity overflow at level {i}: {n_unique} > "
-                    f"{e_cap}; raise IndexConfig.e_cap_factor")
-            if int(hsync.host_read(out[9])) > aug_cap:
-                raise RuntimeError(
-                    f"augmentation buffer overflow at level {i}; raise "
-                    f"aug_cap_factor")
-            if n_is == 0:
-                k = i
-                break
-            # record level + up-edges on the host
-            is_mask = hsync.host_read(mis.in_is)
-            level[is_mask] = i
-            up_ids[:n][is_mask] = hsync.host_read(out[4])[:n][is_mask]
-            up_w[:n][is_mask] = hsync.host_read(out[5])[:n][is_mask]
-            up_via[:n][is_mask] = hsync.host_read(out[6])[:n][is_mask]
-            active = active & ~mis.in_is
-            level_sizes.append(n_is)
-            mis_rounds.append(int(hsync.host_read(mis.rounds)))
-            n_verts -= n_is
-            new_size = n_verts + n_unique // 2
-            cur = out[:4]
-            k = i + 1
-            graph_sizes.append(new_size)
-            if cfg.k_force:
-                if k >= cfg.k_force:
+            with span("build.level"):
+                peel_iters = i
+                perm = hsync.upload(next(perms), device, torch.int32)
+                mis = MISState.start(cur[0], cur[1], cur[0] < n, active,
+                                     perm, n, cfg.d_cap)
+                while hsync.host_read(mis.advance(1).pool_left()):
+                    pass
+                out = peel_level(*cur, mis.in_is, n, cfg.d_cap, aug_cap)
+                n_is = int(hsync.host_read(out[8]))
+                n_unique = int(hsync.host_read(out[7]))
+                if n_unique > e_cap:
+                    raise RuntimeError(
+                        f"edge capacity overflow at level {i}: {n_unique} "
+                        f"> {e_cap}; raise IndexConfig.e_cap_factor")
+                if int(hsync.host_read(out[9])) > aug_cap:
+                    raise RuntimeError(
+                        f"augmentation buffer overflow at level {i}; raise "
+                        f"aug_cap_factor")
+                if n_is == 0:
+                    k = i
                     break
-            elif new_size > cfg.sigma * graph_sizes[-2]:
-                break
-    loop_syncs = span.count
+                # record level + up-edges on the host
+                is_mask = hsync.host_read(mis.in_is)
+                level[is_mask] = i
+                up_ids[:n][is_mask] = hsync.host_read(out[4])[:n][is_mask]
+                up_w[:n][is_mask] = hsync.host_read(out[5])[:n][is_mask]
+                up_via[:n][is_mask] = hsync.host_read(out[6])[:n][is_mask]
+                active = active & ~mis.in_is
+                level_sizes.append(n_is)
+                mis_rounds.append(int(hsync.host_read(mis.rounds)))
+                count("build.mis_rounds", mis_rounds[-1])
+                n_verts -= n_is
+                new_size = n_verts + n_unique // 2
+                cur = out[:4]
+                k = i + 1
+                graph_sizes.append(new_size)
+                if cfg.k_force:
+                    if k >= cfg.k_force:
+                        break
+                elif new_size > cfg.sigma * graph_sizes[-2]:
+                    break
+    loop_syncs = syncs.count
 
     level[level == 0] = k
     c_src, c_dst, c_w, c_via = (hsync.host_read(x) for x in cur)

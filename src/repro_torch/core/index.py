@@ -34,6 +34,7 @@ from repro_torch.core.hierarchy import Hierarchy, build_hierarchy
 from repro_torch.core.labeling import build_labels
 from repro_torch.core.query import QueryEngine
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.obs.trace import spanned
 
 # backend names of ``repro`` that the port does not have, and back
 _FROM_REPRO_BACKEND = {"pallas": "auto", "interpret": "auto"}
@@ -87,6 +88,7 @@ class ISLabelIndex:
 
     # ------------------------------------------------------------------ build
     @staticmethod
+    @spanned("build")
     def build(n, src, dst, w, cfg: IndexConfig = IndexConfig(), device=None,
               perms=None) -> "ISLabelIndex":
         """Build on ``device`` ("cuda" when None). ``perms`` is the MIS
@@ -113,6 +115,7 @@ class ISLabelIndex:
         return idx
 
     @staticmethod
+    @spanned("build.assemble")
     def _assemble(n, hier: Hierarchy, lbl_ids, lbl_d, lbl_pred,
                   cfg: IndexConfig, m_input: int) -> "ISLabelIndex":
         dev = lbl_ids.device

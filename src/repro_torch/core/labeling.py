@@ -22,6 +22,7 @@ from repro_torch.core import sync as hsync
 from repro_torch.core.config import IndexConfig
 from repro_torch.core.hierarchy import Hierarchy
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.obs.trace import count, count_device, span, spanned, spans_on
 
 INF = float("inf")
 
@@ -37,7 +38,9 @@ def label_chunk_step(lbl_ids, lbl_d, lbl_pred, ovf, up_ids, up_w, verts,
 
     The in-place writes are safe where JAX donated its buffers: vertices
     of one level are independent, so a chunk never reads a row it writes
-    (pad entries rewrite the sentinel row with its own values).
+    (pad entries rewrite the sentinel row with its own values). Counts
+    ``build.label_slots`` (the candidates it sorts) and
+    ``build.label_live`` (those that hold an ancestor).
     """
     n = lbl_ids.shape[0] - 1
     c = verts.shape[0]
@@ -59,6 +62,9 @@ def label_chunk_step(lbl_ids, lbl_d, lbl_pred, ovf, up_ids, up_w, verts,
                       cand_pred], 1)
     d = torch.where(ids >= n, INF, d)
     ids = torch.where(torch.isinf(d) & (pred >= 0), n, ids)  # dead candidates
+    count("build.label_slots", ids.numel())
+    if spans_on():
+        count_device("build.label_live", (ids < n).sum(dtype=torch.int64))
 
     # sort rows by (id asc, d asc): stable sort by d, then stable by id
     o1 = torch.sort(d, dim=1, stable=True).indices
@@ -102,6 +108,7 @@ def _check_overflow(ovf, cfg: IndexConfig):
             f"IndexConfig.l_cap (currently {cfg.l_cap})")
 
 
+@spanned("build.labels")
 def build_labels(hier: Hierarchy, cfg: IndexConfig, device=None):
     """Run Algorithm 4 over the hierarchy. Returns device label arrays
     ``(lbl_ids, lbl_d, lbl_pred)``; blocking syncs are limited to the
@@ -127,14 +134,16 @@ def build_labels(hier: Hierarchy, cfg: IndexConfig, device=None):
 
     levels_done = 0
     for i in range(k - 1, 0, -1):
-        verts = np.flatnonzero(hier.level == i)
-        n_chunks = -(-len(verts) // chunk)
-        pad = np.full(n_chunks * chunk, n, np.int32)
-        pad[:len(verts)] = verts
-        pad_d = hsync.upload(pad, device)
-        for j in range(n_chunks):
-            label_chunk_step(lbl_ids, lbl_d, lbl_pred, ovf, up_ids, up_w,
-                             pad_d[j * chunk:(j + 1) * chunk], i, l_cap)
+        with span("build.label_level"):
+            verts = np.flatnonzero(hier.level == i)
+            n_chunks = -(-len(verts) // chunk)
+            pad = np.full(n_chunks * chunk, n, np.int32)
+            pad[:len(verts)] = verts
+            pad_d = hsync.upload(pad, device)
+            for j in range(n_chunks):
+                label_chunk_step(lbl_ids, lbl_d, lbl_pred, ovf, up_ids,
+                                 up_w, pad_d[j * chunk:(j + 1) * chunk], i,
+                                 l_cap)
         levels_done += 1
         if levels_done % sync_every == 0:
             _check_overflow(ovf, cfg)

@@ -22,6 +22,7 @@ import dataclasses
 import torch
 
 from repro_torch.graphs import segment_ops as sops
+from repro_torch.obs.trace import count, spanned
 
 _HI_INF = 2 ** 31 - 1      # ineligible / empty-segment high word
 _LO_INF = 2 ** 31 - 1
@@ -61,6 +62,7 @@ class MISState:
     n: int
 
     @classmethod
+    @spanned("build.mis")
     def start(cls, src, dst, valid, active, perm, n: int, d_cap: int):
         """src, dst: int32[e_cap] (sentinel-padded with id n); valid:
         bool[e_cap]; active: bool[n] vertices still in G_i; perm: a
@@ -74,9 +76,12 @@ class MISState:
                    torch.zeros(n, dtype=torch.bool, device=src.device),
                    torch.zeros((), dtype=torch.int32, device=src.device), n)
 
+    @spanned("build.mis")
     def advance(self, n_rounds: int) -> "MISState":
         """Run ``n_rounds`` Luby rounds without a host sync. Updates in
-        place (JAX carried the same state through ``while_loop``)."""
+        place (JAX carried the same state through ``while_loop``).
+        Counts ``build.mis_launched``."""
+        count("build.mis_launched", n_rounds)
         n, dst, valid = self.n, self.dst, self.valid
         # sentinel sources are masked by ``valid``; clamp them in bounds
         # (JAX clamps out-of-bounds gathers, torch raises)

@@ -30,6 +30,7 @@ from repro_torch.core.labels import (LabelRows, decode_rows, encode_labels,
                                      row_index, try_encode_labels)
 from repro_torch.core.sync import host_arrays, host_read, upload
 from repro_torch.kernels.backend import resolve_backend
+from repro_torch.obs.trace import count, span
 
 __all__ = ["QueryEngine", "label_intersect_mu", "label_seeds",
            "shape_counted"]
@@ -172,20 +173,31 @@ class QueryEngine:
     def _query_block(self, s, t, backend: str):
         """One block through both stages. Returns (ans, rounds) with
         rounds a device scalar (None when there is no core)."""
-        mu = self._mu(s, t, backend)
+        with span("query.mu"):
+            mu = self._mu(s, t, backend)
         if self.n_core == 0:
             return mu, None
-        rows_s, rows_t = self._rows(s), self._rows(t)
-        ids_s, d_s = decode_rows(rows_s, self.n, self.codec)
-        ids_t, d_t = decode_rows(rows_t, self.n, self.codec)
-        ans, _, _, rounds = self.relaxer.run(
-            self._label_seeds(ids_s, d_s), self._label_seeds(ids_t, d_t), mu,
-            self.max_rounds, backend)
+        with span("query.seeds"):
+            rows_s, rows_t = self._rows(s), self._rows(t)
+            ids_s, d_s = decode_rows(rows_s, self.n, self.codec)
+            ids_t, d_t = decode_rows(rows_t, self.n, self.codec)
+            seeds_s = self._label_seeds(ids_s, d_s)
+            seeds_t = self._label_seeds(ids_t, d_t)
+        with span("query.relax"):
+            ans, _, _, rounds = self.relaxer.run(seeds_s, seeds_t, mu,
+                                                 self.max_rounds, backend)
         return ans, rounds
 
     def query(self, s, t, backend: str | None = None,
               query_chunk: int | None = None):
-        """Batched distances float32[Q] on the index's device."""
+        """Batched distances float32[Q] on the index's device, inside a
+        ``query`` span; counts ``relax.rounds`` (the rounds it reads)."""
+        with span("query"):
+            ans = self._query(s, t, backend, query_chunk)
+        count("relax.rounds", self._last_rounds)
+        return ans
+
+    def _query(self, s, t, backend, query_chunk):
         s, t = self._index(s), self._index(t)
         backend = self._backend(backend)
         chunk = self.query_chunk if query_chunk is None else query_chunk

@@ -28,6 +28,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.obs.trace import span
+
 _COUNT = 0
 BF16_HOST = np.dtype("V2")
 
@@ -52,28 +54,29 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 
 def host_read(x):
     """Blocking device→host transfer of a tensor or a tuple of tensors,
-    counted once. Returns numpy (a tuple for a tuple)."""
+    counted once, inside a ``sync.read`` span. Returns numpy (a tuple
+    for a tuple)."""
     global _COUNT
     _COUNT += 1
     xs = x if isinstance(x, (tuple, list)) else (x,)
-    cuda = any(t.is_cuda for t in xs)
-    if not cuda:
-        out = tuple(_numpy(t).copy() for t in xs)
-    else:
-        prev = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode(0)
-        try:
-            host = []
-            for t in xs:
-                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                h.copy_(t.detach(), non_blocking=True)
-                host.append(h)
-            # each copy runs on its source device's stream
-            for dev in dict.fromkeys(t.device for t in xs if t.is_cuda):
-                torch.cuda.current_stream(dev).synchronize()
-        finally:
-            torch.cuda.set_sync_debug_mode(prev)
-        out = tuple(_numpy(h) for h in host)
+    with span("sync.read"):
+        if not any(t.is_cuda for t in xs):
+            out = tuple(_numpy(t).copy() for t in xs)
+        else:
+            prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                host = []
+                for t in xs:
+                    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    h.copy_(t.detach(), non_blocking=True)
+                    host.append(h)
+                # each copy runs on its source device's stream
+                for dev in dict.fromkeys(t.device for t in xs if t.is_cuda):
+                    torch.cuda.current_stream(dev).synchronize()
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+            out = tuple(_numpy(h) for h in host)
     return out if isinstance(x, (tuple, list)) else out[0]
 
 
@@ -94,8 +97,14 @@ def host_arrays(*xs) -> list:
 
 def upload(a, device, dtype: torch.dtype | None = None) -> torch.Tensor:
     """numpy (or host tensor) -> tensor on ``device`` without a blocking
-    copy. Always a fresh tensor: callers update it in place. A bf16 host
-    array (``is_bf16_host``) becomes ``torch.bfloat16``."""
+    copy, inside a ``sync.upload`` span. Always a fresh tensor: callers
+    update it in place. A bf16 host array (``is_bf16_host``) becomes
+    ``torch.bfloat16``."""
+    with span("sync.upload"):
+        return _upload(a, device, dtype)
+
+
+def _upload(a, device, dtype):
     t = a
     if not isinstance(t, torch.Tensor):
         arr = np.ascontiguousarray(a).reshape(np.shape(a))   # keeps 0-d
@@ -125,7 +134,3 @@ class sync_span:
     def __exit__(self, *exc):
         self.count = _COUNT - self._start
         return False
-
-    @property
-    def so_far(self) -> int:
-        return _COUNT - self._start

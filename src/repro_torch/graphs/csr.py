@@ -24,6 +24,7 @@ import torch
 from repro_torch.core.sync import upload
 from repro_torch.graphs import segment_ops as sops
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.obs.trace import count, count_device, spans_on
 
 INF = float("inf")
 
@@ -120,9 +121,14 @@ def dedup_min_edges(src, dst, weight, via, n_nodes: int, out_cap: int):
     ``jnp.lexsort((dst, src))`` is one stable sort of the int64 key
     ``src*(n+1)+dst``; stability keeps the tie order. Returns
     (src, dst, w, via, n_unique) — n_unique may exceed out_cap, callers
-    must check (overflow detection).
+    must check (overflow detection). Counts ``build.dedup_slots`` (the
+    slots it sorts) and ``build.dedup_live`` (those with src < n).
     """
     t = src.shape[0]
+    count("build.dedup_slots", t)
+    if spans_on():
+        count_device("build.dedup_live",
+                     (src < n_nodes).sum(dtype=torch.int64))
     key = src.long() * (n_nodes + 1) + dst.long()
     order = torch.sort(key, stable=True).indices
     del key

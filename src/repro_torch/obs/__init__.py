@@ -3,7 +3,9 @@
 # the JSON-lines event log and file sinks (repro.obs.export), and the
 # torch counterpart of repro.obs.profiler (first-use builds by region,
 # allocator gauges, torch.profiler sessions), and the SLO burn-rate
-# engine (a copy of repro.obs.slo).
+# engine (a copy of repro.obs.slo); trace also holds the program's own
+# spans and counters (span, spanned, count, count_device,
+# program_spans).
 from repro_torch.obs.export import EventLog, write_chrome_trace, write_metrics
 from repro_torch.obs.profiler import (BuildWatcher, compile_region,
                                       current_region, device_memory_gauges,
@@ -14,7 +16,9 @@ from repro_torch.obs.registry import (REGISTRY, Counter, Gauge, Histogram,
 from repro_torch.obs.slo import (AlertState, SLOEngine, SLOSpec,
                                  compiles_source, counter_source,
                                  default_serving_slos, latency_source)
-from repro_torch.obs.trace import NULL_TRACER, NullTracer, Span, Tracer
+from repro_torch.obs.trace import (NULL_TRACER, NullTracer, Span, Tracer,
+                                   count, count_device, program_spans, span,
+                                   spanned, spans_on)
 
 __all__ = [
     "EventLog", "write_chrome_trace", "write_metrics",
@@ -25,5 +29,6 @@ __all__ = [
     "default_latency_buckets",
     "AlertState", "SLOEngine", "SLOSpec", "compiles_source",
     "counter_source", "default_serving_slos", "latency_source",
-    "NULL_TRACER", "NullTracer", "Span", "Tracer",
+    "NULL_TRACER", "NullTracer", "Span", "Tracer", "count", "count_device",
+    "program_spans", "span", "spanned", "spans_on",
 ]

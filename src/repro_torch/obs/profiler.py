@@ -36,6 +36,7 @@ import threading
 import torch
 
 from repro_torch.obs.registry import REGISTRY
+from repro_torch.obs.trace import program_spans
 
 __all__ = ["BuildWatcher", "compile_region", "current_region",
            "device_memory_gauges", "profiler_session", "record_build",
@@ -189,9 +190,10 @@ def version_family_gauges(manager, registry=None, server: str = "default"
 @contextlib.contextmanager
 def profiler_session(log_dir: str | None):
     """``torch.profiler`` over the block, CPU and (where present) CUDA
-    activity, written as a Chrome trace (``trace.json``) into
-    ``log_dir``; a no-op when ``log_dir`` is falsy. Yields whether a
-    session runs."""
+    activity, with the program's spans and counters on
+    (``obs.trace.program_spans``), written as a Chrome trace
+    (``trace.json``) into ``log_dir``; a no-op when ``log_dir`` is
+    falsy. Yields whether a session runs."""
     if not log_dir:
         yield False
         return
@@ -202,6 +204,6 @@ def profiler_session(log_dir: str | None):
         acts.append(ProfilerActivity.CUDA)
     out = Path(log_dir)
     out.mkdir(parents=True, exist_ok=True)
-    with profile(activities=acts) as prof:
+    with profile(activities=acts) as prof, program_spans():
         yield True
     prof.export_chrome_trace(str(out / "trace.json"))

@@ -24,15 +24,38 @@ exports the standard Chrome trace-event JSON (``traceEvents`` with
 ``NULL_TRACER`` is a no-op sink: call sites instrument unconditionally
 and the disabled path costs one attribute lookup plus a no-op call.
 
-The port's copy of ``repro.obs.trace`` (pure Python).
+The port's copy of ``repro.obs.trace`` (pure Python), and the
+program's own spans and counters, which ``repro`` does not have:
+
+  ``span(name)``          a ``torch.profiler.record_function`` range, so
+                          it lands in the profiler's event list on the
+                          device events' clock and every launch inside
+                          it can be put down to it (``spanned(name)``
+                          wraps a whole function in one)
+  ``count(name, n)``      a host-known count, into ``REGISTRY``
+  ``count_device(name, x)``  a count held in a device scalar: summed on
+                          the device with no read, folded into
+                          ``REGISTRY`` by one read when the block closes
+  ``program_spans()``     turns the three on for a block
+
+Off (the default), ``span`` is one test of a module global that returns
+a shared no-op context manager, and the counts return at once: nothing
+calls the profiler, allocates or launches. Span and counter names are
+dotted by layer (``query.relax``, ``build.dedup_live``); PERF.md lists
+them with the metric that reads each.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import json
 from pathlib import Path
 
-__all__ = ["Span", "Tracer", "NullTracer", "NULL_TRACER"]
+from repro_torch.obs.registry import REGISTRY
+
+__all__ = ["Span", "Tracer", "NullTracer", "NULL_TRACER", "count",
+           "count_device", "program_spans", "span", "spanned", "spans_on"]
 
 
 @dataclasses.dataclass
@@ -194,3 +217,111 @@ class NullTracer(Tracer):
 
 _NULL_SPAN = Span(name="", cat="", t0=0.0, span_id=0, t1=0.0)
 NULL_TRACER = NullTracer()
+
+
+# ------------------------------------------------ program spans, counters
+_ON = False
+_DEPTH = 0
+_PENDING: dict = {}     # (name, device) -> int64 device accumulator
+
+
+class _Off:
+    """The shared no-op context manager of a span while spans are off."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+def spans_on() -> bool:
+    return _ON
+
+
+def span(name: str):
+    """A ``record_function`` range named ``name`` while program spans
+    are on; otherwise the shared no-op."""
+    if not _ON:
+        return _OFF
+    from torch.profiler import record_function
+    return record_function(name)
+
+
+def spanned(name: str):
+    """Decorator: run the function inside ``span(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, **kw):
+            with span(name):
+                return fn(*args, **kw)
+        return run
+    return wrap
+
+
+def count(name: str, amount=1) -> None:
+    """Add a host-known ``amount`` to the counter ``name`` while program
+    spans are on."""
+    if _ON:
+        REGISTRY.counter(name).inc(amount)
+
+
+def count_device(name: str, value) -> None:
+    """Add the integer device scalar ``value`` to the counter ``name``
+    while program spans are on: summed where it lies, with no read,
+    until the outermost ``program_spans`` block closes."""
+    if not _ON:
+        return
+    key = (name, value.device)
+    acc = _PENDING.get(key)
+    if acc is None:
+        import torch
+        _PENDING[key] = value.to(torch.int64, copy=True)
+    else:
+        acc.add_(value)
+
+
+def _fold() -> None:
+    """Read every pending device count (one read a device, not counted
+    by ``core.sync``) into ``REGISTRY``."""
+    import torch
+    pending = dict(_PENDING)
+    _PENDING.clear()
+    by_device: dict = {}
+    for (name, dev), acc in pending.items():
+        by_device.setdefault(dev, []).append((name, acc))
+    for dev, items in by_device.items():
+        stacked = torch.stack([acc for _, acc in items])
+        if dev.type == "cuda":
+            prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                values = stacked.cpu().tolist()
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+        else:
+            values = stacked.tolist()
+        for (name, _), v in zip(items, values):
+            REGISTRY.counter(name).inc(int(v))
+
+
+@contextlib.contextmanager
+def program_spans():
+    """Turn the program's spans and counters on for the block. Blocks
+    nest; the outermost one folds the device counts into ``REGISTRY``
+    when it closes."""
+    global _ON, _DEPTH
+    _DEPTH += 1
+    _ON = True
+    try:
+        yield
+    finally:
+        _DEPTH -= 1
+        if _DEPTH == 0:
+            _ON = False
+            _fold()
