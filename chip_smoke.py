@@ -3651,7 +3651,9 @@ def phase_ragged(dev="cuda") -> dict:
     from repro_torch.core.labels import encode_labels
     from repro_torch.kernels.spmv_relax.kernel import (HEAVY_DEGREE,
                                                        ROW_TILE, RelaxCSR,
-                                                       SlicedEdges)
+                                                       SlicedEdges,
+                                                       TILE_SECTORS,
+                                                       pack_sectors)
     from repro_torch.kernels.spmv_relax.ops import coo_to_csr, coo_to_sliced
     g = torch.Generator(device=dev).manual_seed(0)
     r = np.random.default_rng(0)
@@ -3756,11 +3758,13 @@ def phase_ragged(dev="cuda") -> dict:
                               for x in coo_to_sliced(v, src, dst, w)))
         return [(dist, edges, max_rounds, var) for var in fused_variants(v)]
 
-    def csr_case(vp, rows, e, hubs, mask, flag_in=1):
+    def csr_case(vp, rows, e, hubs, mask, flag_in=1, full=1):
         """spmv_relax operands: e random edges into the first half of the
         vertices (the rest have no in-edges) plus one hub for each
-        in-degree in ``hubs``, a frontier about 10% finite, a mask "all",
-        "none" or "random", and outputs filled with garbage."""
+        in-degree in ``hubs``, a frontier about 10% finite, a sector mask
+        "all", "none" or "random" (30% of the bits), and outputs filled
+        with garbage; with ``full`` 0, ``out`` starts as the frontier
+        (the buffer of a round before that changed nothing else)."""
         src = r.integers(0, vp, e)
         dst = r.integers(0, max(1, vp // 2), e)
         for hub, deg in enumerate(hubs):
@@ -3774,15 +3778,16 @@ def phase_ragged(dev="cuda") -> dict:
                              device=dev).float()
         dist[torch.rand((vp, rows), generator=g, device=dev) < 0.9] = inf
         n_tiles = -(-rows // ROW_TILE)
-        changed = {"all": torch.ones, "none": torch.zeros}.get(mask)
-        changed = (changed((n_tiles, vp), dtype=torch.bool, device=dev)
-                   if changed else torch.rand((n_tiles, vp), generator=g,
-                                              device=dev) < 0.3)
+        p_bit = {"all": 1.0, "none": 0.0, "random": 0.3}[mask]
+        bits = torch.rand((n_tiles, vp, TILE_SECTORS), generator=g,
+                          device=dev) < p_bit
         flag = torch.full((1,), flag_in, dtype=torch.int32, device=dev)
-        out = torch.full_like(dist, 5.0)
-        chg_out = torch.rand((n_tiles, vp), generator=g, device=dev) < 0.5
-        return (dist, csr, changed, flag, out, chg_out,
-                torch.zeros(1, dtype=torch.int32, device=dev))
+        out = dist.clone() if not full else torch.full_like(dist, 5.0)
+        chg_out = torch.randint(-2 ** 15, 2 ** 15, (n_tiles, vp),
+                                generator=g, device=dev,
+                                dtype=torch.int16)
+        return (dist, csr, pack_sectors(bits), flag, out, chg_out,
+                torch.zeros(1, dtype=torch.int32, device=dev), full)
 
     def mat(m, k, p_inf):
         x = torch.randint(0, 20, (m, k), generator=g, device=dev).float()
@@ -3836,7 +3841,10 @@ def phase_ragged(dev="cuda") -> dict:
             csr_case(700, 264, 3000, (300,), "random"),
             csr_case(1001, 256, 5000, (HEAVY_DEGREE + 1, 3 * HEAVY_DEGREE),
                      "random"),
-            csr_case(500, 24, 2000, (), "all", flag_in=0)],
+            csr_case(500, 24, 2000, (), "all", flag_in=0),
+            csr_case(1001, 40, 5000, (HEAVY_DEGREE + 1,), "random", full=0),
+            csr_case(5003, 136, 30000, (2512,), "random", full=0),
+            csr_case(700, 264, 3000, (300,), "none", full=0)],
         # V on both sides of the shared variant's limit (3,521 vertices),
         # none a multiple of the 1024 threads
         "fused_relax_kernel": [
@@ -3967,35 +3975,47 @@ def label_sweep(indexes) -> dict:
     return out
 
 
-def csr_round_work(csr, changed, rows: int):
+def csr_round_work(csr, changed, changed_out, rows: int, full: int):
     """(bytes, operations) one spmv_relax round must move and do on these
-    inputs: one read and one write of the [Vp, R] frontier, each real
-    in-edge (id and weight), indptr, order and both masks once; an add
-    and a min for each (edge, row) whose source is marked changed, and a
-    min per frontier entry."""
+    inputs, counted per 32-byte sector as the kernel moves them: with
+    ``full`` a read and a write of the whole [Vp, R] frontier (the
+    output buffer holds nothing yet), else a read of each frontier
+    sector whose ``changed`` bit is set and a write of each one that
+    improved (``changed_out``); each in-edge (id and weight) whose source
+    has some bit set, indptr, order and both masks once; an add and a
+    min for each (edge, row) whose source's sector bit is set.
+    ``portbench/work.py`` counts the same work per value."""
     import torch
     from repro_torch.core.sync import host_read
-    from repro_torch.kernels.spmv_relax.kernel import ROW_TILE
+    from repro_torch.kernels.spmv_relax.kernel import (SECTOR_ROWS,
+                                                       sector_bits)
     vp = csr.order.shape[0]
     n_tiles = changed.shape[0]
-    tile_rows = torch.full((n_tiles,), ROW_TILE, dtype=torch.int64,
-                           device=changed.device)
-    tile_rows[-1] = rows - ROW_TILE * (n_tiles - 1)
-    live = changed[:, csr.src.long()].sum(1)
-    pairs = int(host_read((live * tile_rows).sum()))
-    n_bytes = (2 * vp * rows * 4 + csr.src.numel() * 8 + (vp + 1) * 4
-               + vp * 4 + 2 * n_tiles * vp)
-    return n_bytes, 2 * pairs + vp * rows
+    src = csr.src.long()
+    bits_in = sector_bits(changed)
+    set_in, set_out, pairs, edges = (int(x) for x in host_read(torch.stack([
+        bits_in.sum(dtype=torch.int64),
+        sector_bits(changed_out).sum(dtype=torch.int64),
+        bits_in[:, src].sum(dtype=torch.int64) * SECTOR_ROWS,
+        (changed != 0).any(0)[src].sum()])))
+    frontier = 2 * vp * rows * 4 if full else 32 * (set_in + set_out)
+    n_bytes = (frontier + 8 * edges + (vp + 1) * 4 + vp * 4
+               + 2 * 2 * n_tiles * vp)
+    return n_bytes, 2 * pairs
 
 
 def replay_csr(idx, s, t) -> dict:
-    """Replay the query's ell_loop relaxation round by round: each
-    round's output, mask and flag from the kernel against the plain
-    version (``torch.equal``), until the first round that improves
-    nothing; the count must equal the route's ``rounds``. Times the
-    first round (at the seed frontier) with its plain version, every
-    round's kernel, a quiet launch (flag in 0) and the whole
-    ``relax_csr_rounds`` loop on the host clock."""
+    """Replay the query's ell_loop relaxation round by round, as
+    ``relax_csr_rounds`` runs it: round 0 writes all of a fresh buffer
+    (``full``), each later round writes into the buffer of the round
+    before's input (``full`` 0). Each round's output, mask and flag from
+    the kernel are held against the plain version's on the same inputs
+    (``torch.equal``), until the first round that improves nothing; the
+    count must equal the route's ``rounds``. Times the first round (at
+    the seed frontier) with its plain version, every round's kernel
+    against its sector-level bound (``csr_round_work``), a quiet launch
+    (flag in 0) and the whole ``relax_csr_rounds`` loop on the host
+    clock."""
     import torch
     from repro_torch.core.dispatch import relax_csr_rounds, seed_vertex_major
     from repro_torch.core.sync import host_read
@@ -4009,10 +4029,9 @@ def replay_csr(idx, s, t) -> dict:
     rows = -(-2 * rs.ids.shape[0] // bq) * bq
     del rs
 
-    def round_args(cur, changed, flag_in):
-        return (cur, csr, changed, flag_in, torch.empty_like(cur),
-                torch.empty_like(changed),
-                torch.zeros(1, dtype=torch.int32, device=cur.device))
+    def round_args(cur, changed, flag_in, out, changed_out, full):
+        return (cur, csr, changed, flag_in, out, changed_out,
+                torch.zeros(1, dtype=torch.int32, device=cur.device), full)
 
     def loop_ms():
         d0, c0 = seed_vertex_major(*seeds, vp, rows)
@@ -4024,21 +4043,27 @@ def replay_csr(idx, s, t) -> dict:
 
     cur, changed = seed_vertex_major(*seeds, vp, rows)
     flag_in = torch.ones(1, dtype=torch.int32, device=cur.device)
-    args = round_args(cur, changed, flag_in)
-    n_bytes, n_ops = csr_round_work(csr, changed, rows)
+    args = round_args(cur, changed, flag_in, torch.empty_like(cur),
+                      torch.empty_like(changed), 1)
+    spmv_relax_kernel(*args)     # the round's changed_out, for its bound
+    n_bytes, n_ops = csr_round_work(csr, changed, args[5], rows, 1)
     rec = time_kernel("spmv_relax_kernel", args, n_bytes, n_ops, iters=10)
-    quiet = round_args(cur, changed, torch.zeros_like(flag_in))
+    quiet = round_args(cur, changed, torch.zeros_like(flag_in),
+                       torch.empty_like(cur), torch.empty_like(changed), 1)
     rec["quiet_ms"], rec["quiet_wall_ms"] = cuda_ms(
         lambda: spmv_relax_kernel(*quiet), 50)
+    del quiet
     rounds, all_ms, all_bound, per_round = 0, 0.0, 0.0, []
     while rounds < eng.max_rounds:
         if rounds:
-            args = round_args(cur, changed, flag_in)
-            n_bytes, n_ops = csr_round_work(csr, changed, rows)
+            args = round_args(cur, changed, flag_in, prev, prev_changed, 0)
             compare("spmv_relax_kernel", args)
         ms, _ = cuda_ms(lambda: spmv_relax_kernel(*args), 3)
-        b_ms, _ = bound(n_bytes, n_ops)
         spmv_relax_kernel(*args)
+        if rounds:
+            n_bytes, n_ops = csr_round_work(csr, changed, args[5], rows, 0)
+        b_ms, _ = bound(n_bytes, n_ops)
+        prev, prev_changed = cur, changed
         cur, changed, flag_in = args[4], args[5], args[6]
         rounds += 1
         all_ms += ms
@@ -4049,7 +4074,7 @@ def replay_csr(idx, s, t) -> dict:
     if rounds != eng._last_rounds:
         fail(f"replay ran {rounds} rounds, the route counted "
              f"{eng._last_rounds}")
-    del cur, changed, args, quiet
+    del cur, changed, args, prev, prev_changed
     rec.update(
         rounds=rounds, all_rounds_ms=all_ms, all_rounds_bound_ms=all_bound,
         per_round_ms=per_round, all_rounds_wall_ms=loop_ms(), vp=vp,

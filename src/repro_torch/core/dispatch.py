@@ -53,9 +53,11 @@ from repro_torch.core.sync import host_read, upload
 from repro_torch.kernels.backend import resolve_backend, resolve_device
 from repro_torch.kernels.label_intersect import ops as li_ops
 from repro_torch.kernels.minplus_matmul.ops import minplus_matmul
-from repro_torch.kernels.spmv_relax.kernel import (ROW_TILE, RelaxCSR,
+from repro_torch.kernels.spmv_relax.kernel import (ROW_TILE, SECTOR_ROWS,
+                                                   TILE_SECTORS, RelaxCSR,
                                                    SlicedEdges,
-                                                   fused_vmem_bytes)
+                                                   fused_vmem_bytes,
+                                                   pack_sectors)
 from repro_torch.kernels.spmv_relax.ops import (coo_to_csr, coo_to_sliced,
                                                 ell_width, fused_relax,
                                                 spmv_relax)
@@ -168,8 +170,9 @@ def seed_vertex_major(seeds_s, seeds_t, vp: int, rows: int):
     """Both sides' label seeds scattered (min) straight into one
     vertex-major [vp, rows] frontier (s rows 0..Q-1, t rows Q..2Q-1,
     +inf elsewhere), and the first round's ``changed`` mask
-    bool[ceil(rows / ROW_TILE), vp]: the (tile, vertex) pairs that hold a
-    finite seed, the only sources that can lower anything."""
+    int16[ceil(rows / ROW_TILE), vp]: bit j of [t, v] set where a finite
+    seed lies in sector j (8 rows) of row tile t at v, the only sources
+    that can lower anything."""
     (cpos_s, d_s), (cpos_t, d_t) = seeds_s, seeds_t
     q, l = cpos_s.shape
     dev = d_s.device
@@ -179,11 +182,16 @@ def seed_vertex_major(seeds_s, seeds_t, vp: int, rows: int):
     d0 = torch.full((vp * rows,), INF, dtype=torch.float32, device=dev)
     d0.scatter_reduce_(0, cpos * rows + r, d, "amin", include_self=True)
     n_tiles = -(-rows // ROW_TILE)
-    # +inf seeds park in one extra slot past the mask
-    changed = torch.zeros(n_tiles * vp + 1, dtype=torch.bool, device=dev)
-    changed.index_fill_(0, torch.where(d < INF, (r // ROW_TILE) * vp + cpos,
-                                       n_tiles * vp), True)
-    return d0.view(vp, rows), changed[:-1].view(n_tiles, vp)
+    # one flag a (tile, vertex, sector); +inf seeds park in one extra
+    # flag past the mask (plain stores: no atomics on the parked flag)
+    sector = r // SECTOR_ROWS
+    n_flags = n_tiles * vp * TILE_SECTORS
+    flags = torch.zeros(n_flags + 1, dtype=torch.bool, device=dev)
+    flags.index_fill_(0, torch.where(
+        d < INF, ((sector // TILE_SECTORS) * vp + cpos) * TILE_SECTORS
+        + sector % TILE_SECTORS, n_flags), True)
+    return d0.view(vp, rows), pack_sectors(
+        flags[:-1].view(n_tiles, vp, TILE_SECTORS))
 
 
 def stack_frontiers(seed_s, seed_t, vp: int, bq: int):
@@ -216,38 +224,41 @@ def relax_csr_rounds(cur, changed, csr: RelaxCSR, max_rounds: int):
     sets ``flags[i + 1]`` if it improved anything. A round whose flag is
     0 returns at once, leaving both buffers equal, so ``rounds`` (the
     rounds that ran, the last non-improving one included) is
-    ``flags[:done].sum()``, JAX's ``while_loop`` count.
+    ``flags[:done].sum()``, JAX's ``while_loop`` count. Round 0 writes
+    all of ``nxt`` (``full``); a later round's output buffer holds the
+    input of the round before, so the kernel writes only the sectors
+    that changed then or improve now.
 
     With program spans on, each round runs in a ``relax.round`` span and
-    the device counts ``relax.changed`` (the (tile, vertex) pairs set in
-    each counted round's input mask, summed per pair with one launch a
-    round) and ``relax.slots`` (n_tiles x Vp a counted round) accumulate
-    with no read."""
+    the device counts ``relax.changed`` (the (tile, vertex) pairs with
+    some bit set in each counted round's input mask), ``relax.sectors``
+    (the bits set in it) and ``relax.slots`` (n_tiles x Vp a counted
+    round) accumulate with no read: the kernel adds the first two into
+    one int64[2] as it reads the mask, with no launch of their own."""
     dev = cur.device
     nxt = torch.empty_like(cur)
     changed_nxt = torch.empty_like(changed)
     flags = torch.zeros(max_rounds + 1, dtype=torch.int32, device=dev)
     flags[:1].fill_(1)
-    hits = (torch.zeros(changed.shape, dtype=torch.int32, device=dev)
-            if spans_on() else None)
+    counts = (torch.zeros(2, dtype=torch.int64, device=dev)
+              if spans_on() else None)
     done = 0
     while done < max_rounds:
         for _ in range(min(CHECK_EVERY, max_rounds - done)):
             with span("relax.round"):
-                flag_in = flags[done:done + 1]
-                if hits is not None:
-                    hits.addcmul_(changed, flag_in)
-                spmv_relax(cur, csr, changed, flag_in=flag_in,
+                spmv_relax(cur, csr, changed, flag_in=flags[done:done + 1],
                            out=nxt, changed_out=changed_nxt,
-                           flag_out=flags[done + 1:done + 2], backend="cuda")
+                           flag_out=flags[done + 1:done + 2],
+                           full=done == 0, counts=counts, backend="cuda")
             cur, nxt = nxt, cur
             changed, changed_nxt = changed_nxt, changed
             done += 1
         if not host_read(flags[done]):
             break
     rounds = flags[:done].sum(dtype=torch.int32)
-    if hits is not None:
-        count_device("relax.changed", hits.sum(dtype=torch.int64))
+    if counts is not None:
+        count_device("relax.changed", counts[0])
+        count_device("relax.sectors", counts[1])
         count_device("relax.slots", rounds.long() * changed.numel())
     return cur, rounds
 

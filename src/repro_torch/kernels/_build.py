@@ -42,8 +42,8 @@ SIGNATURES = {
                                 _I, _P],
     "islabel_label_intersect_packed": [_P, _P, _P, _P, _I, _P, _P, _P, _P,
                                        _I, _P, _I, _I, _I, _I, _P],
-    "islabel_spmv_relax": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I,
-                           _I, _P],
+    "islabel_spmv_relax": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _P],
     "islabel_fused_relax": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                             _I, _P],
     "islabel_minplus_matmul": [_P, _P, _P, _I, _I, _I, _P],

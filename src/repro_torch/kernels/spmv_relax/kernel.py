@@ -12,8 +12,28 @@ from repro_torch.kernels import _build
 
 FUSED_BQ = 8        # rows per fused block (fixed in the CUDA source)
 ROW_TILE = 128      # frontier rows per work item (fixed in the CUDA source)
+SECTOR_ROWS = 8     # frontier rows a mask bit: one 32-byte sector
+TILE_SECTORS = ROW_TILE // SECTOR_ROWS  # mask bits a (tile, vertex)
+# a (tile, vertex) mask word: bit j is sector j of the tile; the kernel
+# reads it as uint16
+MASK_DTYPE = torch.int16
 HEAVY_DEGREE = 256  # in-degree above which a hub takes a whole block
 SLICE = 32          # fused destinations a slice (a warp; fixed in the source)
+
+
+def pack_sectors(bits):
+    """bool [..., TILE_SECTORS] -> ``MASK_DTYPE`` [...]: bit j set where
+    ``bits[..., j]`` is (bit 15 is the int16's sign bit)."""
+    shift = torch.arange(TILE_SECTORS, dtype=torch.int32, device=bits.device)
+    word = (bits.to(torch.int32) << shift).sum(-1, dtype=torch.int32)
+    return (word - ((word >> 15) << 16)).to(MASK_DTYPE)
+
+
+def sector_bits(mask):
+    """``MASK_DTYPE`` [...] -> int32 [...]: the set bits of each word
+    (its 8-row sectors that are marked)."""
+    word = mask.to(torch.int32) & 0xFFFF
+    return sum((word >> j) & 1 for j in range(TILE_SECTORS))
 
 
 class RelaxCSR(NamedTuple):
@@ -48,32 +68,45 @@ class SlicedEdges(NamedTuple):
     w: torch.Tensor
 
 
-def _check_flag(t, name):
+def _check_flag(t, name, dtype=torch.int32, n=1):
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != torch.int32 or t.numel() != 1 or not t.is_contiguous():
-        raise ValueError(f"{name} must be one contiguous int32, got "
+    if t.dtype != dtype or t.numel() != n or not t.is_contiguous():
+        raise ValueError(f"{name} must be {n} contiguous {dtype}, got "
                          f"{t.dtype} {tuple(t.shape)}")
 
 
 def spmv_relax_kernel(dist, csr: RelaxCSR, changed, flag_in, out,
-                      changed_out, flag_out):
+                      changed_out, flag_out, full=True, counts=None):
     """One synchronous round over the vertex-major frontier ``dist``
-    float32[Vp, R] (R % 8 == 0), gathering only from sources marked in
-    ``changed`` bool[ceil(R / ROW_TILE), Vp]. Writes ``out`` [Vp, R] and
-    ``changed_out`` (which (tile, vertex) improved) and sets ``flag_out``
-    int32[1] to 1 if any entry improved; when ``flag_in`` is 0 it writes
-    nothing. Returns (out, changed_out, flag_out)."""
+    float32[Vp, R] (R % 8 == 0), gathering only the sectors of sources
+    marked in ``changed`` int16[ceil(R / ROW_TILE), Vp] (bit j of
+    ``changed[t, u]``: rows 8j..8j+7 of row tile t changed at u). Writes
+    ``changed_out`` (which sectors of each (tile, vertex) improved) and
+    ``out`` [Vp, R], and sets ``flag_out`` int32[1] to 1 if any entry
+    improved; when ``flag_in`` is 0 it writes nothing.
+
+    ``full`` 1 loads and stores every sector of ``out``. With ``full``
+    0 the kernel stores only the sectors whose ``changed`` bit is set or
+    that improved, so ``out`` equals the plain version's only if it held
+    ``dist`` at every sector whose bit is 0: the buffer of the round
+    before, as ``relax_csr_rounds`` passes it.
+
+    ``counts`` int64[2], if given, gains the (tile, vertex) pairs with
+    some bit set in ``changed`` and the bits set in it, unless
+    ``flag_in`` is 0. Returns (out, changed_out, flag_out)."""
     _build.require(dist, "dist", torch.float32, 2)
     _build.require(out, "out", torch.float32, 2)
     _build.require(csr.indptr, "indptr", torch.int32, 1)
     _build.require(csr.src, "src", torch.int32, 1)
     _build.require(csr.w, "w", torch.float32, 1)
     _build.require(csr.order, "order", torch.int32, 1)
-    _build.require(changed, "changed", torch.bool, 2)
-    _build.require(changed_out, "changed_out", torch.bool, 2)
+    _build.require(changed, "changed", MASK_DTYPE, 2)
+    _build.require(changed_out, "changed_out", MASK_DTYPE, 2)
     _check_flag(flag_in, "flag_in")
     _check_flag(flag_out, "flag_out")
+    if counts is not None:
+        _check_flag(counts, "counts", torch.int64, 2)
     vp, rows = dist.shape
     if rows % 8:
         raise ValueError(f"spmv_relax_kernel needs R % 8 == 0, got R={rows}")
@@ -94,7 +127,7 @@ def spmv_relax_kernel(dist, csr: RelaxCSR, changed, flag_in, out,
         raise ValueError("out must not alias dist")
     _build.launch("islabel_spmv_relax", dist, csr.indptr, csr.src, csr.w,
                   csr.order, csr.n_heavy, changed, flag_in, out, changed_out,
-                  flag_out, rows, vp)
+                  flag_out, counts, int(bool(full)), rows, vp)
     return out, changed_out, flag_out
 
 

@@ -5,7 +5,8 @@ rule, and the ELL slot layout of the path lane's chase planes.
 ``spmv_relax`` replaces ``repro/kernels/spmv_relax/kernel.py:
 spmv_relax_kernel`` (one round per launch, the route of large cores):
 a vertex-major frontier, the core's real in-edges as a CSR, a per-(row
-tile, source) "changed last round" mask and an in-kernel exit flag
+tile, source) 16-bit "changed last round" mask, one bit per 8-row
+sector, and an in-kernel exit flag
 (``csrc/spmv_relax.cu``). ``fused_relax`` replaces ``fused_relax_kernel``
 (all rounds in one launch, per 8-row block, over the in-edges sliced
 32 destinations a warp, the block's rows vertex-major in shared memory
@@ -121,23 +122,30 @@ def coo_to_sliced(n_v: int, src, dst, w):
 
 
 def spmv_relax(dist, csr: RelaxCSR, changed, *, flag_in=None, out=None,
-               changed_out=None, flag_out=None, backend=None):
+               changed_out=None, flag_out=None, full=True, counts=None,
+               backend=None):
     """One synchronous round over the vertex-major frontier ``dist``
-    [Vp, R], gathering only from sources marked in ``changed``
-    [ceil(R / ROW_TILE), Vp]. Outputs not given are allocated (``flag_in``
-    defaults to 1, ``flag_out`` to 0). Returns (out, changed_out,
-    flag_out)."""
+    [Vp, R], gathering only the sectors of sources marked in ``changed``
+    int16[ceil(R / ROW_TILE), Vp] (8 rows a bit). Outputs not given are
+    allocated (``flag_in`` defaults to 1, ``flag_out`` to 0). ``full``
+    False lets the kernel leave the sectors of ``out`` that cannot
+    change: pass it only with ``out`` holding the round before's input
+    (``relax_csr_rounds``). ``counts`` int64[2], if given, gains the
+    (tile, vertex) pairs marked in ``changed`` and its set bits when
+    ``flag_in`` is 1. Returns (out, changed_out, flag_out)."""
     backend = resolve_backend(backend, dist.device)
     dev = dist.device
     if flag_in is None:
         flag_in = torch.ones(1, dtype=torch.int32, device=dev)
     if out is None:
         out = torch.empty_like(dist)
+        full = True
     if changed_out is None:
         changed_out = torch.empty_like(changed)
     if flag_out is None:
         flag_out = torch.zeros(1, dtype=torch.int32, device=dev)
-    args = (dist, csr, changed, flag_in, out, changed_out, flag_out)
+    args = (dist, csr, changed, flag_in, out, changed_out, flag_out, full,
+            counts)
     if backend == "reference" or not dist.is_cuda:
         return spmv_relax_ref(*args)
     res = spmv_relax_kernel(*args)

@@ -1,29 +1,50 @@
 """Plain PyTorch versions of the min-plus relaxation kernels."""
 import torch
 
-from repro_torch.kernels.spmv_relax.kernel import ROW_TILE, SLICE
+from repro_torch.kernels.spmv_relax.kernel import (ROW_TILE, SECTOR_ROWS,
+                                                   SLICE, TILE_SECTORS,
+                                                   pack_sectors, sector_bits)
 
 GATHER_ELEMS = 2 ** 25   # [edges, R] gather elements per chunk (128 MB)
 
 
-def tile_any(mask):
-    """bool [Vp, R] -> [ceil(R / ROW_TILE), Vp]: whether any row of each
-    row tile is set, per vertex."""
+def sector_any(mask):
+    """bool [Vp, R] -> int16 [ceil(R / ROW_TILE), Vp]: bit j of
+    ``[t, v]`` set where any row of sector j of row tile t (rows
+    ``t * ROW_TILE + 8j`` to ``+ 7``) is set at v."""
     vp, rows = mask.shape
     n_tiles = -(-rows // ROW_TILE)
     pad = n_tiles * ROW_TILE - rows
     if pad:
         mask = torch.cat([mask, mask.new_zeros(vp, pad)], 1)
-    return mask.view(vp, n_tiles, ROW_TILE).any(2).T.contiguous()
+    bits = mask.view(vp, n_tiles, TILE_SECTORS, SECTOR_ROWS).any(3)
+    return pack_sectors(bits).T.contiguous()
 
 
-def spmv_relax_ref(dist, csr, changed, flag_in, out, changed_out, flag_out):
+def sector_rows(changed, rows: int):
+    """int16 [n_tiles, Vp] -> bool [Vp, rows]: whether each row's sector
+    bit is set, per vertex."""
+    shift = torch.arange(TILE_SECTORS, dtype=torch.int32,
+                         device=changed.device)
+    bits = (changed.T.to(torch.int32)[..., None] >> shift) & 1  # [Vp, t, 16]
+    return bits.bool().flatten(1).repeat_interleave(SECTOR_ROWS, 1)[:, :rows]
+
+
+def spmv_relax_ref(dist, csr, changed, flag_in, out, changed_out, flag_out,
+                   full=True, counts=None):
     """One Jacobi round over the vertex-major frontier ``dist`` [Vp, R]:
     ``out[v, r] = min(dist[v, r], dist[u, r] + w)`` over the in-edges
-    (u -> v, w) of ``csr`` whose source is marked in
-    ``changed[r // ROW_TILE, u]``. ``changed_out[t, v]``: some row of
-    tile t improved at v; ``flag_out`` is set to 1 if any entry improved. When ``flag_in`` is 0
-    the outputs keep what they held. Returns (out, changed_out, flag_out).
+    (u -> v, w) of ``csr`` whose source has row r's sector bit set in
+    ``changed[r // ROW_TILE, u]`` (int16 sector masks, ``sector_any``).
+    ``changed_out[t, v]``: the sectors of tile t that improved at v;
+    ``flag_out`` is set to 1 if any entry improved; ``counts`` int64[2],
+    if given, gains the pairs with some bit set in ``changed`` and its
+    set bits. When ``flag_in`` is 0 the outputs and ``counts`` keep what
+    they held. Returns (out, changed_out, flag_out).
+
+    This version writes all of ``out`` whatever ``full`` says; the
+    kernel's ``out`` equals it when ``full`` is 1, or when ``out`` held
+    ``dist`` at every sector whose ``changed`` bit is 0.
 
     The min over the in-edges runs in chunks of edges, so memory stays
     O(Vp R); min is exact and order-free, so the result is bitwise the
@@ -34,13 +55,12 @@ def spmv_relax_ref(dist, csr, changed, flag_in, out, changed_out, flag_out):
     dst = torch.searchsorted(
         csr.indptr[1:].long(),
         torch.arange(n_edges, device=dist.device), right=True)
-    row_tile = torch.arange(rows, device=dist.device) // ROW_TILE
+    live_rows = sector_rows(changed, rows)                  # [Vp, R]
     cand = torch.full_like(dist, float("inf"))
     chunk = max(1, GATHER_ELEMS // max(rows, 1))
     for lo in range(0, n_edges, chunk):
         u = src[lo:lo + chunk]
-        live = changed[:, u].T[:, row_tile]                 # [c, R]
-        g = torch.where(live, dist[u] + csr.w[lo:lo + chunk, None],
+        g = torch.where(live_rows[u], dist[u] + csr.w[lo:lo + chunk, None],
                         float("inf"))
         cand.scatter_reduce_(0, dst[lo:lo + chunk, None].expand_as(g), g,
                              "amin")
@@ -48,8 +68,11 @@ def spmv_relax_ref(dist, csr, changed, flag_in, out, changed_out, flag_out):
     improved = new < dist
     go = flag_in.reshape(()) != 0
     out.copy_(torch.where(go, new, out))
-    changed_out.copy_(torch.where(go, tile_any(improved), changed_out))
+    changed_out.copy_(torch.where(go, sector_any(improved), changed_out))
     flag_out |= (go & improved.any()).to(flag_out.dtype)
+    if counts is not None:
+        counts += go * torch.stack([(changed != 0).sum(),
+                                    sector_bits(changed).sum()])
     return out, changed_out, flag_out
 
 

@@ -214,7 +214,7 @@ def test_kernel_bindings_refuse_cpu_tensors():
     sliced = SlicedEdges(torch.arange(4, dtype=torch.int32),
                          torch.zeros(2, dtype=torch.int32),
                          torch.zeros(0, dtype=torch.int32), torch.zeros(0))
-    mask = torch.ones((1, 8), dtype=torch.bool)
+    mask = torch.full((1, 8), -1, dtype=torch.int16)
     flag = torch.ones(1, dtype=torch.int32)
     calls = [lambda: label_intersect_kernel(ids, d, ids, d, 5),
              lambda: label_intersect_packed_kernel(delta, base, ids, delta,

@@ -30,13 +30,13 @@ from repro_torch.kernels.minplus_matmul.ops import minplus_matmul
 from repro_torch.core.dispatch import (CoreRelaxer, relax_csr_rounds,
                                        seed_vertex_major)
 from repro_torch.kernels.spmv_relax.kernel import (
-    FUSED_VARIANTS, HEAVY_DEGREE, ROW_TILE, SLICE,
-    SMEM_BLOCK_BYTES, VERTEX_BYTES, RelaxCSR, SlicedEdges, fused_variant,
-    fused_vmem_bytes)
+    FUSED_VARIANTS, HEAVY_DEGREE, MASK_DTYPE, ROW_TILE, SECTOR_ROWS, SLICE,
+    SMEM_BLOCK_BYTES, TILE_SECTORS, VERTEX_BYTES, RelaxCSR, SlicedEdges,
+    fused_variant, fused_vmem_bytes, pack_sectors)
 from repro_torch.kernels.spmv_relax.ops import (coo_to_csr, coo_to_sliced,
                                                 fused_relax, spmv_relax,
                                                 stable_argsort)
-from repro_torch.kernels.spmv_relax.ref import tile_any
+from repro_torch.kernels.spmv_relax.ref import sector_any, sector_rows
 
 J_BACKENDS = ("interpret", "reference")
 
@@ -221,6 +221,11 @@ def test_coo_to_csr_matches_repro_ell(case):
     assert n_heavy == (1 if case == "hub" else 0)
 
 
+def _all_sectors(n_tiles, v):
+    """A sector mask with every bit set (int16 -1 is 0xffff)."""
+    return np.full((n_tiles, v), -1, np.int16)
+
+
 def _round(dist_vm, csr, changed, **kw):
     return spmv_relax(torch.from_numpy(dist_vm), csr,
                       torch.from_numpy(changed), backend="cuda", **kw)
@@ -232,49 +237,50 @@ def test_spmv_relax_plain_matches_repro(case):
     frontier, equals ``repro``'s round on the ELL planes of the same COO
     (transposed); vertices without in-edges, R off the row tile, and a
     hub above the heavy degree. The mask out is the improved set per
-    row tile, the flag its OR."""
+    8-row sector of each row tile, the flag its OR."""
     src, dst, w, dist = SPMV_CASES[case]()
     q, v = dist.shape
     csr = _csr(v, src, dst, w)
     dist_vm = np.ascontiguousarray(dist.T)
     n_tiles = -(-q // ROW_TILE)
-    out, changed, flag = _round(dist_vm, csr,
-                                np.ones((n_tiles, v), bool))
+    out, changed, flag = _round(dist_vm, csr, _all_sectors(n_tiles, v))
     ids, ws = j_coo_to_ell(v, src, dst, w)
     for jb in J_BACKENDS:
         want = j_spmv(jnp.asarray(dist), jnp.asarray(ids), jnp.asarray(ws),
                       backend=jb)
         _same(out.T.contiguous(), want)
     improved = np.asarray(want).T < dist_vm
-    _same(changed, np.asarray(tile_any(torch.from_numpy(improved))))
+    _same(changed, np.asarray(sector_any(torch.from_numpy(improved))))
     assert int(flag) == int(improved.any()) == 1
     _same(out, spmv_relax(torch.from_numpy(dist_vm), csr,
-                          torch.ones((n_tiles, v), dtype=torch.bool),
+                          torch.from_numpy(_all_sectors(n_tiles, v)),
                           backend="reference")[0])
 
 
 @pytest.mark.parametrize("rows", [48, 264])
 def test_spmv_relax_plain_random_mask(rows):
     """Under a random mask the plain version gathers exactly from the
-    marked (row tile, source) pairs: equal to a numpy loop over the
-    edges. R % 8 == 0, off the row tile: inside one tile, or over three."""
+    marked (row tile, source, sector) triples: equal to a numpy loop over
+    the edges. R % 8 == 0, off the row tile: inside one tile, or over
+    three."""
     src, dst, w, dist = _hub_case(8, 200, 700, 45, HEAVY_DEGREE + 40)
     q, v = dist.shape
     d = np.full((v, rows), np.inf, np.float32)
     d[:, :q] = dist.T
     d[:, rows - q:] = np.minimum(d[:, rows - q:], dist.T[:, ::-1])
     rng = np.random.default_rng(rows)
-    mask = rng.random((-(-rows // ROW_TILE), v)) < 0.4
+    bits = rng.random((-(-rows // ROW_TILE), v, TILE_SECTORS)) < 0.4
+    mask = pack_sectors(torch.from_numpy(bits))
     out, changed, flag = spmv_relax(
-        torch.from_numpy(d), _csr(v, src, dst, w), torch.from_numpy(mask))
+        torch.from_numpy(d), _csr(v, src, dst, w), mask)
     want = d.copy()
     for u, x, wt in zip(src, dst, w):
         for r in range(rows):
-            if mask[r // ROW_TILE, u]:
+            if bits[r // ROW_TILE, u, r % ROW_TILE // SECTOR_ROWS]:
                 want[x, r] = min(want[x, r], np.float32(d[u, r] + wt))
     _same(out, want)
     imp = want < d
-    _same(changed, np.asarray(tile_any(torch.from_numpy(imp))))
+    _same(changed, np.asarray(sector_any(torch.from_numpy(imp))))
     assert int(flag) == int(imp.any())
 
 
@@ -283,10 +289,10 @@ def test_spmv_relax_plain_quiet_round_writes_nothing():
     src, dst, w, dist = _ell_case(4, 64, 300, 8)
     dist_vm = torch.from_numpy(np.ascontiguousarray(dist.T))
     out = torch.full_like(dist_vm, 7.0)
-    chg = torch.zeros((1, 64), dtype=torch.bool)
+    chg = torch.zeros((1, 64), dtype=MASK_DTYPE)
     flag = torch.zeros(1, dtype=torch.int32)
     spmv_relax(dist_vm, _csr(64, src, dst, w),
-               torch.ones((1, 64), dtype=torch.bool),
+               torch.from_numpy(_all_sectors(1, 64)),
                flag_in=torch.zeros(1, dtype=torch.int32), out=out,
                changed_out=chg, flag_out=flag)
     assert bool((out == 7.0).all()) and not chg.any() and int(flag) == 0
@@ -310,7 +316,8 @@ def test_masked_rounds_match_repro_rounds(case):
     rows = 2 * q
     cur, changed = seed_vertex_major(*seeds, v, rows)
     assert cur.shape == (v, rows) and changed.shape == (1, v)
-    _same(changed[0], np.isfinite(cur.numpy()).any(1))
+    _same(changed[0] != 0, np.isfinite(cur.numpy()).any(1))
+    _same(changed, np.asarray(sector_any(torch.isfinite(cur))))
     csr = _csr(v, src, dst, w)
     ids, ws = j_coo_to_ell(v, src, dst, w)
     j_d = jnp.asarray(cur.numpy().T)
@@ -328,6 +335,76 @@ def test_masked_rounds_match_repro_rounds(case):
     assert j_rounds > 2
     d0, changed0 = seed_vertex_major(*seeds, v, rows)
     d, rounds = relax_csr_rounds(d0, changed0, csr, max_rounds=10 * v)
+    _same(d.T.contiguous(), j_d)
+    assert int(rounds) == j_rounds
+
+
+@pytest.mark.parametrize("rows", [24, 136, 264])
+def test_sector_mask_packs_the_tile_mask(rows):
+    """``sector_any`` packs one bit per 8-row sector of each row tile:
+    a word is nonzero exactly where the tile-level mask it replaces (any
+    row of the tile) is set, bit j says whether rows 8j..8j+7 of the
+    tile are, and ``sector_rows`` spreads each bit back over its rows."""
+    v = 70
+    rng = np.random.default_rng(rows)
+    m = rng.random((v, rows)) < 0.02
+    m[3] = True
+    m[5, -1] = True                                 # the last sector only
+    got = sector_any(torch.from_numpy(m))
+    n_tiles = -(-rows // ROW_TILE)
+    assert got.dtype == MASK_DTYPE and got.shape == (n_tiles, v)
+    padded = np.zeros((v, n_tiles * ROW_TILE), bool)
+    padded[:, :rows] = m
+    tiles = padded.reshape(v, n_tiles, ROW_TILE).any(2).T
+    _same(got != 0, tiles)
+    sectors = padded.reshape(v, n_tiles, TILE_SECTORS, SECTOR_ROWS).any(3)
+    word = got.numpy().astype(np.int64) & 0xFFFF
+    for j in range(TILE_SECTORS):
+        _same((word >> j) & 1 == 1, sectors[:, :, j].T)
+    spread = np.repeat(sectors.reshape(v, -1), SECTOR_ROWS, 1)[:, :rows]
+    _same(sector_rows(got, rows), spread)
+    assert bool((got < 0).any()) == (rows >= ROW_TILE)  # bit 15: row 3
+
+
+@pytest.mark.parametrize("rows", [24, 136])
+def test_relax_csr_rounds_partial_sectors_match_repro(rows):
+    """Seeds that change only some sectors of a tile (every third sector
+    holds none), R off the row tile: each round of the plain version
+    under the sector mask equals ``repro``'s unmasked round bitwise, the
+    first mask has tiles with some bits and not others, and
+    ``relax_csr_rounds`` reaches the same fixed point in ``repro``'s
+    round count."""
+    src, dst, w, _ = SPMV_CASES["hub"]()
+    v = int(max(src.max(), dst.max())) + 1
+    q = rows // 2
+    rng = np.random.default_rng(rows)
+    cpos = rng.integers(0, v, (2, q, 4))
+    dl = rng.integers(0, 6, (2, q, 4)).astype(np.float32)
+    row = np.arange(2 * q).reshape(2, q)[..., None]
+    dl[np.broadcast_to(row // SECTOR_ROWS % 3 == 1, dl.shape)] = np.inf
+    seeds = [(torch.from_numpy(cpos[i]), torch.from_numpy(dl[i]))
+             for i in range(2)]
+    cur, changed = seed_vertex_major(*seeds, v, rows)
+    word = changed.numpy().astype(np.int64) & 0xFFFF
+    assert np.any((word != 0) & (word & 0b10 == 0))
+    csr = _csr(v, src, dst, w)
+    ids, ws = j_coo_to_ell(v, src, dst, w)
+    j_d = jnp.asarray(cur.numpy().T)
+    j_rounds, improved = 0, True
+    flag_in = torch.ones(1, dtype=torch.int32)
+    while improved:
+        j_next = j_spmv(j_d, ids, ws, backend="reference")
+        improved = bool(jnp.any(j_next < j_d))
+        j_rounds += 1
+        cur, changed, flag_in = spmv_relax(cur, csr, changed,
+                                           flag_in=flag_in)
+        _same(cur.T.contiguous(), j_next)
+        _same(changed, np.asarray(sector_any(torch.from_numpy(
+            np.asarray(j_next).T < np.asarray(j_d).T))))
+        j_d = j_next
+    assert j_rounds > 2
+    d, rounds = relax_csr_rounds(*seed_vertex_major(*seeds, v, rows), csr,
+                                 max_rounds=10 * v)
     _same(d.T.contiguous(), j_d)
     assert int(rounds) == j_rounds
 

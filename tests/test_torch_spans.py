@@ -4,8 +4,9 @@ Under a CPU ``torch.profiler`` a tiny build and query record the named
 spans, nested by layer. With spans off nothing is recorded, allocated
 or launched, and with them on the answers, the index and the counted
 blocking reads are the same. The counters count what they say:
-``relax.changed`` the (tile, vertex) pairs of each counted round's input
-mask, ``build.mis_rounds`` the rounds ``BuildStats`` records.
+``relax.changed`` the (tile, vertex) pairs with some bit set in each
+counted round's input mask, ``relax.sectors`` its set bits,
+``build.mis_rounds`` the rounds ``BuildStats`` records.
 """
 from __future__ import annotations
 
@@ -161,8 +162,9 @@ def test_answers_index_and_syncs_equal_with_spans_on_and_off(graph):
 
 def test_relax_changed_counts_each_counted_rounds_mask():
     """``relax_csr_rounds`` on CPU tensors against the same rounds run
-    one by one: the pairs set in each round's input mask, weighed by its
-    input flag, and n_tiles x Vp slots a counted round."""
+    one by one: the pairs with some bit set in each round's input mask
+    and its set bits, weighed by its input flag, and n_tiles x Vp slots
+    a counted round."""
     rng = np.random.default_rng(3)
     v, e, q = 150, 600, 80
     src = rng.integers(0, v, e).astype(np.int32)
@@ -176,9 +178,11 @@ def test_relax_changed_counts_each_counted_rounds_mask():
     rows = 2 * q
     cur, changed = seed_vertex_major(*seeds, v, rows)
     assert changed.shape[0] == 2
-    want, flag, rounds = 0, torch.ones(1, dtype=torch.int32), 0
+    want, sectors, flag, rounds = 0, 0, torch.ones(1, dtype=torch.int32), 0
     while int(flag):
-        want += int(changed.sum())
+        want += int((changed != 0).sum())
+        word = changed.numpy().astype(np.int64) & 0xFFFF
+        sectors += sum(int(((word >> j) & 1).sum()) for j in range(16))
         rounds += 1
         cur, changed, flag = spmv_relax(cur, csr, changed, flag_in=flag)
     (d, got_rounds), _, counters = _traced(
@@ -187,6 +191,7 @@ def test_relax_changed_counts_each_counted_rounds_mask():
     assert torch.equal(d, cur) and int(got_rounds) == rounds > 2
     # rounds past the fixed point (up to the next multiple of 8) count 0
     assert counters["relax.changed"] == want
+    assert counters["relax.sectors"] == sectors > want
     assert counters["relax.slots"] == rounds * changed.numel()
 
 
